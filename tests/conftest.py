@@ -28,3 +28,8 @@ except ImportError:
 def _clear_jax_caches_between_modules():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a CUDA device every test here skips. The file
+imports neither JAX nor the reference, so it runs where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.core.fft import dft
+from repro_torch.kernels import bandpass, fft_fourstep, fft_stockham, ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _planes(gen, shape):
+    return (torch.randn(shape, generator=gen, device="cuda"),
+            torch.randn(shape, generator=gen, device="cuda"))
+
+
+def _rel(got, want):
+    scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    return max(float((g - w).abs().max()) for g, w in zip(got, want)) / scale
+
+
+# B values that leave a ragged last row block for the CTA row counts the
+# wrappers pick (several rows per CTA at these N). 16384, 20000 and
+# 32768 are too long for one CTA's shared memory: the global path.
+@pytest.mark.parametrize("shape", [(1, 8192), (3, 1024), (8200, 64),
+                                   (9001, 200), (5, 360), (7, 257),
+                                   (4, 1), (3, 16384), (2, 20000),
+                                   (2, 32768)])
+def test_fourstep_kernel_matches_plain(gen, shape):
+    re, im = _planes(gen, shape)
+    tol = 5e-5 if shape[1] & (shape[1] - 1) == 0 else 1e-4
+    for inverse in (False, True):
+        before = fft_fourstep.fft_fourstep.launches
+        got = fft_fourstep.fft_fourstep(re, im, inverse=inverse)
+        assert fft_fourstep.fft_fourstep.launches == before + 1
+        assert _rel(got, dft.fourstep_fft(re, im, inverse=inverse)) < tol
+        assert _rel(got, dft.local_fft(re, im, inverse=inverse,
+                                       backend="jnp")) < 5e-6
+
+
+@pytest.mark.parametrize("n", [9973, 10007])
+def test_fourstep_kernel_long_prime_rows(gen, n):
+    # one dense N-point DFT (n1 = 1); 10007 is past one CTA's shared
+    # memory, 9973 just fits. The plain version's float32 angles reach
+    # 2*pi*(N-1)**2/N here, so torch.fft is the yardstick.
+    re, im = _planes(gen, (3, n))
+    for inverse in (False, True):
+        got = fft_fourstep.fft_fourstep(re, im, inverse=inverse)
+        assert _rel(got, dft.local_fft(re, im, inverse=inverse,
+                                       backend="jnp")) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (8200, 64), (1000, 128),
+                                   (3, 4096), (5, 1)])
+def test_stockham_kernel_matches_plain(gen, shape):
+    re, im = _planes(gen, shape)
+    for inverse in (False, True):
+        got = fft_stockham.fft_stockham(re, im, inverse=inverse)
+        assert _rel(got, dft.stockham_fft(re, im, inverse=inverse)) < 5e-5
+
+
+@pytest.mark.parametrize("block_b", [1, 8, 64, 128])
+def test_kernels_row_block_invariance(gen, block_b):
+    # B large enough that the wrappers put up to block_b rows in a CTA
+    re, im = _planes(gen, (16384, 128))
+    want = fft_stockham.fft_stockham(re, im, block_b=1)
+    got = fft_stockham.fft_stockham(re, im, block_b=block_b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    re, im = _planes(gen, (16384, 200))
+    want = fft_fourstep.fft_fourstep(re, im, block_b=1)
+    got = fft_fourstep.fft_fourstep(re, im, block_b=block_b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 1000), (8193, 129)])
+def test_bandpass_kernel_matches_plain(gen, shape):
+    re, im = _planes(gen, shape)
+    mask = torch.rand(shape, generator=gen, device="cuda")
+    r, i, kept, tot = bandpass.bandpass_filter(re, im, mask)
+    pr, pi, _, _ = ref.bandpass_ref(re, im, mask)
+    assert torch.equal(r, pr) and torch.equal(i, pi)
+    p = re.double() ** 2 + im.double() ** 2
+    assert abs(float(kept) / float((p * mask).sum()) - 1) < 1e-5
+    assert abs(float(tot) / float(p.sum()) - 1) < 1e-5
+    again = bandpass.bandpass_filter(re, im, mask)
+    assert torch.equal(again[2], kept) and torch.equal(again[3], tot)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    re, im = _planes(gen, (8, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        fft_fourstep.fft_fourstep(re.t(), im.t())
+    with pytest.raises(TypeError):
+        fft_stockham.fft_stockham(re.double(), im.double())
+    with pytest.raises(ValueError, match="power of two"):
+        fft_stockham.fft_stockham(re[:, :48].contiguous(),
+                                  im[:, :48].contiguous())
+    with pytest.raises(ValueError, match="device"):
+        fft_fourstep.fft_fourstep(re, im.cpu())
+    # ops makes strided views contiguous before the launch
+    got = ops.fft(re.t(), im.t())
+    want = dft.local_fft(re.t(), im.t(), backend="jnp")
+    assert _rel(got, want) < 5e-5
