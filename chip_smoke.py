@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card, through its kernels.
+"""Drive the PyTorch port's main paths on one CUDA card, through its kernels.
 
-The main path is the paper's Fig. 2 workflow: a noisy radiating source →
-forward FFT → bandpass → backward FFT → writer, built with
-``build_chain`` on a one-device mesh with planned ``backend: "pallas"``
-FFT endpoints, so every FFT pass runs the hand-written four-step or
-Stockham kernel and the bandpass stage runs the fused bandpass kernel.
+Two main paths:
+  * the paper's Fig. 2 workflow: a noisy radiating source → forward FFT →
+    bandpass → backward FFT → writer, built with ``build_chain`` on a
+    one-device mesh with planned ``backend: "pallas"`` FFT endpoints, so
+    every FFT pass runs the hand-written four-step or Stockham kernel and
+    the bandpass stage runs the fused bandpass kernel;
+  * LM serving: ``repro_torch.launch.serve.main`` on qwen3-4b at full
+    width and depth (36 layers, float32, random weights from a seed),
+    batch 4, a 2048-token prompt and 32 greedy tokens. Every prefill
+    attention layer runs the hand-written flash-attention kernel; decode
+    attends to the KV cache with plain PyTorch, as the reference does.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
   2. build   — nvcc builds ``src/repro_torch/kernels/csrc`` (seconds);
   3. kernels — each kernel against its plain PyTorch version on the
-     card, with its time, the plain version's, ``torch.fft``'s (a
-     yardstick only; the port never calls it for these kernels) and the
-     least time the card could take for the function (its bytes, or an
-     FFT's 5*N*log2(N) FLOP, over the published H100 SXM peaks); then
-     one ``{"kernels": [...]}`` line;
-  4. main path — the chain at 8192 x 8192 (every pass on the four-step
-     kernel) and at 128 x 128 (every pass on the Stockham kernel), in
-     ``insitu`` and ``intransit`` modes, held against a float64 numpy
-     oracle of the same chain, with the launch counts of each run;
-  5. profile — device time by kernel over one 8192 x 8192 in-situ run.
-The last line is ``{"ok": true, "device": {...}}``. Any failed check
-raises, and the script exits non-zero. Without a CUDA device it exits
-non-zero before printing anything.
+     card, with its time, the plain version's, one PyTorch call's that
+     computes the same function (``torch.fft``, scaled_dot_product_
+     attention: a yardstick only, the port never calls it) and the
+     least time the card could take for the function (its bytes, or its
+     FLOP, over the published H100 SXM peaks);
+  4. FFT main path — the chain at 8192 x 8192 (every pass on the
+     four-step kernel) and at 128 x 128 (every pass on the Stockham
+     kernel), in ``insitu`` and ``intransit`` modes, held against a
+     float64 numpy oracle of the same chain, with the launch counts of
+     each run; then device time by kernel over one 8192 x 8192 step;
+  5. serve main path — ``launch/serve.main`` as above, with every kernel's
+     launch count of that run (36 flash launches: one per layer of the
+     one prefill); a teacher-forced check that prefill then one decode
+     step gives the logits of a prefill one token longer; a continuous
+     batcher at the same width (4 slots, 6 requests); device time by
+     kernel over one 2048-token prefill and one decode step;
+then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
+"device": {...}}``. Any failed check raises, and the script exits
+non-zero. Without a CUDA device it exits non-zero before printing
+anything.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -41,6 +54,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Published NVIDIA H100 SXM peaks (data sheet, dense, at 700 W).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Kernel vs plain version on the same card inputs, relative to max
@@ -63,6 +77,20 @@ SUM_TOL = 1e-5
 FIELD_TOL = 1e-4
 ENERGY_TOL = 1e-5
 KEEP_FRAC = 0.05
+# Flash kernel vs its plain version: the reference's bars
+# (tests/test_flash_attention.py), elementwise |k - p| <= atol + rtol*|p|.
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
+# Teacher-forced serve check: prefill(S) + one decode step against
+# prefill(S + 1), max |difference| over max |logit|. Both run float32
+# products (no TF32) over 36 layers, by different routes (flash kernel
+# vs plain decode attention, other summation orders). An H100 run read
+# 4.93e-6 (PERF.md); 1e-4 leaves 20x room for float32 summation order and
+# sits far below what a wrong cache or position gives.
+TEACHER_TOL = 1e-4
+SERVE_ARCH = "qwen3-4b"
+SERVE_BATCH = 4
+SERVE_PROMPT = 2048
+SERVE_TOKENS = 32
 
 
 def emit(obj) -> None:
@@ -87,8 +115,8 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes")
@@ -248,11 +276,28 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     return res
 
 
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler; return its wall ms and its
+    device time by kernel as (name, ms, launches), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    return wall_ms, rows
+
+
 def profile_chain(dims, mesh, out_dir):
     """Device time by kernel over one in-situ run of the chain, from
     torch.profiler, and the device's idle share of the run's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
     from repro_torch.core.insitu.config import build_chain
     data = RadiatingSourceAdaptor(dims, mesh=mesh).produce(0)
@@ -265,23 +310,201 @@ def profile_chain(dims, mesh, out_dir):
     ]}, mesh=mesh, grid=data.grid)
     chain.execute(data)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        chain.execute(data)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(((e.key[:80], e.self_device_time_total / 1e3, e.count)
-                   for e in kernels), key=lambda r: -r[1])
+    wall_ms, rows = device_profile(lambda: chain.execute(data))
     busy = sum(r[1] for r in rows)
     emit({"phase": "profile", "dims": list(dims), "mode": "insitu",
           "stages": "fft -> bandpass -> fft (no writer)",
           "wall_ms": wall_ms, "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-          "by_kernel_ms": [{"name": n, "ms": t, "count": c}
+          "by_kernel_ms": [{"name": n[:80], "ms": t, "count": c}
                            for n, t, c in rows[:10]]})
+
+
+def check_flash(shape, dtype, causal, cap, gen):
+    """The flash kernel at one shape against its plain version; SDPA as
+    the library yardstick where it computes the same function (no
+    softcap)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, S, H, KV, hd = shape
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda")
+               .to(dtype) for n in (H, KV, KV))
+    got = flash_attention(q, k, v, causal=causal, softcap=cap)
+    want = flash_attention_ref(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[str(dtype).split(".")[-1]]
+    diff = (got.float() - want.float()).abs()
+    res = {"kernel": "flash_attention", "shape": list(shape),
+           "dtype": str(dtype).split(".")[-1], "causal": causal,
+           "softcap": cap, "atol": atol, "rtol": rtol,
+           "max_abs_err": float(diff.max()),
+           "max_excess": float((diff - rtol * want.float().abs()).max())}
+    ok = res["max_excess"] <= atol and got.dtype == dtype
+    if ok:
+        res["kernel_ms"] = time_ms(lambda: flash_attention(
+            q, k, v, causal=causal, softcap=cap))
+        res["plain_ms"] = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, softcap=cap))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        res["library_ms"] = (time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+            if cap == 0.0 else None)
+        pairs = S * (S + 1) / 2 if causal else S * S
+        res["bound_ms"], res["bound_by"] = bound(
+            4.0 * B * H * hd * pairs,
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+    emit(res)
+    if not ok:
+        raise AssertionError(f"flash_attention {shape} {dtype}: "
+                             f"{res['max_excess']} over rtol (bar {atol})")
+    return res
+
+
+def profile_serve(cfg, params, tokens):
+    """Device time by kernel over one prefill and over one decode step
+    after it, from torch.profiler, and the device's idle share of each
+    one's wall time."""
+    import torch
+    from repro_torch.models import lm
+    B, S = tokens.shape
+    state = None
+
+    def prefill():
+        nonlocal state
+        _, state = lm.prefill(cfg, params, {"tokens": tokens},
+                              cache_len=S + 2)
+
+    def decode():
+        lm.decode_step(cfg, params, tokens[:, -1:], dict(state, pos=S + 1))
+
+    for name, fn in (("prefill", prefill), ("decode_step", decode)):
+        if name == "decode_step":
+            lm.decode_step(cfg, params, tokens[:, -1:], state)  # warm-up
+            torch.cuda.synchronize()
+        wall_ms, rows = device_profile(fn)
+        busy = sum(r[1] for r in rows)
+
+        def share(pred):
+            return sum(t for n, t, _ in rows if pred(n.lower()))
+
+        flash = share(lambda n: "flash_kernel" in n)
+        gemm = share(lambda n: "gemm" in n or "cutlass" in n
+                     or "xmma" in n)
+        emit({"phase": f"profile_{name}", "arch": cfg.name,
+              "tokens": [B, S if name == "prefill" else 1],
+              "wall_ms": wall_ms, "device_busy_ms": busy,
+              "device_idle_share": 1.0 - busy / wall_ms,
+              "kernel_launches": sum(c for _, _, c in rows),
+              "flash_attention_ms": flash, "matmul_ms": gemm,
+              "other_ms": busy - flash - gemm,
+              "by_kernel_ms": [{"name": n[:80], "ms": t, "count": c}
+                               for n, t, c in rows[:10]]})
+
+
+def serve_path(counters):
+    """The serving main path at full qwen3-4b width and depth; returns
+    its flash launch count."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+    cfg = registry.get_config(SERVE_ARCH)
+    flash = counters["flash_attention"]
+
+    # the serving entry point, as a user runs it, on seeded parameters
+    # made on the card; the checks below reuse them
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    report = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+                         "--prompt-len", str(SERVE_PROMPT), "--tokens",
+                         str(SERVE_TOKENS), "--seed", "0", "--bench-out",
+                         ""], params=params)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res = {"phase": "serve", "arch": SERVE_ARCH, "dtype": "float32",
+           "layers": cfg.num_layers, "batch": SERVE_BATCH,
+           "prompt_len": SERVE_PROMPT, "tokens": SERVE_TOKENS,
+           "prefill_ms": report["prefill_ms"],
+           "decode_ms_per_token": report["decode_ms_per_token"],
+           "tokens_per_s": report["tokens_per_s"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "flash_launches_per_prefill": launches["flash_attention"],
+           "param_init_seconds": init_s,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert report["tokens_per_s"] > 0
+
+    # teacher-forced: prefill(S) then decode token S == prefill(S + 1)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (SERVE_BATCH, SERVE_PROMPT + 1), generator=gen,
+                           device="cuda")
+    flash.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, state = lm.prefill(cfg, params, {"tokens": tokens[:, :-1]},
+                          cache_len=SERVE_PROMPT + 1)
+    torch.cuda.synchronize()
+    warm_prefill_ms = (time.perf_counter() - t1) * 1e3
+    after_prefill = flash.launches
+    step, _ = lm.decode_step(cfg, params, tokens[:, -1:], state)
+    del state
+    after_decode = flash.launches
+    full, _ = lm.prefill(cfg, params, {"tokens": tokens})
+    rel = float((step - full).abs().max() / full.abs().max())
+    res = {"phase": "serve_teacher_forced", "arch": SERVE_ARCH,
+           "prefill_then_decode_vs_longer_prefill_rel_err": rel,
+           "tol": TEACHER_TOL, "logits_shape": list(full.shape),
+           "warm_prefill_ms": warm_prefill_ms,
+           "flash_launches_prefill_2048": after_prefill,
+           "flash_launches_decode": after_decode - after_prefill,
+           "flash_launches_prefill_2049": flash.launches - after_decode,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    assert full.shape == (SERVE_BATCH, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(step).all() and torch.isfinite(full).all())
+    assert after_prefill == cfg.num_layers == after_decode
+    assert flash.launches - after_decode == cfg.num_layers
+    assert rel < TEACHER_TOL, rel
+    del step, full
+
+    # continuous batching at the same width
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    eng = ContinuousBatcher(cfg, params, slots=4, cache_len=64)
+    for i in range(6):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(4, 17))).astype(np.int32),
+            max_new=8))
+    finished = eng.run()
+    torch.cuda.synchronize()
+    res = {"phase": "serve_engine", "arch": SERVE_ARCH, "slots": 4,
+           "requests": 6, "finished": len(finished),
+           "new_tokens": sorted(len(r.out) for r in finished.values()),
+           "ticks": eng.ticks, "seconds": time.perf_counter() - t0}
+    emit(res)
+    assert len(finished) == 6
+    assert all(len(r.out) == 8 and r.done for r in finished.values())
+    del eng
+
+    t0 = time.perf_counter()
+    profile_serve(cfg, params, tokens[:, :-1])
+    emit({"phase": "profile_serve_seconds",
+          "seconds": time.perf_counter() - t0})
+    return launches["flash_attention"]
 
 
 def main() -> int:
@@ -293,8 +516,10 @@ def main() -> int:
     from repro_torch.compat import make_mesh
     from repro_torch.core.fft import dft
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
     from repro_torch.kernels.fft_fourstep import fft_fourstep
     from repro_torch.kernels.fft_stockham import fft_stockham
+    from repro_torch.kernels.flash_attention import flash_attention
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -339,6 +564,17 @@ def main() -> int:
                 for s in ((128, 128), (8192, 128), (256, 64))]
     bandpass = [check_bandpass((8192, 8192), gen, soft)
                 for soft in (False, True)]
+    t0 = time.perf_counter()
+    # the qwen3-4b prefill shape first: its row goes in the kernels line
+    flash = [check_flash(shape, dtype, causal, cap, gen)
+             for shape, dtype, causal, cap in (
+                 ((SERVE_BATCH, SERVE_PROMPT, 32, 8, 128), torch.float32,
+                  True, 0.0),
+                 ((1, 256, 4, 2, 64), torch.float32, False, 30.0),
+                 ((1, 1024, 16, 8, 128), torch.bfloat16, True, 0.0),
+                 ((2, 300, 32, 8, 128), torch.float32, True, 0.0))]
+    emit({"phase": "flash_checks_seconds",
+          "seconds": time.perf_counter() - t0})
 
     # 4. main path
     mesh = make_mesh((1,), ("data",))
@@ -366,6 +602,12 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # 5. serve main path
+    flash_launches = serve_path({"fft_fourstep": ops.fft_fourstep,
+                                 "fft_stockham": ops.fft_stockham,
+                                 "bandpass_filter": ops.bandpass_filter,
+                                 "flash_attention": flash_attention})
+
     def row(name, source, replaces, main):
         dims = tuple(main["shape"])
         return {"name": name, "route": "cuda", "source": source,
@@ -388,6 +630,18 @@ def main() -> int:
             "src/repro/kernels/fft_stockham.py:64", stockham[0]),
         row("bandpass_filter", csrc + "bandpass.cu",
             "src/repro/kernels/bandpass.py:53", bandpass[0]),
+        {"name": "flash_attention", "route": "cuda",
+         "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:95",
+         "launches": flash_launches,
+         "launches_from": f"{SERVE_ARCH} serve main path (one "
+                          f"{SERVE_PROMPT}-token prefill, {SERVE_TOKENS} "
+                          f"decode steps)",
+         "shape": flash[0]["shape"], "dtype": flash[0]["dtype"],
+         "max_abs_err": flash[0]["max_abs_err"],
+         "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
+         "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
+         "library_ms": flash[0]["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -32,10 +32,13 @@ SMEM_MAX = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "repro_fft_fourstep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_fft_stockham": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_bandpass": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              *(_L,) * 12, _I, _F, _F, _I, _P),
 }
 
 _LIB = None

@@ -1,7 +1,9 @@
-"""``torch.fft`` oracles for the FFT and bandpass kernels (counterpart
-of ``repro/kernels/ref.py``; the flash-attention oracle comes with the
-LM substrate)."""
+"""Plain PyTorch versions of every kernel (counterpart of
+``repro/kernels/ref.py``): ``torch.fft`` oracles for the FFT and
+bandpass kernels, softmax attention for the flash kernel."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,3 +21,23 @@ def bandpass_ref(re, im, mask):
     m = mask.float()
     p = re.float() ** 2 + im.float() ** 2
     return re * m, im * m, torch.sum(p * m), torch.sum(p)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        softcap: float = 0.0):
+    """Plain softmax attention with GQA head sharing, causal mask and
+    optional logit softcap; the plain version of the flash kernel.
+    q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype."""
+    S, H, hd = q.shape[1:]
+    G = H // k.shape[2]
+    qf = q.float() / math.sqrt(hd)
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

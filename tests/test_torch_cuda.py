@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.core.fft import dft
-from repro_torch.kernels import bandpass, fft_fourstep, fft_stockham, ops, ref
+from repro_torch.kernels import (bandpass, fft_fourstep, fft_stockham,
+                                  flash_attention, ops, ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +117,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     got = ops.fft(re.t(), im.t())
     want = dft.local_fft(re.t(), im.t(), backend="jnp")
     assert _rel(got, want) < 5e-5
+
+
+# Flash attention against its plain version: the reference's bars,
+# atol 2e-5 / rtol 1e-4 in float32 (tests/test_flash_attention.py), 3e-2
+# in bf16.
+def _qkv(gen, B, S, H, KV, hd, dtype=torch.float32):
+    return tuple(torch.randn((B, S, n, hd), generator=gen, device="cuda")
+                 .to(dtype) for n in (H, KV, KV))
+
+
+def _close(got, want, tol=None):
+    if tol is None:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 30.0)])
+def test_flash_kernel_head_dims(gen, hd, causal, softcap):
+    q, k, v = _qkv(gen, 2, 200, 8, 2, hd)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          softcap=softcap)
+    assert flash_attention.flash_attention.launches == before + 1
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                        softcap=softcap))
+
+
+@pytest.mark.parametrize("S", [1, 5, 300, 2049])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ragged_sequence(gen, S, causal):
+    q, k, v = _qkv(gen, 1, S, 8, 2, 64)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal))
+
+
+def test_flash_kernel_block_invariance(gen):
+    # block_q/block_k are the reference's TPU tiling hint: accepted, and
+    # the result does not depend on them
+    q, k, v = _qkv(gen, 2, 300, 4, 4, 64)
+    want = flash_attention.flash_attention(q, k, v)
+    _close(want, ref.flash_attention_ref(q, k, v))
+    for bq, bk in ((32, 32), (32, 64), (64, 32), (128, 512), (256, 256)):
+        assert torch.equal(flash_attention.flash_attention(
+            q, k, v, block_q=bq, block_k=bk), want)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (8, 1)])
+def test_flash_kernel_bf16(gen, H, KV):
+    q, k, v = _qkv(gen, 1, 1024 // H, H, KV, 128, torch.bfloat16)
+    got = flash_attention.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    _close(got, ref.flash_attention_ref(q, k, v), tol=3e-2)
+
+
+def test_flash_kernel_reads_strided_views(gen):
+    # q/k/v as slices of one fused projection, as (B, S, H, hd) views
+    qkv = torch.randn((2, 130, 8 + 2 + 2, 32), generator=gen, device="cuda")
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert not q.is_contiguous()
+    got = flash_attention.flash_attention(q, k, v)
+    _close(got, ref.flash_attention_ref(q, k, v))
+    # aligned strides, start 8 bytes past a 16-byte boundary: copied
+    wide = torch.randn((2, 130, 8, 36), generator=gen, device="cuda")
+    q = wide[..., 2:34]
+    assert q.data_ptr() % 16
+    got = flash_attention.flash_attention(q, k, v)
+    _close(got, ref.flash_attention_ref(q, k, v))
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    q, k, v = _qkv(gen, 1, 64, 8, 2, 64)
+    with pytest.raises(ValueError, match="device"):
+        flash_attention.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.flash_attention(q[:, :, :7], k[:, :, :2],
+                                        v[:, :, :2])
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(q[..., :48], k[..., :48],
+                                        v[..., :48])
+    with pytest.raises(ValueError, match="block"):
+        flash_attention.flash_attention(q, k, v, block_q=0)

@@ -1,0 +1,157 @@
+"""The port's continuous-batching engine and serve entry point on CPU: the
+engine's tokens against the reference engine's on the same weights and
+prompts (those of ``tests/test_engine.py``), and against the port's own
+serial greedy decoding; slot reuse; the entry point's report; the flags that
+need modules not ported yet."""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.models import lm as jlm
+from repro.serve import engine as jengine
+from repro_torch.configs import registry
+from repro_torch.launch import serve
+from repro_torch.models import lm
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serve.engine import ContinuousBatcher, Request
+
+
+def serial_greedy(cfg, params, prompt, max_new):
+    toks = torch.from_numpy(np.asarray(prompt, np.int64))[None]
+    logits, state = lm.prefill(cfg, params, {"tokens": toks},
+                               cache_len=len(prompt) + max_new + 2)
+    out = []
+    tok = int(logits[0, -1].argmax())
+    for _ in range(max_new):
+        out.append(tok)
+        logits, state = lm.decode_step(cfg, params, torch.tensor([[tok]]),
+                                       state)
+        tok = int(logits[0, -1].argmax())
+    return out
+
+
+def _run(batcher, requests):
+    for req in requests:
+        batcher.submit(req)
+    return batcher.run()
+
+
+def test_engine_matches_reference_engine_and_serial_decode():
+    jcfg, cfg = (jregistry.get_reduced("qwen3-4b"),
+                 registry.get_reduced("qwen3-4b"))
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=p).astype(np.int32)
+               for p in (5, 7, 4, 6, 5)]
+    max_new = 6
+    want = _run(jengine.ContinuousBatcher(jcfg, jparams, slots=2,
+                                          cache_len=64),
+                [jengine.Request(rid=i, prompt=p, max_new=max_new)
+                 for i, p in enumerate(prompts)])
+    eng = ContinuousBatcher(cfg, params, slots=2, cache_len=64)
+    got = _run(eng, [Request(rid=i, prompt=p, max_new=max_new)
+                     for i, p in enumerate(prompts)])
+    assert len(got) == len(prompts)
+    for i, p in enumerate(prompts):
+        assert got[i].out == want[i].out, (i, got[i].out, want[i].out)
+        assert got[i].out == serial_greedy(cfg, params, p, max_new)
+
+
+def test_engine_slot_reuse():
+    """More requests than slots: slots must be reused, and a reused
+    slot's cache rows are reset."""
+    cfg = registry.get_reduced("qwen3-4b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(1),
+                            torch.float32)
+    rng = np.random.default_rng(1)
+    eng = ContinuousBatcher(cfg, params, slots=2, cache_len=32)
+    n = 5
+    finished = _run(eng, [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, 4).astype(np.int32), max_new=3)
+        for i in range(n)])
+    assert len(finished) == n
+    assert all(len(r.out) == 3 and r.done for r in finished.values())
+    eng._reset_slot_cache(0)
+    cache = eng.state["caches"]["l0"]
+    assert bool((cache.positions[:, 0] == -1).all())
+    assert not bool(cache.k[:, 0].any())
+    assert bool((cache.positions[:, 1] >= 0).any())
+
+
+def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
+    out = tmp_path / "bench.json"
+    report = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                         "--prompt-len", "12", "--tokens", "5",
+                         "--bench-out", str(out)])
+    assert report["arch"] == "qwen3-4b" and report["device"] == "cpu"
+    for key in ("prefill_ms", "decode_ms_per_token", "tokens_per_s"):
+        assert report[key] > 0
+    assert len(report["sample"]) == 5
+    rows = json.loads(out.read_text())
+    assert set(rows["rows"]) == {"serve_run_prefill",
+                                 "serve_run_decode_token"}
+    assert rows["source"] == "repro_torch.launch.serve"
+    # the same seed gives the same greedy tokens; '' prints the report
+    again = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                        "--prompt-len", "12", "--tokens", "5",
+                        "--bench-out", ""])
+    assert again["sample"] == report["sample"]
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])[
+        "sample"] == report["sample"]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--monitor-every", "2"], "items 11 and 15"),
+    (["--transit-consumers", "1"], "item 14"),
+    (["--elastic"], "item 17"),
+    (["--wisdom", "w.json"], "item 13"),
+    (["--coordinator", "localhost:1234"], "item 14"),
+    (["--num-processes", "2"], "item 14"),
+    (["--process-id", "0"], "item 14"),
+    (["--arch", "dbrx-132b"], "item 18"),
+])
+def test_serve_flags_not_ported_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
+                    *flags])
+
+
+def test_serve_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--bench-out", ""])
+
+
+def test_serve_main_serves_given_params():
+    """Parameters handed to ``main`` are the ones served: its greedy
+    tokens are those of serial decoding with them."""
+    cfg = registry.get_reduced("qwen3-4b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(7),
+                            torch.float32)
+    report = serve.main(["--reduced", "--device", "cpu", "--batch", "1",
+                         "--prompt-len", "6", "--tokens", "4", "--seed",
+                         "3", "--bench-out", ""], params=params)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 6),
+                           generator=torch.Generator().manual_seed(3))
+    assert report["sample"] == serial_greedy(cfg, params, prompt[0].numpy(),
+                                             4)
+
+
+def test_loaders_default_to_the_card():
+    """Like every entry point of the port, weights and caches go to the
+    CUDA device unless the caller asks for the CPU."""
+    import inspect
+    from repro_torch.serve import kvcache
+    for fn in (params_from_jax, lm.init_decode_state, kvcache.init_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            kvcache.init_cache(1, 4, 1, 16)
