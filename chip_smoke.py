@@ -15,18 +15,25 @@ Two main paths:
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
-  2. build   — nvcc builds ``src/repro_torch/kernels/csrc`` (seconds);
+  2. build   — nvcc builds ``src/repro_torch/kernels/csrc`` (seconds),
+     with ptxas's count of kernels and those that spill registers;
   3. kernels — each kernel against its plain PyTorch version on the
      card, with its time, the plain version's, one PyTorch call's that
      computes the same function (``torch.fft``, scaled_dot_product_
      attention: a yardstick only, the port never calls it) and the
      least time the card could take for the function (its bytes, or its
-     FLOP, over the published H100 SXM peaks);
+     FLOP, over the published H100 SXM peaks). The FFT kernels are held
+     on both routes: rows (last axis) and columns (axis -2, no
+     transposed copy), each also against ``torch.fft``; their device-only
+     time from torch.profiler (``device_ms``) stands beside the CUDA-event
+     time, so launch and host time show apart;
   4. FFT main path — the chain at 8192 x 8192 (every pass on the
      four-step kernel) and at 128 x 128 (every pass on the Stockham
      kernel), in ``insitu`` and ``intransit`` modes, held against a
      float64 numpy oracle of the same chain, with the launch counts of
-     each run; then device time by kernel over one 8192 x 8192 step;
+     each run (the column route's apart); then device time by kernel
+     over one 8192 x 8192 step, with the share of copy and elementwise
+     kernels;
   5. serve main path — ``launch/serve.main`` as above, with every kernel's
      launch count of that run (36 flash launches: one per layer of the
      one prefill); a teacher-forced check that prefill then one decode
@@ -115,6 +122,45 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device-only time of one call of ``fn``: the sum of its kernels'
+    device time under torch.profiler over ``iters`` calls, per call."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    _, rows = device_profile(run)
+    return sum(r[1] for r in rows) / iters
+
+
+def ptxas_report(log: Path) -> dict:
+    """Kernels ptxas compiled (from the build's ``-Xptxas=-v`` log) and
+    those among them with spill stores: registers, stack, spills."""
+    import re
+    kernels, spills, entry, name = 0, [], None, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernels, entry = kernels + 1, m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and int(m.group(2)):
+            spills.append({"function": name, "stack": int(m.group(1)),
+                           "spill_stores": int(m.group(2)),
+                           "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and spills and spills[-1]["function"] == entry:
+            spills[-1]["registers"] = int(m.group(1))
+    return {"kernels_compiled": kernels, "spilling": spills}
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -161,6 +207,65 @@ def check_fft(name, wrapper, plain, shape, gen):
     res["kernel_ms"] = time_ms(lambda: wrapper(re, im))
     res["plain_ms"] = time_ms(lambda: plain(re, im))
     res["library_ms"] = time_ms(lambda: torch.fft.fft(z, dim=-1))
+    res["device_ms"] = device_ms(lambda: wrapper(re, im))
+    res["library_device_ms"] = device_ms(lambda: torch.fft.fft(z, dim=-1))
+    res["bound_ms"], res["bound_by"] = bound(fft_flops(N) * B, 16.0 * B * N)
+    emit(res)
+    return res
+
+
+def check_fft_columns(name, wrapper, plain, shape, gen):
+    """One FFT kernel's column route, along axis -2 of ``shape`` viewed as
+    (outer, N, inner), against its plain version moved to the last axis
+    and back, and against ``torch.fft.fft(z, dim=-2)``."""
+    import torch
+    N, inner = shape[-2:]
+    outer = math.prod(shape[:-2])
+    tol = FFT_TOL_OTHER if N & (N - 1) else FFT_TOL_POW2
+    re = torch.randn(shape, generator=gen, device="cuda")
+    im = torch.randn(shape, generator=gen, device="cuda")
+    keep = (re.clone(), im.clone())
+    v3 = (outer, N, inner)
+    res = {"kernel": name, "route": "columns", "shape": list(shape),
+           "axis": -2, "tol": tol, "tol_vs_torch_fft": FFT_TOL_LIB}
+
+    def call(inverse=False):
+        kr, ki = wrapper(re.view(v3), im.view(v3), inverse=inverse)
+        return kr.view(shape), ki.view(shape)
+
+    for inverse in (False, True):
+        kr, ki = call(inverse)
+        pr, pi = plain(re.movedim(-2, -1), im.movedim(-2, -1),
+                       inverse=inverse)
+        pr, pi = pr.movedim(-1, -2), pi.movedim(-1, -2)
+        z = torch.complex(re, im)
+        lib = torch.fft.ifft(z, dim=-2) if inverse else torch.fft.fft(z,
+                                                                      dim=-2)
+        torch.cuda.synchronize()
+        scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
+        err = float(torch.maximum((kr - pr).abs().max(),
+                                  (ki - pi).abs().max()))
+        lib_err = float(torch.maximum((kr - lib.real).abs().max(),
+                                      (ki - lib.imag).abs().max()))
+        tag = "inverse_" if inverse else ""
+        res[tag + "max_abs_err"] = err
+        res[tag + "max_rel_err"] = err / scale
+        res[tag + "rel_err_vs_torch_fft"] = lib_err / scale
+        ok = (err / scale < tol and lib_err / scale < FFT_TOL_LIB
+              and kr.is_contiguous())
+        if not ok:
+            emit(res)
+            raise AssertionError(f"{name} columns {shape} inverse={inverse}: "
+                                 f"{err / scale:.3e} vs plain (bar {tol}), "
+                                 f"{lib_err / scale:.3e} vs torch.fft")
+    if not (torch.equal(re, keep[0]) and torch.equal(im, keep[1])):
+        raise AssertionError(f"{name} columns {shape}: input was written")
+    z = torch.complex(re, im)
+    res["kernel_ms"] = time_ms(call)
+    res["library_ms"] = time_ms(lambda: torch.fft.fft(z, dim=-2))
+    res["device_ms"] = device_ms(call)
+    res["library_device_ms"] = device_ms(lambda: torch.fft.fft(z, dim=-2))
+    B = outer * inner
     res["bound_ms"], res["bound_by"] = bound(fft_flops(N) * B, 16.0 * B * N)
     emit(res)
     return res
@@ -246,11 +351,15 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    for fn in (ops.fft_fourstep, ops.fft_stockham):
+        fn.column_launches = 0
     t0 = time.perf_counter()
     out = chain.execute(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["fft_fourstep_columns"] = ops.fft_fourstep.column_launches
+    launches["fft_stockham_columns"] = ops.fft_stockham.column_launches
     got = out.arrays["field"].cpu().numpy()
     field_err = float(np.abs(got - want).max())
     mse0 = float(np.mean((noisy - clean) ** 2))
@@ -277,19 +386,28 @@ def run_chain(dims, mode, mesh, expected, out_dir):
 
 
 def device_profile(fn):
-    """Run ``fn`` once under torch.profiler; return its wall ms and its
-    device time by kernel as (name, ms, launches), largest first."""
+    """Run ``fn`` under torch.profiler, once as the profiler's warm-up step
+    and once recorded (the first kernels after the trace starts can go
+    missing); return the recorded run's wall ms and its device time by
+    kernel as (name, ms, launches), largest first."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    # the schedule's step marker is a range, not a kernel
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")),
                   key=lambda r: -r[1])
     return wall_ms, rows
 
@@ -312,10 +430,19 @@ def profile_chain(dims, mesh, out_dir):
     torch.cuda.synchronize()
     wall_ms, rows = device_profile(lambda: chain.execute(data))
     busy = sum(r[1] for r in rows)
+    # PyTorch's copy and elementwise kernels (a transposing copy is one)
+    copies = [(n, t, c) for n, t, c in rows
+              if any(w in n.lower() for w in ("copy", "elementwise"))]
+    copy_ms = sum(t for _, t, _ in copies)
     emit({"phase": "profile", "dims": list(dims), "mode": "insitu",
           "stages": "fft -> bandpass -> fft (no writer)",
           "wall_ms": wall_ms, "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+          "kernel_launches": sum(c for _, _, c in rows),
+          "copy_elementwise_ms": copy_ms,
+          "copy_elementwise_share": copy_ms / busy if busy else None,
+          "copy_elementwise_kernels": [{"name": n[:80], "ms": t, "count": c}
+                                       for n, t, c in copies],
           "by_kernel_ms": [{"name": n[:80], "ms": t, "count": c}
                            for n, t, c in rows[:10]]})
 
@@ -517,8 +644,10 @@ def main() -> int:
     from repro_torch.core.fft import dft
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fft_fourstep import fft_fourstep
-    from repro_torch.kernels.fft_stockham import fft_stockham
+    from repro_torch.kernels.fft_fourstep import (fft_fourstep,
+                                                  fft_fourstep_columns)
+    from repro_torch.kernels.fft_stockham import (fft_stockham,
+                                                  fft_stockham_columns)
     from repro_torch.kernels.flash_attention import flash_attention
 
     # 1. device
@@ -541,27 +670,29 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(ROOT))})
+          "library": str(lib.relative_to(ROOT)),
+          **ptxas_report(lib.with_suffix(".log"))})
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    # (64, 16384): a row past one CTA's shared memory, the global path
+    # rows: powers of two on the radix route ((64, 16384) is the longest
+    # row one CTA's shared memory holds), 200/360/257 on the dense one,
+    # 20000 and 32768 past shared memory on the three-launch global path
     fourstep = [check_fft("fft_fourstep", fft_fourstep, dft.fourstep_fft,
                           s, gen)
                 for s in ((8192, 8192), (64, 200), (64, 360), (64, 257),
-                          (64, 16384))]
-    # what the dense DFT products of the four-step kernel do at 8192^2,
-    # N*(n1+n2) complex multiply-adds of 8 FLOP per row: not the
-    # function's bound, the algorithm's
-    n1, n2 = dft.split_factor(8192)
-    dft_flop = 8.0 * 8192 * 8192 * (n1 + n2)
-    emit({"kernel": "fft_fourstep", "shape": [8192, 8192],
-          "dft_matmul_gflop": dft_flop / 1e9,
-          "dft_matmul_fp32_ms": dft_flop / PEAK_FP32_FLOPS * 1e3})
+                          (64, 16384), (64, 20000), (64, 32768))]
     stockham = [check_fft("fft_stockham", fft_stockham, dft.stockham_fft,
                           s, gen)
                 for s in ((128, 128), (8192, 128), (256, 64))]
+    # columns, axis -2: 8192 points in two passes through a scratch
+    # buffer; 257 (not a power of two) through transposed copies
+    fourstep_cols = [check_fft_columns("fft_fourstep", fft_fourstep_columns,
+                                       dft.fourstep_fft, s, gen)
+                     for s in ((8192, 8192), (8192, 128), (3, 257, 100))]
+    stockham_cols = [check_fft_columns("fft_stockham", fft_stockham_columns,
+                                       dft.stockham_fft, (128, 128), gen)]
     bandpass = [check_bandpass((8192, 8192), gen, soft)
                 for soft in (False, True)]
     t0 = time.perf_counter()
@@ -584,12 +715,15 @@ def main() -> int:
     launches = {}
     try:
         for dims, must_run in (((8192, 8192), ("fft_fourstep",
+                                                "fft_fourstep_columns",
                                                 "bandpass_filter")),
                                ((128, 128), ("fft_stockham",
+                                             "fft_stockham_columns",
                                              "bandpass_filter"))):
             expected = oracle(dims)
             launches[dims] = dict.fromkeys(
-                ("fft_fourstep", "fft_stockham", "bandpass_filter"), 0)
+                ("fft_fourstep", "fft_stockham", "bandpass_filter",
+                 "fft_fourstep_columns", "fft_stockham_columns"), 0)
             for mode in ("insitu", "intransit"):
                 res = run_chain(dims, mode, mesh, expected, out_dir)
                 for k in must_run:
@@ -608,26 +742,39 @@ def main() -> int:
                                  "bandpass_filter": ops.bandpass_filter,
                                  "flash_attention": flash_attention})
 
-    def row(name, source, replaces, main):
+    def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[dims][name],
-                "launches_from": f"{dims[0]}x{dims[1]} main path, insitu + "
-                                 f"intransit",
-                "shape": main["shape"],
-                "max_abs_err": main["max_abs_err"],
-                "max_rel_err": main["max_rel_err"],
-                "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[dims][name],
+               "launches_from": f"{dims[0]}x{dims[1]} main path, insitu + "
+                                f"intransit",
+               "shape": main["shape"],
+               "max_abs_err": main["max_abs_err"],
+               "max_rel_err": main["max_rel_err"],
+               "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "library_ms": main["library_ms"]}
+        if cols is not None:
+            out.update({
+                "column_launches": launches[dims][name + "_columns"],
+                "column_ms": cols["kernel_ms"],
+                "column_library_ms": cols["library_ms"],
+                "column_max_abs_err": cols["max_abs_err"],
+                "device_ms": main["device_ms"],
+                "library_device_ms": main["library_device_ms"],
+                "column_device_ms": cols["device_ms"],
+                "column_library_device_ms": cols["library_device_ms"]})
+        return out
 
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         row("fft_fourstep", csrc + "fft_fourstep.cu",
-            "src/repro/kernels/fft_fourstep.py:89", fourstep[0]),
+            "src/repro/kernels/fft_fourstep.py:89", fourstep[0],
+            fourstep_cols[0]),
         row("fft_stockham", csrc + "fft_stockham.cu",
-            "src/repro/kernels/fft_stockham.py:64", stockham[0]),
+            "src/repro/kernels/fft_stockham.py:64", stockham[0],
+            stockham_cols[0]),
         row("bandpass_filter", csrc + "bandpass.cu",
             "src/repro/kernels/bandpass.py:53", bandpass[0]),
         {"name": "flash_attention", "route": "cuda",

@@ -15,7 +15,8 @@ Angles are taken in float32 exactly as the reference takes them
 (``dft.py:44-55``), so these functions repeat its rounding.
 ``local_fft`` dispatches between them, the kernels (``"pallas"``) and
 ``torch.fft`` (``"jnp"``). All functions operate along the LAST axis;
-callers move axes.
+callers move axes, except ``fft_along`` with ``backend="pallas"`` on a
+CUDA tensor, which hands the axis to the kernels' column route.
 """
 from __future__ import annotations
 
@@ -189,6 +190,14 @@ def local_fft(re, im, *, inverse: bool = False, backend: str = "auto"
 
 
 def fft_along(re, im, axis: int, **kw) -> Pair:
+    """FFT along ``axis``. The pallas backend on a CUDA tensor transforms
+    the axis where it lies (``kernels.ops.fft_axis``), so its output is
+    contiguous and no transposed copy is made; everything else moves the
+    axis last and back, as the reference does."""
+    if kw.get("backend") == "pallas" and re.is_cuda:
+        from repro_torch.kernels import ops as kops
+        return kops.fft_axis(re, im, axis,
+                             inverse=kw.get("inverse", False))
     re = torch.movedim(re, axis, -1)
     im = torch.movedim(im, axis, -1)
     rr, ii = local_fft(re, im, **kw)

@@ -3,8 +3,11 @@
 Every ``.cu`` file is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a`` with a plain C interface, and the objects are
 linked into one shared library under ``build/`` at the repository root.
-The library is named by a hash of the sources and flags, so a changed
-source builds anew and an unchanged one loads the existing file. It is
+The compilers' output (``ptxas -v``: registers, stack and spills of every
+kernel) is kept beside it, as ``libreprotorch_<hash>.log``.
+The library is named by a hash of the flags and of every file under
+``csrc/`` (the shared ``*.cuh`` headers too), so a changed source or
+header builds anew and an unchanged tree loads the existing file. It is
 loaded with ``ctypes``; every pointer and the stream travel as
 ``c_void_p``. The build runs at first use, from a kernel wrapper that
 was handed a CUDA tensor, never at import.
@@ -25,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 # dynamic shared memory one CTA may use on Hopper (227 KB)
 SMEM_MAX = 232448
 
@@ -35,7 +39,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fft_fourstep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_fft_stockham": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_fft_fourstep_axis": (_P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
+                                _P),
+    "repro_fft_stockham": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_fft_stockham_axis": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
     "repro_bandpass": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _F, _F, _I, _P),
@@ -53,11 +60,12 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _digest(sources) -> str:
+def _digest(csrc: Path) -> str:
+    """Hash of the flags and of every file under ``csrc``, in path order."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -65,7 +73,7 @@ def build() -> Path:
     """Compile the sources (if this hash has no library yet); return the
     library's path."""
     sources = sorted(CSRC.glob("*.cu"))
-    lib = BUILD_DIR / f"libreprotorch_{_digest(sources)}.so"
+    lib = BUILD_DIR / f"libreprotorch_{_digest(CSRC)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,6 +90,10 @@ def build() -> Path:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"--- {name}\n{log}" for name, log in failed))
+        log = Path(tmp) / "nvcc.log"
+        log.write_text("".join(f"--- {s.name}\n{text}"
+                               for s, text in zip(sources, logs)))
+        os.replace(log, lib.with_suffix(".log"))
         out = Path(tmp) / lib.name
         res = subprocess.run([nvcc, ARCH, "-shared", "-o", str(out),
                               *map(str, objs)], capture_output=True,
@@ -121,9 +133,9 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_planes(kernel: str, *tensors) -> None:
-    """What the kernels take: CUDA float32 2-D row-major planes, all of
-    one shape and on one device."""
+def check_planes(kernel: str, *tensors, ndim: int = 2) -> None:
+    """What the kernels take: CUDA float32 row-major planes of ``ndim``
+    dimensions, all of one shape and on one device."""
     first = tensors[0]
     for t in tensors:
         if t.device.type != "cuda" or t.device != first.device:
@@ -132,14 +144,21 @@ def check_planes(kernel: str, *tensors) -> None:
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel}: float32 planes required, got "
                             f"{t.dtype}")
-        if t.dim() != 2 or t.shape != first.shape:
-            raise ValueError(f"{kernel}: (B, N) planes of one shape "
+        if t.dim() != ndim or t.shape != first.shape:
+            raise ValueError(f"{kernel}: {ndim}-D planes of one shape "
                              f"required, got {tuple(t.shape)} and "
                              f"{tuple(first.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: contiguous planes required")
-    if first.shape[0] == 0 or first.shape[1] == 0:
+    if first.numel() == 0:
         raise ValueError(f"{kernel}: empty planes {tuple(first.shape)}")
+
+
+def check_block(kernel: str, block: int) -> None:
+    """The reference's TPU block hint must be a positive int."""
+    if not isinstance(block, int) or block < 1:
+        raise ValueError(f"{kernel}: block_b must be a positive int, got "
+                         f"{block!r}")
 
 
 def rows_per_cta(block: int, rows: int, fit: int,

@@ -1,39 +1,42 @@
-// Batched four-step (Bailey) FFT along the last axis, split re/im planes.
+// Batched complex FFT of split re/im f32 planes, forward or inverse (/N).
 //
 // Replaces the Pallas TPU kernel `fft_fourstep` (+ `_kernel`) in
-// src/repro/kernels/fft_fourstep.py. It computes what that kernel
-// computes, for any N = n1*n2 that `split_factor` gives (powers of two,
-// 200 = 10*20, 360 = 18*20, a prime as 1*N):
-//   step 1  Y[j][k2] = sum_a x[a*n1 + j] * w2^(a*k2)       (n2-point DFTs)
-//   step 2  Y[j][k2] *= exp(sign*2*pi*i*j*k2/N)             (twiddle)
-//   step 3  out[k1*n2 + k2] = sum_j Y[j][k2] * w1^(j*k1)    (n1-point DFTs)
-//   and /N for the inverse.
+// src/repro/kernels/fft_fourstep.py, and computes what it computes for
+// every N the wrapper takes: powers of two, 200 = 10*20, 360 = 18*20 and
+// primes (1*N), along the last axis, plus a column route along the middle
+// axis of an (outer, N, inner) tensor that needs no transposed copy.
 //
-// What bounds it on an H100: the function, a length-N FFT, needs about
-// 5*N*log2(N) FLOP and 16 bytes per point (two planes in, two out), so
-// its floor is the byte rate (at 8192 x 8192: 1 GiB, ~0.32 ms). This
-// kernel does the DFTs as dense products instead, N*(n1+n2) complex
-// multiply-adds per row (8 FLOP each, ~103 GFLOP at 8192 x 8192), in
-// full fp32 on the CUDA cores (TF32 tensor cores would miss the 5e-5
-// bar), so what holds it back is the fp32 FMA rate. Design:
-//   * one CTA owns whole rows: a row of N complex points is staged in
-//     shared memory (8N bytes, 64 KiB at N=8192) with a second buffer for
-//     the step-1 result, so the row crosses device memory once each way;
-//     above 48 KiB that is dynamic shared memory (cudaFuncSetAttribute);
-//   * a row too long for one CTA's shared memory (N above ~14.5k) takes
-//     the global path instead: step 1 + twiddle as one launch over
-//     (row, tile) into a scratch buffer, step 3 as a second launch from
-//     it, each thread reading its points through the caches;
-//   * W1, W2 and the twiddle never sit in memory as matrices: W1 and W2
-//     are n1- and n2-entry tables of exp(sign*2*pi*i*m/n) indexed by the
-//     exponent reduced mod n in integers, and the twiddle is one
-//     sincospif per output of step 1, all from exact integer exponents;
-//   * each thread accumulates a 4x4 tile of outputs, so every load of a
-//     point or a table entry feeds four complex FMAs;
-//   * the wrapper picks how many rows a CTA holds; the last CTA masks
-//     rows past B, so B need not be a multiple of the row block.
-// Later work: the DFT products on tensor cores with 3xTF32 splitting.
+// What bounds it on an H100: a length-N FFT needs about 5*N*log2(N) FLOP
+// and 16 bytes of device traffic per point (two planes in, two out), so
+// its floor is the byte rate (8192 x 8192: 1 GiB, ~0.32 ms). Routes:
+//   * rows, power-of-two N <= 16384: the radix-2/4/8/16 Stockham passes
+//     of fft_common.cuh (compiled in fft_stockham.cu, called here through
+//     the repro_fft entry points), a row in one CTA's shared memory (8N bytes plus a
+//     pad word per 32 and an mt/4 twiddle table, 74 KiB at 8192), points in
+//     registers, so the row crosses device memory once each way and the
+//     work is O(N log N);
+//   * columns, power-of-two N: N <= 256 in one pass (32 columns a CTA);
+//     up to 65536 as a four-step over device memory, N = n1*n2: n2-point
+//     column transforms at stride n1*inner with the twiddle
+//     exp(sign*2*pi*i*j*k2/N) fused on the way out, into the wrapper's
+//     scratch buffer, then n1-point transforms that write natural order;
+//     twice one pass's bytes;
+//   * rows of other N (200, 360, primes) keep the dense-product four-step
+//     below: a row staged in shared memory, the n1- and n2-point DFTs as
+//     4x4 register tiles of fp32 FMAs, N*(n1+n2) multiply-adds a row;
+//   * rows too long for one CTA's shared memory (power-of-two N > 16384,
+//     other N above ~14.5k, primes above ~9.7k) keep the global path, three
+//     launches: the twiddle tables, step 1 + twiddle into a scratch
+//     buffer, then step 3.
+// Every twiddle comes from an exact integer exponent reduced mod its root
+// count before sincospif/cospif; no fast-math intrinsics.
 #include <cuda_runtime.h>
+
+#include "fft_common.cuh"
+
+using repro_fft::Geom;
+using repro_fft::ilog2;
+using repro_fft::set_table;
 
 namespace {
 
@@ -257,26 +260,85 @@ int launch_global(const float* re, const float* im, float* ore, float* oim,
 
 }  // namespace
 
-// `work` null: the shared-memory path, `rows` rows per CTA. Otherwise the
-// global path, with `work` a scratch buffer of B*n1*n2 + n1 + n2 float2
-// and `rows` unused.
+// Rows along the last axis. Power-of-two n1*n2 <= 16384: the radix route
+// (`work` and `rows` unused). Otherwise `work` null: the shared-memory
+// dense path, `rows` rows per CTA; else the global path, with `work` a
+// scratch buffer of B*n1*n2 + n1 + n2 float2.
 extern "C" int repro_fft_fourstep(const float* re, const float* im,
                                   float* ore, float* oim, void* work, int B,
                                   int n1, int n2, int rows, int inverse,
                                   void* stream) {
-  if (B <= 0 || n1 <= 0 || n2 <= 0 || (!work && rows <= 0))
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n1 <= 0 || n2 <= 0) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)n1 * n2;
+  if ((n & (n - 1)) == 0 && n <= 16384)
+    return (int)repro_fft::fft_rows(re, im, ore, oim, B, ilog2(n), inverse,
+                                    (cudaStream_t)stream);
   if (work)
     return launch_global(re, im, ore, oim, (float2*)work, B, n1, n2,
                          inverse, (cudaStream_t)stream);
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
       ((size_t)2 * rows * n1 * n2 + n1 + n2) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fourstep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static size_t attr = 48 * 1024;   // set once, to the largest size so far
+  if (smem > attr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fourstep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr = smem;
+  }
   const int grid = (B + rows - 1) / rows;
   fourstep_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       re, im, ore, oim, B, n1, n2, rows, inverse);
   return (int)cudaGetLastError();
+}
+
+// Columns: an (outer, n1*n2, inner) tensor along its middle axis, written
+// in the same layout; n1*n2 a power of two. n1*n2 <= 256: one pass (`work`
+// unused). Otherwise n1, n2 <= 256 and two passes through `work`, two
+// planes of outer*n1*n2*inner floats.
+extern "C" int repro_fft_fourstep_axis(const float* re, const float* im,
+                                       float* ore, float* oim, void* work,
+                                       long long outer, int n1, int n2,
+                                       long long inner, int inverse,
+                                       void* stream) {
+  const long long n = (long long)n1 * n2;
+  if (outer <= 0 || inner <= 0 || n1 <= 0 || n2 <= 0 || (n & (n - 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 256)
+    return (int)repro_fft::fft_cols_one(re, im, ore, oim, outer, ilog2(n),
+                                        inner, inverse, s);
+  if (!work || n1 > 256 || n2 > 256) return (int)cudaErrorInvalidValue;
+  float* wre = (float*)work;
+  float* wim = wre + outer * n * inner;
+  // pass 1: x[o, a*n1 + j, c] -> Y[o, k2, j, c] * exp(sign*2*pi*i*j*k2/n),
+  // lines (j, c), n2 points at stride n1*inner
+  Geom g1 = {};
+  g1.lines = n1 * inner;
+  g1.o_split = 1;
+  g1.in_hi = g1.out_hi = n * inner;
+  g1.in_ps = g1.out_ps = n1 * inner;
+  g1.tw_div = (int)inner;
+  set_table(g1, n);
+  g1.sign = inverse ? 1.0f : -1.0f;
+  g1.scale = 1.0f;
+  cudaError_t err =
+      repro_fft::fft_cols(re, im, wre, wim, ilog2(n2), g1, outer, s);
+  if (err != cudaSuccess) return (int)err;
+  // pass 2: Y[o, k2, j, c] -> X[o, k1*n2 + k2, c], lines (o, k2, c), n1
+  // points at stride inner in, n2*inner out
+  Geom g2 = {};
+  g2.lines = inner;
+  g2.o_split = n2;
+  g2.in_hi = g2.out_hi = n * inner;
+  g2.in_lo = n1 * inner;
+  g2.out_lo = inner;
+  g2.in_ps = inner;
+  g2.out_ps = n2 * inner;
+  set_table(g2, n1);
+  g2.sign = g1.sign;
+  g2.scale = inverse ? 1.0f / (float)n : 1.0f;
+  return (int)repro_fft::fft_cols(wre, wim, ore, oim, ilog2(n1), g2,
+                                  outer * n2, s);
 }

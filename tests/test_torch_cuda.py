@@ -36,8 +36,9 @@ def _rel(got, want):
 
 
 # B values that leave a ragged last row block for the CTA row counts the
-# wrappers pick (several rows per CTA at these N). 16384, 20000 and
-# 32768 are too long for one CTA's shared memory: the global path.
+# wrappers pick (several rows per CTA at these N). 20000 and 32768 are too
+# long for one CTA's shared memory: the global path, three launches (the
+# twiddle tables, step 1, step 3); every other shape launches one kernel.
 @pytest.mark.parametrize("shape", [(1, 8192), (3, 1024), (8200, 64),
                                    (9001, 200), (5, 360), (7, 257),
                                    (4, 1), (3, 16384), (2, 20000),
@@ -45,10 +46,11 @@ def _rel(got, want):
 def test_fourstep_kernel_matches_plain(gen, shape):
     re, im = _planes(gen, shape)
     tol = 5e-5 if shape[1] & (shape[1] - 1) == 0 else 1e-4
+    kernels = 3 if shape[1] in (20000, 32768) else 1
     for inverse in (False, True):
         before = fft_fourstep.fft_fourstep.launches
         got = fft_fourstep.fft_fourstep(re, im, inverse=inverse)
-        assert fft_fourstep.fft_fourstep.launches == before + 1
+        assert fft_fourstep.fft_fourstep.launches == before + kernels
         assert _rel(got, dft.fourstep_fft(re, im, inverse=inverse)) < tol
         assert _rel(got, dft.local_fft(re, im, inverse=inverse,
                                        backend="jnp")) < 5e-6
@@ -88,6 +90,81 @@ def test_kernels_row_block_invariance(gen, block_b):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# The column route, (outer, N, inner) along the middle axis: inner == 1 is
+# the row route. Against the plain version (5e-5 for powers of two, 1e-4
+# otherwise) and torch.fft (1e-5, the kernels' own fp32 error).
+def _columns_plain(plain, re, im, inverse):
+    rr, ii = plain(re.movedim(1, -1), im.movedim(1, -1), inverse=inverse)
+    return rr.movedim(-1, 1), ii.movedim(-1, 1)
+
+
+@pytest.mark.parametrize("n", [8, 64, 128, 256, 1024, 8192, 16384, 200, 360,
+                               257, 20000, 32768])
+@pytest.mark.parametrize("inner", [1, 3, 32, 100])
+def test_fft_axis_routes_match_plain_and_torch_fft(gen, n, inner):
+    outer = 2 if n * inner <= 1 << 20 else 1
+    re, im = _planes(gen, (outer, n, inner))
+    keep = (re.clone(), im.clone())
+    tol = 5e-5 if n & (n - 1) == 0 else 1e-4
+    routes = [(fft_fourstep.fft_fourstep_columns, dft.fourstep_fft)]
+    if n & (n - 1) == 0 and n <= 256:
+        routes.append((fft_stockham.fft_stockham_columns, dft.stockham_fft))
+    for fn, plain in routes:
+        for inverse in (False, True):
+            got = fn(re, im, inverse=inverse)
+            assert got[0].shape == re.shape and got[0].is_contiguous()
+            assert _rel(got, _columns_plain(plain, re, im, inverse)) < tol
+            z = torch.complex(re, im)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=1)
+            assert _rel(got, (lib.real, lib.imag)) < 1e-5
+    # the caller's input is never written
+    assert torch.equal(re, keep[0]) and torch.equal(im, keep[1])
+    got = ops.fft_axis(re, im, 1)
+    lib = torch.fft.fft(torch.complex(re, im), dim=1)
+    assert _rel(got, (lib.real, lib.imag)) < 1e-5
+
+
+def test_column_route_counts_its_launches(gen):
+    # every kernel launched counts: two passes for 8192-point columns,
+    # one for a radix row, three on the global row path
+    re, im = _planes(gen, (1, 8192, 64))
+    fs = fft_fourstep.fft_fourstep
+    before, cols = fs.launches, fs.column_launches
+    fft_fourstep.fft_fourstep_columns(re, im)
+    assert (fs.launches, fs.column_launches) == (before + 2, cols + 2)
+    for n, kernels in ((8192, 1), (32768, 3)):
+        re, im = _planes(gen, (2, n))
+        before = fs.launches
+        fft_fourstep.fft_fourstep(re, im)
+        assert (fs.launches, fs.column_launches) == (before + kernels,
+                                                      cols + 2)
+    re, im = _planes(gen, (1, 128, 128))
+    st = fft_stockham.fft_stockham
+    before, cols = st.launches, st.column_launches
+    ops.fft_axis(re, im, 0)
+    assert (st.launches, st.column_launches) == (before + 1, cols + 1)
+
+
+def test_column_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    re, im = _planes(gen, (2, 64, 8))
+    for fn in (fft_fourstep.fft_fourstep_columns,
+               fft_stockham.fft_stockham_columns):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(re.transpose(0, 2), im.transpose(0, 2))
+        with pytest.raises(TypeError):
+            fn(re.double(), im.double())
+        with pytest.raises(ValueError, match="device"):
+            fn(re, im.cpu())
+        with pytest.raises(ValueError, match="3-D"):
+            fn(re[0], im[0])
+    with pytest.raises(ValueError, match="power of two"):
+        fft_stockham.fft_stockham_columns(re[:, :48].contiguous(),
+                                          im[:, :48].contiguous())
+    with pytest.raises(ValueError, match="past"):
+        big = _planes(gen, (1, 512, 2))
+        fft_stockham.fft_stockham_columns(*big)
+
+
 @pytest.mark.parametrize("shape", [(1, 1), (3, 1000), (8193, 129)])
 def test_bandpass_kernel_matches_plain(gen, shape):
     re, im = _planes(gen, shape)
@@ -113,6 +190,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                   im[:, :48].contiguous())
     with pytest.raises(ValueError, match="device"):
         fft_fourstep.fft_fourstep(re, im.cpu())
+    with pytest.raises(ValueError, match="block_b"):
+        fft_stockham.fft_stockham(re, im, block_b=0)
     # ops makes strided views contiguous before the launch
     got = ops.fft(re.t(), im.t())
     want = dft.local_fft(re.t(), im.t(), backend="jnp")

@@ -87,6 +87,25 @@ def test_fft_along_matches_reference(axis, backend):
     np.testing.assert_allclose(_c(r, i), ref, rtol=2e-4, atol=2e-3)
 
 
+@pytest.mark.parametrize("n", [8, 64, 128, 200, 256])
+@pytest.mark.parametrize("dims,axis", [((5, None), -1), ((None, 4, 3), -3),
+                                       ((2, None, 3), -2)])
+def test_fft_along_pallas_axes_match_reference(n, dims, axis):
+    # 2-D and 3-D, every axis: the pallas backend against the reference's
+    # (its Pallas kernels in interpret mode), with the tolerance of
+    # test_fft_along_matches_reference
+    shape = tuple(n if d is None else d for d in dims)
+    re = RNG.standard_normal(shape).astype(np.float32)
+    im = RNG.standard_normal(shape).astype(np.float32)
+    r, i = dft.fft_along(_t(re), _t(im), axis, backend="pallas")
+    jr, ji = jdft.fft_along(jnp.asarray(re), jnp.asarray(im), axis,
+                            backend="pallas")
+    assert r.shape == shape
+    np.testing.assert_allclose(_c(r, i), _c(jr, ji), rtol=1e-4, atol=1e-3)
+    ref = np.fft.fft(_c(re, im), axis=axis)
+    np.testing.assert_allclose(_c(r, i), ref, rtol=2e-4, atol=2e-3)
+
+
 def test_dft_helpers_match_reference():
     for n, sign in ((8, -1.0), (20, 1.0), (128, -1.0)):
         for got, want in zip(dft.dft_matrix(n, sign),
