@@ -16,7 +16,9 @@ Two main paths:
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
   2. build   — nvcc builds ``src/repro_torch/kernels/csrc`` (seconds),
-     with ptxas's count of kernels and those that spill registers;
+     with ptxas's count of kernels and those that spill registers, and
+     the tensor-core instructions (HGMMA, HMMA) in each flash kernel's
+     SASS (cuobjdump), which must have some;
   3. kernels — each kernel against its plain PyTorch version on the
      card, with its time, the plain version's, one PyTorch call's that
      computes the same function (``torch.fft``, scaled_dot_product_
@@ -26,7 +28,11 @@ Phases, each printing one JSON line:
      on both routes: rows (last axis) and columns (axis -2, no
      transposed copy), each also against ``torch.fft``; their device-only
      time from torch.profiler (``device_ms``) stands beside the CUDA-event
-     time, so launch and host time show apart;
+     time, so launch and host time show apart. The flash kernel is held
+     at the qwen3-4b prefill shape in float32 (three TF32 products on the
+     tensor cores: bounded by them at the TF32 peak, with the CUDA cores'
+     fp32 bound beside it) and bf16 (wgmma), each beside SDPA, and on a
+     float32 case with large logits that one TF32 product would fail;
   4. FFT main path — the chain at 8192 x 8192 (every pass on the
      four-step kernel) and at 128 x 128 (every pass on the Stockham
      kernel), in ``insitu`` and ``intransit`` modes, held against a
@@ -61,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Published NVIDIA H100 SXM peaks (data sheet, dense, at 700 W).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -98,6 +105,9 @@ SERVE_ARCH = "qwen3-4b"
 SERVE_BATCH = 4
 SERVE_PROMPT = 2048
 SERVE_TOKENS = 32
+# the flash kernels' symbols (csrc/flash_attention.cu), as the profiler
+# and cuobjdump name them
+FLASH_KERNELS = ("flash_tf32_kernel", "flash_wgmma_kernel")
 
 
 def emit(obj) -> None:
@@ -447,17 +457,20 @@ def profile_chain(dims, mesh, out_dir):
                            for n, t, c in rows[:10]]})
 
 
-def check_flash(shape, dtype, causal, cap, gen):
+def check_flash(shape, dtype, causal, cap, gen, mul=1.0):
     """The flash kernel at one shape against its plain version; SDPA as
     the library yardstick where it computes the same function (no
-    softcap)."""
+    softcap). ``mul`` scales q (larger logits). float32 runs as three
+    TF32 products on the tensor cores: its bound is those products at
+    the TF32 peak, with the CUDA cores' fp32 bound beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     B, S, H, KV, hd = shape
     q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda")
-               .to(dtype) for n in (H, KV, KV))
+               for n in (H, KV, KV))
+    q, k, v = (q * mul).to(dtype), k.to(dtype), v.to(dtype)
     got = flash_attention(q, k, v, causal=causal, softcap=cap)
     want = flash_attention_ref(q, k, v, causal=causal, softcap=cap)
     torch.cuda.synchronize()
@@ -465,13 +478,16 @@ def check_flash(shape, dtype, causal, cap, gen):
     diff = (got.float() - want.float()).abs()
     res = {"kernel": "flash_attention", "shape": list(shape),
            "dtype": str(dtype).split(".")[-1], "causal": causal,
-           "softcap": cap, "atol": atol, "rtol": rtol,
+           "softcap": cap, "q_scale": mul, "atol": atol, "rtol": rtol,
            "max_abs_err": float(diff.max()),
            "max_excess": float((diff - rtol * want.float().abs()).max())}
+    del want, diff
     ok = res["max_excess"] <= atol and got.dtype == dtype
     if ok:
-        res["kernel_ms"] = time_ms(lambda: flash_attention(
-            q, k, v, causal=causal, softcap=cap))
+        def call():
+            return flash_attention(q, k, v, causal=causal, softcap=cap)
+        res["kernel_ms"] = time_ms(call)
+        res["device_ms"] = device_ms(call)
         res["plain_ms"] = time_ms(lambda: flash_attention_ref(
             q, k, v, causal=causal, softcap=cap))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -479,15 +495,46 @@ def check_flash(shape, dtype, causal, cap, gen):
             qt, kt, vt, is_causal=causal, enable_gqa=True))
             if cap == 0.0 else None)
         pairs = S * (S + 1) / 2 if causal else S * S
-        res["bound_ms"], res["bound_by"] = bound(
-            4.0 * B * H * hd * pairs,
-            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-            PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        flops = 4.0 * B * H * hd * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        if dtype == torch.float32:
+            res["bound_ms"], res["bound_by"] = bound(3 * flops, nbytes,
+                                                     PEAK_TF32_FLOPS)
+            res["bound_note"] = "3 TF32 products at the TF32 tensor peak"
+            res["cuda_core_bound_ms"] = bound(flops, nbytes)[0]
+        else:
+            res["bound_ms"], res["bound_by"] = bound(flops, nbytes,
+                                                     PEAK_BF16_FLOPS)
+        res["tflops"] = flops / res["kernel_ms"] * 1e-9
     emit(res)
     if not ok:
         raise AssertionError(f"flash_attention {shape} {dtype}: "
                              f"{res['max_excess']} over rtol (bar {atol})")
     return res
+
+
+def sass_report(lib: Path) -> "dict | None":
+    """Tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each
+    flash kernel's SASS, from cuobjdump; None where there is none."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "flash_" in m.group(1) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            continue
+        if fn:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+    return counts
 
 
 def profile_serve(cfg, params, tokens):
@@ -517,7 +564,7 @@ def profile_serve(cfg, params, tokens):
         def share(pred):
             return sum(t for n, t, _ in rows if pred(n.lower()))
 
-        flash = share(lambda n: "flash_kernel" in n)
+        flash = share(lambda n: any(k in n for k in FLASH_KERNELS))
         gemm = share(lambda n: "gemm" in n or "cutlass" in n
                      or "xmma" in n)
         emit({"phase": f"profile_{name}", "arch": cfg.name,
@@ -648,7 +695,7 @@ def main() -> int:
                                                   fft_fourstep_columns)
     from repro_torch.kernels.fft_stockham import (fft_stockham,
                                                   fft_stockham_columns)
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -672,6 +719,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.relative_to(ROOT)),
           **ptxas_report(lib.with_suffix(".log"))})
+    sass = sass_report(lib)
+    emit({"phase": "flash_sass", "tensor_instructions": sass})
+    if sass is not None:   # one kernel per dtype and head dim
+        assert sorted(k for f in sass for k in FLASH_KERNELS if k in f) == \
+            sorted(FLASH_KERNELS * len(HEAD_DIMS)), sass
+        assert all(c["HGMMA"] + c["HMMA"] > 0 for c in sass.values()), sass
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -696,14 +749,19 @@ def main() -> int:
     bandpass = [check_bandpass((8192, 8192), gen, soft)
                 for soft in (False, True)]
     t0 = time.perf_counter()
-    # the qwen3-4b prefill shape first: its row goes in the kernels line
-    flash = [check_flash(shape, dtype, causal, cap, gen)
-             for shape, dtype, causal, cap in (
+    # the qwen3-4b prefill shape first: its row goes in the kernels line;
+    # then the same shape in bf16 (its row's bf16 keys)
+    flash = [check_flash(shape, dtype, causal, cap, gen, mul)
+             for shape, dtype, causal, cap, mul in (
                  ((SERVE_BATCH, SERVE_PROMPT, 32, 8, 128), torch.float32,
-                  True, 0.0),
-                 ((1, 256, 4, 2, 64), torch.float32, False, 30.0),
-                 ((1, 1024, 16, 8, 128), torch.bfloat16, True, 0.0),
-                 ((2, 300, 32, 8, 128), torch.float32, True, 0.0))]
+                  True, 0.0, 1.0),
+                 ((SERVE_BATCH, SERVE_PROMPT, 32, 8, 128), torch.bfloat16,
+                  True, 0.0, 1.0),
+                 ((1, 256, 4, 2, 64), torch.float32, False, 30.0, 1.0),
+                 ((1, 1024, 16, 8, 128), torch.bfloat16, True, 0.0, 1.0),
+                 ((2, 300, 32, 8, 128), torch.float32, True, 0.0, 1.0),
+                 # logits at std 4: one TF32 product would miss the bar
+                 ((1, 512, 4, 2, 128), torch.float32, True, 0.0, 4.0))]
     emit({"phase": "flash_checks_seconds",
           "seconds": time.perf_counter() - t0})
 
@@ -788,7 +846,15 @@ def main() -> int:
          "max_abs_err": flash[0]["max_abs_err"],
          "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
          "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
-         "library_ms": flash[0]["library_ms"]},
+         "bound_note": flash[0]["bound_note"],
+         "cuda_core_bound_ms": flash[0]["cuda_core_bound_ms"],
+         "library_ms": flash[0]["library_ms"],
+         "device_ms": flash[0]["device_ms"],
+         "bf16_ms": flash[1]["kernel_ms"],
+         "bf16_device_ms": flash[1]["device_ms"],
+         "bf16_max_abs_err": flash[1]["max_abs_err"],
+         "bf16_bound_ms": flash[1]["bound_ms"],
+         "bf16_library_ms": flash[1]["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

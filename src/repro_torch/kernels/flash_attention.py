@@ -1,6 +1,7 @@
 """Fused flash attention (forward): the CUDA kernel
 ``csrc/flash_attention.cu`` (port of the Pallas kernel
-``repro/kernels/flash_attention.py``).
+``repro/kernels/flash_attention.py``), on Hopper's tensor cores: float32
+as three TF32 products (``mma.sync``), bf16 on ``wgmma``.
 
 On CUDA tensors the wrapper launches the kernel or raises; on CPU
 tensors it computes the plain version, ``ref.flash_attention_ref``.
@@ -75,7 +76,8 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     the fused logit softcap (``softcap`` 0 = none). K/V heads are shared
     by query-head groups (no repeat). ``block_q``/``block_k`` are the
     reference's TPU tiling hint: checked, and not used, since the kernel
-    runs one 64 x 64 tile for every call; any S works."""
+    runs one tile shape for every call (128 query rows a CTA against
+    64-key tiles); any S works."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
     _check(q, k, v, block_q, block_k)

@@ -200,7 +200,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 # Flash attention against its plain version: the reference's bars,
 # atol 2e-5 / rtol 1e-4 in float32 (tests/test_flash_attention.py), 3e-2
-# in bf16.
+# in bf16. float32 runs as three TF32 products on the tensor cores,
+# bf16 on wgmma; both hold these bars.
 def _qkv(gen, B, S, H, KV, hd, dtype=torch.float32):
     return tuple(torch.randn((B, S, n, hd), generator=gen, device="cuda")
                  .to(dtype) for n in (H, KV, KV))
@@ -214,22 +215,63 @@ def _close(got, want, tol=None):
                                    rtol=tol)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 30.0)])
-def test_flash_kernel_head_dims(gen, hd, causal, softcap):
-    q, k, v = _qkv(gen, 2, 200, 8, 2, hd)
+def _flash_case(gen, shape, dtype, causal=True, softcap=0.0):
+    q, k, v = _qkv(gen, *shape, dtype)
     before = flash_attention.flash_attention.launches
     got = flash_attention.flash_attention(q, k, v, causal=causal,
                                           softcap=softcap)
     assert flash_attention.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
     _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
-                                        softcap=softcap))
+                                        softcap=softcap),
+           None if dtype == torch.float32 else 3e-2)
 
 
-@pytest.mark.parametrize("S", [1, 5, 300, 2049])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 30.0)])
+def test_flash_kernel_head_dims(gen, hd, causal, softcap):
+    _flash_case(gen, (2, 200, 8, 2, hd), torch.float32, causal, softcap)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 30.0),
+                                            (True, 30.0), (False, 0.0)])
+def test_flash_kernel_head_dims_bf16(gen, hd, causal, softcap):
+    _flash_case(gen, (2, 200, 8, 2, hd), torch.bfloat16, causal, softcap)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,softcap", [(True, 30.0), (False, 0.0)])
+def test_flash_kernel_head_dims_other_variants(gen, hd, causal, softcap):
+    _flash_case(gen, (2, 200, 8, 2, hd), torch.float32, causal, softcap)
+
+
+@pytest.mark.parametrize("S", [1, 5, 63, 65, 300, 2049])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_ragged_sequence(gen, S, causal):
     q, k, v = _qkv(gen, 1, S, 8, 2, 64)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("S", [1, 5, 63, 65, 300, 2049])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ragged_sequence_bf16(gen, S, causal):
+    _flash_case(gen, (1, S, 8, 2, 64), torch.bfloat16, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_flash_kernel_gqa(gen, dtype, G):
+    _flash_case(gen, (2, 300, 8, 8 // G, 128), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_scaled_logits_f32(gen, causal):
+    # q x 4 puts the logits at std 4 (|s| up to ~20): one TF32 product
+    # (~5e-4 relative) would miss the bar here; three hold it
+    q, k, v = _qkv(gen, 1, 512, 4, 2, 128)
+    q = q * 4.0
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     _close(got, ref.flash_attention_ref(q, k, v, causal=causal))
 
