@@ -160,6 +160,74 @@ __device__ __forceinline__ void dft_regs(float2* v, float sign) {
   }
 }
 
+// cos and sin of 2*pi*q/R for the odd radices R = 3, 5, 7, q taken mod R
+__host__ __device__ constexpr float cos_odd(int R, int q) {
+  q %= R;
+  return q == 0 ? 1.0f
+       : R == 3 ? -0.5f
+       : R == 5 ? (q == 1 || q == 4 ? 0.30901699437494742f
+                                    : -0.80901699437494742f)
+       : q == 1 || q == 6 ? 0.62348980185873353f
+       : q == 2 || q == 5 ? -0.22252093395631440f : -0.90096886790241913f;
+}
+__host__ __device__ constexpr float sin_odd(int R, int q) {
+  q %= R;
+  const bool neg = 2 * q > R;
+  const int p = neg ? R - q : q;
+  const float s = p == 0 ? 0.0f
+      : R == 3 ? 0.86602540378443865f
+      : R == 5 ? (p == 1 ? 0.95105651629515357f : 0.58778525229247313f)
+      : p == 1 ? 0.78183148246802981f
+      : p == 2 ? 0.97492791218182361f : 0.43388373911755812f;
+  return neg ? -s : s;
+}
+
+// In-register R-point DFT for an odd prime R (3, 5, 7): the inputs are
+// paired (r, R - r), so each output takes (R - 1)/2 real-coefficient
+// products of sums and of differences. Every index is a compile-time
+// constant.
+template <int R>
+__device__ __forceinline__ void dft_odd(float2* v, float sign) {
+  constexpr int H = (R - 1) / 2;
+  float2 a[H], b[H];
+  float2 x0 = v[0];
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    const float2 p = v[m + 1], q = v[R - 1 - m];
+    a[m] = make_float2(p.x + q.x, p.y + q.y);
+    b[m] = make_float2(p.x - q.x, p.y - q.y);
+    x0.x += a[m].x;
+    x0.y += a[m].y;
+  }
+  float2 out[R];
+  out[0] = x0;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 re = v[0], im = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int m = 0; m < H; ++m) {
+      const float c = cos_odd(R, (m + 1) * k), s = sin_odd(R, (m + 1) * k);
+      re.x = fmaf(a[m].x, c, re.x);
+      re.y = fmaf(a[m].y, c, re.y);
+      im.x = fmaf(b[m].x, s, im.x);
+      im.y = fmaf(b[m].y, s, im.y);
+    }
+    // re +- sign*i*im
+    out[k] = make_float2(re.x - sign * im.y, re.y + sign * im.x);
+    out[R - k] = make_float2(re.x + sign * im.y, re.y - sign * im.x);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = out[r];
+}
+
+// The R-point DFT for every radix of the mixed-radix passes: 2, 4, 8, 16
+// by radix-2 stages, 3, 5, 7 by dft_odd.
+template <int R>
+__device__ __forceinline__ void dft_any(float2* v, float sign) {
+  if constexpr ((R & (R - 1)) == 0) dft_regs<R>(v, sign);
+  else dft_odd<R>(v, sign);
+}
+
 // exp(sign*2*pi*i*m/mt) from the quarter-wave table q (mt/4 + 1 entries)
 __device__ __forceinline__ float2 root(const float* q, int m, int log2mt,
                                        float sign) {
