@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card, through its kernels.
 
-Two main paths:
+Three main paths:
   * the paper's Fig. 2 workflow: a noisy radiating source → forward FFT →
     bandpass → backward FFT → writer, built with ``build_chain`` on a
     one-device mesh with planned ``backend: "pallas"`` FFT endpoints, so
     every FFT pass runs the hand-written four-step or Stockham kernel and
     the bandpass stage runs the fused bandpass kernel;
+  * the distributed stage-schedule path (``plan_dft`` over a mesh): every
+    decomposition on a one-rank mesh at full size, then four ranks
+    sharing the card (gloo collectives, this script started once per
+    rank with ``--rank``);
   * LM serving: ``repro_torch.launch.serve.main`` on qwen3-4b at full
     width and depth (36 layers, float32, random weights from a seed),
     batch 4, a 2048-token prompt and 32 greedy tokens. Every prefill
@@ -37,6 +41,8 @@ Phases, each printing one JSON line:
      tensor cores: bounded by them at the TF32 peak, with the CUDA cores'
      fp32 bound beside it) and bf16 (wgmma), each beside SDPA, and on a
      float32 case with large logits that one TF32 product would fail;
+     and N = 1 and 2 as rows and columns against the plain Stockham
+     version;
   4. FFT main path — the chain at 8192 x 8192 (every pass on the
      four-step kernel's radix route), 128 x 128 (every pass on the
      Stockham kernel), 200 x 200 (the quickstart's grid) and 10000 x
@@ -44,15 +50,40 @@ Phases, each printing one JSON line:
      ``intransit`` modes, and 2048 x 32768 (32768-point rows as two
      mixed-radix passes) in ``insitu``, each held against a float64 numpy
      oracle of the same chain, with the launch counts of each run (the
-     column route's apart); then device time by kernel over one step at
-     8192², 10000² (which must show no copy kernel, and the mixed-radix
-     kernel) and 200², with the share of copy and elementwise kernels;
+     column route's apart); then one step at 8192², 10000² (which must
+     show no copy kernel, and the mixed-radix kernel) and 200²: device
+     busy ms of steps queued behind a spin kernel (CUDA events), the
+     idle share, and time per launch by kernel (profiler);
+  4b. distributed path — ``distributed_one_rank``: pencil, pencil_tf
+     ((1, 1) mesh) and slab3d ((1,)) at 512³, pencil2d at 8192² and
+     fourstep1d at 2^25, forward and back through ``plan_dft`` with the
+     default backend, each against a float64 oracle (torch.fft in
+     complex128 on the card), with host ms, device busy ms (runs queued
+     behind a spin kernel, CUDA events), idle share, time per launch by
+     kernel (profiler), launches and peak memory; ``distributed_ranks``:
+     four ranks on cuda:0 over gloo (which stages CUDA tensors through host memory, so
+     its wall times are host-bound): the Fig. 2 chain at 8192² on a (4,)
+     slab and a (2, 2) pencil2d mesh (field and energies against the
+     float64 oracle, mse1 < 0.5·mse0, one file written by rank 0),
+     pencil, pencil_tf, slab3d at 256³ on (2, 2), slab3d on (4,),
+     fourstep1d at 2^26 on (4,) from a cyclic input (each gathered on
+     every rank against the float64 oracle, and back), fft → bandpass →
+     ifft from a cyclic field on pencil_tf and fourstep1d (field and
+     energies against the float64 oracle), and the slab with
+     overlap_chunks=2 bit-identical to the unchunked one; then every
+     FFT shape those runs gave the kernels (recorded at ``kernels.ops``),
+     on its kernel against the plain version, torch.fft and the float64
+     oracle;
   5. serve main path — ``launch/serve.main`` as above, with every kernel's
      launch count of that run (36 flash launches: one per layer of the
      one prefill); a teacher-forced check that prefill then one decode
      step gives the logits of a prefill one token longer; a continuous
      batcher at the same width (4 slots, 6 requests); device time by
      kernel over one 2048-token prefill and one decode step;
+  6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as four
+     mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26), against the
+     float64 oracle and torch.fft (last: the Bluestein tables stay
+     cached, and would count in the earlier phases' peak memory);
 then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
@@ -60,8 +91,10 @@ anything.
 
 Run from the repository root:  python3 chip_smoke.py
 """
+import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -123,6 +156,43 @@ SERVE_TOKENS = 32
 # the flash kernels' symbols (csrc/flash_attention.cu), as the profiler
 # and cuobjdump name them
 FLASH_KERNELS = ("flash_tf32_kernel", "flash_wgmma_kernel")
+# the FFT kernels' symbols (csrc/fft_common.cuh, fft_fourstep.cu): every
+# kernel that the wrappers' launch counts count
+FFT_KERNELS = ("fft_lines_kernel", "mixed_lines_kernel", "mixed_reg_kernel",
+               "bluestein_")
+# the spin that the runs timed by queued_device_ms wait behind, and its
+# clock cycles a second (H100 SXM boost clock, 1.98 GHz)
+QUEUE_SPIN_S = 0.25
+SPIN_CYCLES_PER_S = 1.98e9
+# the distributed entry points on a one-rank mesh, at full size:
+# (decomposition, mesh, grid, kernels that must launch). 512^3 complex64
+# is 1 GiB a (re, im) pair, the per-GPU brick of a 4096^3 DNS on 512
+# GPUs; pencil_tf and fourstep1d run their length-1 passes on Stockham
+DIST_ONE_RANK = (
+    ("pencil", (1, 1), (512, 512, 512), ("fft_fourstep",)),
+    ("pencil_tf", (1, 1), (512, 512, 512), ("fft_fourstep",
+                                            "fft_stockham")),
+    ("slab3d", (1,), (512, 512, 512), ("fft_fourstep",)),
+    ("pencil2d", (1, 1), (8192, 8192), ("fft_fourstep",)),
+    ("fourstep1d", (1,), (1 << 25,), ("fft_fourstep", "fft_stockham")))
+# four ranks on the one card, gloo: the chain's grid and the transforms
+RANK_WORLD = 4
+RANK_TIMEOUT_S = 600
+RANK_CHAIN_DIMS = (8192, 8192)
+RANK_DECOMPS = (("pencil", "(2, 2)", (256, 256, 256)),
+                ("pencil_tf", "(2, 2)", (256, 256, 256)),
+                ("slab3d", "(2, 2)", (256, 256, 256)),
+                ("slab3d", "(4,)", (256, 256, 256)),
+                ("fourstep1d", "(4,)", (1 << 26,)))
+# fft -> bandpass -> ifft from a cyclic field on the cyclic decompositions
+# (the mask permuted to the digit-permuted spectrum and cut to each
+# rank's block), with the default backend
+RANK_CYCLIC_CHAINS = (("pencil_tf", "(2, 2)", (256, 256, 256)),
+                      ("fourstep1d", "(4,)", (1 << 24,)))
+RANK_CYCLIC_KEEP_FRAC = 0.2
+# the four-rank phase against the float64 oracle: the CPU tests' bar
+# against the reference (tests/test_torch_distributed.py)
+RANK_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -211,17 +281,22 @@ def oracle_err(got, re, im, inverse, dim):
     complex128, an oracle only), relative to max |X|."""
     import torch
     z = torch.complex(re.double(), im.double())
-    want = torch.fft.ifft(z, dim=dim) if inverse else torch.fft.fft(z,
-                                                                     dim=dim)
-    scale = float(want.abs().max())
-    err = max(float((got[0].double() - want.real).abs().max()),
-              float((got[1].double() - want.imag).abs().max()))
-    return err / scale
+    return spectrum_err(got, torch.fft.ifft(z, dim=dim) if inverse
+                        else torch.fft.fft(z, dim=dim))
 
 
-def check_fft(name, wrapper, plain, shape, gen):
+def spectrum_err(got, want):
+    """Largest error of the pair ``got`` against complex128 ``want``,
+    relative to max |want|."""
+    return max(float((got[0].double() - want.real).abs().max()),
+               float((got[1].double() - want.imag).abs().max())) / \
+        float(want.abs().max())
+
+
+def check_fft(name, wrapper, plain, shape, gen, timed: bool = True):
     """One FFT kernel at one shape against its plain version (where its
-    angles hold), torch.fft, and the float64 oracle."""
+    angles hold; ``plain`` None where they do not, past 2^16), torch.fft,
+    and the float64 oracle; then, if ``timed``, its times."""
     import torch
     B, N = shape
     tol = FFT_TOL_OTHER if N & (N - 1) else FFT_TOL_POW2
@@ -233,9 +308,11 @@ def check_fft(name, wrapper, plain, shape, gen):
         from repro_torch.kernels import fft_plan
         r = fft_plan.route(N, False)
         res["route"], res["lines"] = r.kind, list(r.lines or [r.m or N])
+    held = plain is not None and plain_holds(N)
     for inverse in (False, True):
         kr, ki = wrapper(re, im, inverse=inverse)
-        pr, pi = plain(re, im, inverse=inverse)
+        pr, pi = (kr, ki) if plain is None else plain(re, im,
+                                                      inverse=inverse)
         z = torch.complex(re, im)
         lib = torch.fft.ifft(z, dim=-1) if inverse else torch.fft.fft(z,
                                                                       dim=-1)
@@ -249,12 +326,12 @@ def check_fft(name, wrapper, plain, shape, gen):
         del pr, pi, lib, z
         f64 = oracle_err((kr, ki), re, im, inverse, -1)
         tag = "inverse_" if inverse else ""
-        res[tag + "max_abs_err"] = err
-        res[tag + "max_rel_err"] = err / scale
+        res[tag + "max_abs_err"] = err if plain else None
+        res[tag + "max_rel_err"] = err / scale if plain else None
         res[tag + "rel_err_vs_torch_fft"] = lib_err / scale
         res[tag + "rel_err_vs_f64"] = f64
-        res["plain_held"] = plain_holds(N)
-        if not ((err / scale < tol or not plain_holds(N))
+        res["plain_held"] = held
+        if not ((err / scale < tol or not held)
                 and lib_err / scale < FFT_TOL_LIB and f64 < FFT_TOL_F64):
             emit(res)
             raise AssertionError(f"{name} {shape} inverse={inverse}: "
@@ -262,9 +339,12 @@ def check_fft(name, wrapper, plain, shape, gen):
                                  f"{lib_err / scale:.3e} vs torch.fft, "
                                  f"{f64:.3e} vs float64")
         del kr, ki
+    if not timed:
+        emit(res)
+        return res
     z = torch.complex(re, im)
     res["kernel_ms"] = time_ms(lambda: wrapper(re, im))
-    res["plain_ms"] = time_ms(lambda: plain(re, im))
+    res["plain_ms"] = time_ms(lambda: plain(re, im)) if plain else None
     res["library_ms"] = time_ms(lambda: torch.fft.fft(z, dim=-1))
     res["device_ms"] = device_ms(lambda: wrapper(re, im))
     res["library_device_ms"] = device_ms(lambda: torch.fft.fft(z, dim=-1))
@@ -273,10 +353,11 @@ def check_fft(name, wrapper, plain, shape, gen):
     return res
 
 
-def check_fft_columns(name, wrapper, plain, shape, gen):
+def check_fft_columns(name, wrapper, plain, shape, gen, timed: bool = True):
     """One FFT kernel's column route, along axis -2 of ``shape`` viewed as
     (outer, N, inner), against its plain version moved to the last axis
-    and back, and against ``torch.fft.fft(z, dim=-2)``."""
+    and back (where its angles hold), ``torch.fft.fft(z, dim=-2)`` and
+    the float64 oracle; then, if ``timed``, its times."""
     import torch
     N, inner = shape[-2:]
     outer = math.prod(shape[:-2])
@@ -333,6 +414,9 @@ def check_fft_columns(name, wrapper, plain, shape, gen):
         del kr, ki
     if not (torch.equal(re, keep[0]) and torch.equal(im, keep[1])):
         raise AssertionError(f"{name} columns {shape}: input was written")
+    if not timed:
+        emit(res)
+        return res
     z = torch.complex(re, im)
     res["kernel_ms"] = time_ms(call)
     res["library_ms"] = time_ms(lambda: torch.fft.fft(z, dim=-2))
@@ -423,17 +507,12 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     chain = chain_for(out_dir)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    for fn in (ops.fft_fourstep, ops.fft_stockham):
-        fn.column_launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     out = chain.execute(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches["fft_fourstep_columns"] = ops.fft_fourstep.column_launches
-    launches["fft_stockham_columns"] = ops.fft_stockham.column_launches
+    launches = launch_counts(counters)
     got = out.arrays["field"].cpu().numpy()
     field_err = float(np.abs(got - want).max())
     mse0 = float(np.mean((noisy - clean) ** 2))
@@ -466,8 +545,9 @@ def device_profile(fn, reps: int = 1):
     first. The trace can drop the kernels launched just after a recorded
     step starts, so that step opens with a spin kernel of about a
     millisecond (torch.cuda._sleep), waited for and left out of the rows;
-    where a few still go missing, launch counts that are not whole
-    multiples of ``reps`` show it."""
+    where some still go missing (whole runs, late in a long process),
+    launch counts that are not whole multiples of ``reps`` show it, so
+    busy time is taken by ``queued_device_ms`` where it is reported."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -495,13 +575,42 @@ def device_profile(fn, reps: int = 1):
     return wall_ms, rows
 
 
+def queued_device_ms(fn, reps: int) -> float:
+    """Device time of one run of ``fn`` with no host gaps: ``reps`` runs
+    queued behind a spin kernel that outlasts the host's enqueueing (the
+    event after the spin must still be pending when the last run is
+    queued), timed by CUDA events between the spin's end and the last
+    kernel's. Needs no trace, so it loses no kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * QUEUE_SPIN_S))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    queued = not start.query()
+    stop.synchronize()
+    if not queued:
+        raise AssertionError(f"the host took longer than the {QUEUE_SPIN_S}"
+                             f" s spin to queue {reps} runs (or waited "
+                             f"for the device)")
+    return start.elapsed_time(stop) / reps
+
+
 def profile_chain(dims, mesh, out_dir):
-    """Device time by kernel of one in-situ run of the chain (the mean of
-    PROFILE_REPS recorded runs), from torch.profiler, and the device's
-    idle share of the run's wall time."""
+    """One in-situ step of the chain: device busy ms from PROFILE_REPS
+    steps queued behind a spin kernel (``queued_device_ms``: the
+    endpoints back to back, without the chain's closing wait), the
+    idle share of a step's wall time, and device time by kernel from
+    torch.profiler (ms per launch it kept, with the FFT launches it kept
+    beside those the wrappers counted)."""
     import torch
     from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
     from repro_torch.core.insitu.config import build_chain
+    from repro_torch.kernels import ops
     data = RadiatingSourceAdaptor(dims, mesh=mesh).produce(0)
     chain = build_chain({"mode": "insitu", "chain": [
         {"endpoint": "fft", "array": "field", "direction": "forward",
@@ -510,26 +619,37 @@ def profile_chain(dims, mesh, out_dir):
         {"endpoint": "fft", "array": "field", "direction": "backward",
          "backend": "pallas"},
     ]}, mesh=mesh, grid=data.grid)
+
+    def step():
+        out = data
+        for ep in chain.endpoints:
+            out = ep.execute(out)
+        return out
+
+    before = ops.fft_fourstep.launches + ops.fft_stockham.launches
     chain.execute(data)
     torch.cuda.synchronize()
+    launched = ops.fft_fourstep.launches + ops.fft_stockham.launches - before
+    busy = queued_device_ms(step, PROFILE_REPS)
     wall_ms, rows = device_profile(lambda: chain.execute(data),
                                    reps=PROFILE_REPS)
-    busy = sum(r[1] for r in rows)
     # PyTorch's copy and elementwise kernels (a transposing copy is one)
     copies = [(n, t, c) for n, t, c in rows
               if any(w in n.lower() for w in ("copy", "elementwise"))]
-    copy_ms = sum(t for _, t, _ in copies)
     res = {"phase": "profile", "dims": list(dims), "mode": "insitu",
            "stages": "fft -> bandpass -> fft (no writer)",
            "steps_recorded": PROFILE_REPS,
            "wall_ms": wall_ms, "device_busy_ms": busy,
-           "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-           "kernel_launches": sum(c for _, _, c in rows),
-           "copy_elementwise_ms": copy_ms,
-           "copy_elementwise_share": copy_ms / busy if busy else None,
-           "copy_elementwise_kernels": [{"name": n[:80], "ms": t, "count": c}
-                                        for n, t, c in copies],
-           "by_kernel_ms": [{"name": n[:80], "ms": t, "count": c}
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "fft_launches_counted": PROFILE_REPS * launched,
+           "fft_launches_traced": round(PROFILE_REPS * sum(
+               c for n, _, c in rows if any(k in n for k in FFT_KERNELS))),
+           "kernel_launches_traced": sum(c for _, _, c in rows),
+           "copy_elementwise_kernels": [
+               {"name": n[:80], "ms_per_launch": t / c,
+                "launches_traced": c * PROFILE_REPS} for n, t, c in copies],
+           "by_kernel_ms": [{"name": n[:80], "ms_per_launch": t / c,
+                             "launches_traced": c * PROFILE_REPS}
                             for n, t, c in rows]}
     emit(res)
     return res
@@ -759,6 +879,423 @@ def serve_path(counters):
     return launches["flash_attention"]
 
 
+def layout_oracle(z, decomp, p0, inverse):
+    """The float64 transform of complex128 ``z`` over all its dims in
+    ``decomp``'s layouts: for pencil_tf and fourstep1d the spatial side
+    is cyclic and the spectral side digit-permuted along axis 0 over
+    ``p0`` shards (both the identity at p0 = 1)."""
+    import torch
+    from repro_torch.core.fft import distributed as D
+    n0 = z.shape[0]
+
+    def take(x, order):
+        return x.index_select(0, torch.as_tensor(order, device=x.device))
+
+    cyclic = decomp in D.CYCLIC_DECOMPS and p0 > 1
+    if not inverse:
+        if cyclic:
+            z = take(z, D.cyclic_inverse_order(n0, p0))
+        y = torch.fft.fftn(z)
+        return take(y, D.fourstep_freq_of_position(n0, p0)) if cyclic else y
+    if cyclic:
+        z = take(z, D.fourstep_position_of_freq(n0, p0))
+    y = torch.fft.ifftn(z)
+    return take(y, D.cyclic_order(n0, p0)) if cyclic else y
+
+
+def launch_counts(counters):
+    out = {k: fn.launches for k, fn in counters.items()}
+    for k in ("fft_fourstep", "fft_stockham"):
+        if k in counters:
+            out[k + "_columns"] = counters[k].column_launches
+    return out
+
+
+def zero_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "column_launches"):
+            fn.column_launches = 0
+
+
+@contextlib.contextmanager
+def recording_fft_shapes(seen: set):
+    """While active, add to ``seen`` the (outer, N, inner) view of every
+    FFT that ``kernels.ops`` hands to a kernel (rows have inner 1): the
+    shapes a path gives the kernels, to hold each against its plain
+    version apart from the path."""
+    from repro_torch.kernels import ops
+    fft, fft_axis = ops.fft, ops.fft_axis
+
+    def rec_fft(re, im, **kw):
+        seen.add((re.shape[0], re.shape[1], 1))
+        return fft(re, im, **kw)
+
+    def rec_fft_axis(re, im, axis, **kw):
+        axis %= re.dim()
+        seen.add((math.prod(re.shape[:axis]), re.shape[axis],
+                  math.prod(re.shape[axis + 1:])))
+        return fft_axis(re, im, axis, **kw)
+
+    ops.fft, ops.fft_axis = rec_fft, rec_fft_axis
+    try:
+        yield seen
+    finally:
+        ops.fft, ops.fft_axis = fft, fft_axis
+
+
+def check_path_shapes(shapes, gen):
+    """Each FFT shape a path gave the kernels, on the kernel that
+    ``kernels.ops`` picks for it, against its plain version (where its
+    float32 angles hold), torch.fft and the float64 oracle; correctness
+    only, untimed."""
+    from repro_torch.core.fft import dft
+    from repro_torch.kernels import ops
+    out = []
+    for outer, n, inner in sorted(shapes):
+        stockham = ops._use_stockham(n, "auto")
+        name = "fft_stockham" if stockham else "fft_fourstep"
+        plain = dft.stockham_fft if stockham else dft.fourstep_fft
+        if inner == 1:
+            wrapper = ops.fft_stockham if stockham else ops.fft_fourstep
+            out.append(check_fft(name, wrapper,
+                                 plain if plain_holds(n) else None,
+                                 (outer, n), gen, timed=False))
+        else:
+            wrapper = (ops.fft_stockham_columns if stockham
+                       else ops.fft_fourstep_columns)
+            out.append(check_fft_columns(name, wrapper, plain,
+                                         (outer, n, inner), gen,
+                                         timed=False))
+    return out
+
+
+def distributed_one_rank(counters, gen, shapes: set):
+    """The distributed entry points on a one-rank mesh at full size:
+    ``plan_dft`` → ``execute`` forward and back with the default backend
+    (the kernels, on the card), each against a float64 oracle (torch.fft
+    in complex128 on the card), with host ms, CUDA-event ms, device busy
+    ms (queued runs, CUDA events), the idle share, time per launch by
+    kernel (profiler), launches and peak memory. Adds the FFT shapes the
+    runs gave the kernels to ``shapes``."""
+    import torch
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft.plan import BACKWARD, FORWARD, plan_dft
+    out = {}
+    for decomp, mshape, grid, must in DIST_ONE_RANK:
+        mesh = make_mesh(mshape, ("data", "model")[:len(mshape)])
+        re = torch.randn(grid, generator=gen, device="cuda")
+        im = torch.randn(grid, generator=gen, device="cuda")
+        fwd = plan_dft(grid, FORWARD, mesh, decomp=decomp)
+        bwd = plan_dft(grid, BACKWARD, mesh, decomp=decomp)
+        bwd.execute(*fwd.execute(re, im))           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = {"phase": "distributed_one_rank", "decomp": decomp,
+               "mesh": list(mshape), "grid": list(grid),
+               "schedule": fwd.schedule().name, "backend": fwd.backend,
+               "tol_vs_f64": FFT_TOL_F64}
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with recording_fft_shapes(shapes):
+            y = fwd.execute(re, im)
+        torch.cuda.synchronize()
+        res["forward_host_ms"] = (time.perf_counter() - t0) * 1e3
+        res["forward_launches"] = launch_counts(counters)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with recording_fft_shapes(shapes):
+            x = bwd.execute(*y)
+        torch.cuda.synchronize()
+        res["backward_host_ms"] = (time.perf_counter() - t0) * 1e3
+        res["backward_launches"] = launch_counts(counters)
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        z = torch.complex(re.double(), im.double())
+        res["forward_rel_err_vs_f64"] = spectrum_err(
+            y, layout_oracle(z, decomp, 1, False))
+        del z
+        zy = torch.complex(y[0].double(), y[1].double())
+        res["backward_rel_err_vs_f64"] = spectrum_err(
+            x, layout_oracle(zy, decomp, 1, True))
+        del zy, x
+        # device busy: PROFILE_REPS runs queued behind a spin (no host
+        # gaps), by CUDA events; the idle share against the host-timed
+        # wall of a run. Time by kernel from torch.profiler, per launch
+        # it kept: its trace can lose a run's kernels here (a whole one
+        # of three at 512^3, each of four takes, on an H100), so the
+        # launches it saw stand beside those the wrappers counted
+        res["steps_recorded"] = PROFILE_REPS
+        for tag, fn in (("forward", lambda: fwd.execute(re, im)),
+                        ("backward", lambda: bwd.execute(*y))):
+            busy = queued_device_ms(fn, PROFILE_REPS)
+            wall_ms, rows = device_profile(fn, reps=PROFILE_REPS)
+            res[tag + "_events_ms"] = time_ms(fn, iters=5)
+            res[tag + "_device_busy_ms"] = busy
+            res[tag + "_wall_ms"] = wall_ms
+            res[tag + "_device_idle_share"] = 1.0 - busy / wall_ms
+            res[tag + "_fft_launches_counted"] = PROFILE_REPS * (
+                res[tag + "_launches"]["fft_fourstep"]
+                + res[tag + "_launches"]["fft_stockham"])
+            res[tag + "_fft_launches_traced"] = round(PROFILE_REPS * sum(
+                c for n, _, c in rows if any(k in n for k in FFT_KERNELS)))
+            res[tag + "_by_kernel_ms"] = [
+                {"name": n[:80], "ms_per_launch": t / c,
+                 "launches_traced": c * PROFILE_REPS}
+                for n, t, c in rows]
+        emit(res)
+        launched = {k: res["forward_launches"][k]
+                    + res["backward_launches"][k] for k in must}
+        assert all(launched.values()), (decomp, launched)
+        assert res["forward_rel_err_vs_f64"] < FFT_TOL_F64, res
+        assert res["backward_rel_err_vs_f64"] < FFT_TOL_F64, res
+        out[decomp] = res
+        del re, im, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def distributed_ranks(out_dir):
+    """The distributed path on RANK_WORLD ranks sharing the one card:
+    this script started once per rank (``--rank``), gloo collectives over
+    CUDA tensors on cuda:0 (gloo stages them through host memory, so
+    the times are host-bound). Each rank prints one JSON line; any rank
+    failing fails the phase."""
+    store = out_dir / "store"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+         "--world", str(RANK_WORLD), "--store", str(store)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(RANK_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+        if p.returncode or not lines:
+            print(se[-4000:], file=sys.stderr)
+            raise AssertionError(f"rank {r} exited {p.returncode}")
+        results.append(json.loads(lines[-1]))
+    emit({"phase": "distributed_ranks", "ranks": RANK_WORLD,
+          "backend": "gloo (CUDA tensors staged through host memory)",
+          "device": "cuda:0, shared by every rank", "wall_s": wall,
+          "results": results})
+    return results
+
+
+def rank_worker(rank, world, store):
+    """One rank of ``distributed_ranks``: the Fig. 2 chain at 8192² on a
+    (4,) slab mesh and a (2, 2) pencil2d mesh, pencil, pencil_tf and
+    slab3d at 256³ on (2, 2), slab3d on (4,), fourstep1d at 2^26 on (4,)
+    from a cyclic input, fft → bandpass → ifft from a cyclic field on
+    pencil_tf (256³, (2, 2)) and fourstep1d (2^24, (4,)), and the slab
+    with overlap_chunks=2 against the unchunked slab. Every rank gathers
+    every result and holds it against the float64 oracle (torch.fft in
+    complex128 on the card). Its JSON line lists the FFT shapes its runs
+    gave the kernels."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft.filters import lowpass_mask
+    from repro_torch.core.fft.plan import BACKWARD, FORWARD, plan_dft
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
+    from repro_torch.core.insitu.config import build_chain
+    from repro_torch.kernels import _build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    _build.library()                # built by the parent
+    dev = "cuda:0"
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter}
+    meshes = {"(4,)": make_mesh((4,), ("data",), device=dev),
+              "(2, 2)": make_mesh((2, 2), ("data", "model"), device=dev)}
+    checks = []
+    shapes = set()
+    recording = contextlib.ExitStack()
+    recording.enter_context(recording_fft_shapes(shapes))
+
+    def record(**kw):
+        checks.append(kw)
+        return kw
+
+    # the Fig. 2 chain across the ranks
+    dims = RANK_CHAIN_DIMS
+    mask = lowpass_mask(dims, KEEP_FRAC).to(dev)
+    for decomp, mkey in (("slab", "(4,)"), ("pencil2d", "(2, 2)")):
+        mesh = meshes[mkey]
+        spec = plan_dft(dims, FORWARD, mesh,
+                        decomp=decomp).schedule().in_spec
+        data = RadiatingSourceAdaptor(dims, mesh=mesh, spec=spec).produce(0)
+        chain = build_chain({"mode": "insitu", "chain": [
+            {"endpoint": "fft", "direction": "forward", "backend": "pallas",
+             "decomp": decomp},
+            {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
+            {"endpoint": "fft", "direction": "backward", "backend": "pallas",
+             "decomp": decomp},
+            {"endpoint": "writer",
+             "out_dir": str(Path(store).parent / decomp)},
+        ]}, mesh=mesh, grid=data.grid)
+        zero_counts(counters)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = chain.execute(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        files = chain.finalize()["writer"]["files"]
+        got = D.unshard(res.arrays["field"], mesh, res.spec).double()
+        noisy = D.unshard(data.arrays["field"], mesh, data.spec).double()
+        clean = D.unshard(data.arrays["clean_reference"], mesh,
+                          data.spec).double()
+        spec = torch.fft.fft2(noisy)
+        power = spec.real ** 2 + spec.imag ** 2
+        kept64 = float((power * mask).sum())
+        total64 = float(power.sum())
+        want = torch.fft.ifft2(spec * mask).real
+        del spec, power
+        kept = float(res.arrays["insitu_kept_energy"])
+        total = float(res.arrays["insitu_total_energy"])
+        mse0 = float(((noisy - clean) ** 2).mean())
+        mse1 = float(((got - clean) ** 2).mean())
+        r = record(check="chain", decomp=decomp, mesh=mkey, dims=list(dims),
+                   wall_s=wall, launches=launches,
+                   field_max_abs_err=float((got - want).abs().max()),
+                   kept_rel_err=abs(kept - kept64) / kept64,
+                   total_rel_err=abs(total - total64) / total64,
+                   mse0=mse0, mse1=mse1, files_written=len(files),
+                   finite=bool(torch.isfinite(got).all()))
+        assert r["finite"] and r["field_max_abs_err"] < FIELD_TOL, r
+        assert r["kept_rel_err"] < ENERGY_TOL, r
+        assert r["total_rel_err"] < ENERGY_TOL, r
+        assert mse1 < 0.5 * mse0, r
+        assert len(files) == (1 if rank == 0 else 0), r
+        assert launches["fft_fourstep"] and launches["bandpass_filter"], r
+        del got, noisy, clean, want, data, res
+
+    # 3-D and 1-D decompositions: forward, then back
+    gen = torch.Generator(device=dev)
+    for decomp, mkey, grid in RANK_DECOMPS:
+        mesh = meshes[mkey]
+        p0 = mesh.shape["data"]
+        gen.manual_seed(7)              # the same global field on every rank
+        z = torch.complex(torch.randn(grid, generator=gen, device=dev),
+                          torch.randn(grid, generator=gen, device=dev))
+        if decomp in D.CYCLIC_DECOMPS:  # the spatial side is cyclic
+            z = z.index_select(0, torch.as_tensor(
+                D.cyclic_order(grid[0], p0), device=dev))
+        fwd = plan_dft(grid, FORWARD, mesh, decomp=decomp, backend="pallas")
+        bwd = plan_dft(grid, BACKWARD, mesh, decomp=decomp, backend="pallas")
+        zero_counts(counters)
+        dist.barrier()
+        t0 = time.perf_counter()
+        y = fwd.execute(*fwd.place(z))
+        x = bwd.execute(*y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        yg = fwd.unplace(*y)
+        xg = bwd.unplace(*x)
+        z64 = z.to(torch.complex128)
+        r = record(check="transform", decomp=decomp, mesh=mkey,
+                   grid=list(grid), wall_s=wall, launches=launches,
+                   forward_rel_err_vs_f64=spectrum_err(
+                       yg, layout_oracle(z64, decomp, p0, False)),
+                   backward_rel_err_vs_input=spectrum_err(xg, z64))
+        assert r["forward_rel_err_vs_f64"] < RANK_TOL, r
+        assert r["backward_rel_err_vs_input"] < RANK_TOL, r
+        del z, z64, y, x, yg, xg
+
+    # the chain from a cyclic field on the cyclic decompositions
+    for decomp, mkey, grid in RANK_CYCLIC_CHAINS:
+        mesh = meshes[mkey]
+        gen.manual_seed(9)
+        natural = torch.randn(grid, generator=gen, device=dev)
+        order = torch.as_tensor(D.cyclic_order(grid[0], mesh.shape["data"]),
+                                device=dev)
+        spec = plan_dft(grid, FORWARD, mesh,
+                        decomp=decomp).schedule().in_spec
+        x = D.shard(natural.index_select(0, order), mesh, spec)
+        data = BridgeData(arrays={"field": (x, torch.zeros_like(x))},
+                          grid=GridMeta(grid), layout="cyclic", spec=spec)
+        chain = build_chain({"mode": "insitu", "chain": [
+            {"endpoint": "fft", "direction": "forward", "decomp": decomp},
+            {"endpoint": "bandpass", "keep_frac": RANK_CYCLIC_KEEP_FRAC},
+            {"endpoint": "fft", "direction": "backward", "decomp": decomp},
+        ]}, mesh=mesh, grid=data.grid)
+        zero_counts(counters)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = chain.execute(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        got = D.unshard(res.arrays["field"], mesh, res.spec).double()
+        cmask = lowpass_mask(grid, RANK_CYCLIC_KEEP_FRAC).to(dev).double()
+        spec64 = torch.fft.fftn(natural.double())
+        want = torch.fft.ifftn(spec64 * cmask).real.index_select(0, order)
+        power = spec64.real ** 2 + spec64.imag ** 2
+        kept64 = float((power * cmask).sum())
+        total64 = float(power.sum())
+        del spec64, power, cmask
+        r = record(check="cyclic_chain", decomp=decomp, mesh=mkey,
+                   grid=list(grid), wall_s=wall, launches=launches,
+                   layout=res.layout,
+                   field_max_abs_err=float((got - want).abs().max()),
+                   kept_rel_err=abs(float(res.arrays["insitu_kept_energy"])
+                                    - kept64) / kept64,
+                   total_rel_err=abs(float(
+                       res.arrays["insitu_total_energy"]) - total64)
+                   / total64)
+        assert r["layout"] == "cyclic", r
+        assert r["field_max_abs_err"] < FIELD_TOL, r
+        assert r["kept_rel_err"] < ENERGY_TOL, r
+        assert r["total_rel_err"] < ENERGY_TOL, r
+        assert launches["fft_fourstep"], r
+        del natural, x, data, res, got, want
+
+    # overlap chunking: bit-identical to the unchunked slab
+    mesh = meshes["(4,)"]
+    gen.manual_seed(8)
+    z = torch.complex(torch.randn(dims, generator=gen, device=dev),
+                      torch.randn(dims, generator=gen, device=dev))
+    got = []
+    for chunks in (0, 2):
+        plan = plan_dft(dims, FORWARD, mesh, decomp="slab", backend="pallas",
+                        overlap_chunks=chunks)
+        dist.barrier()
+        t0 = time.perf_counter()
+        got.append(plan.execute(*plan.place(z)))
+        torch.cuda.synchronize()
+        record(check="overlap_timing", overlap_chunks=chunks,
+               wall_s=time.perf_counter() - t0)
+    r = record(check="overlap", decomp="slab", mesh="(4,)",
+               overlap_chunks=2, dims=list(dims),
+               bit_identical=all(torch.equal(a, b)
+                                 for a, b in zip(got[0], got[1])))
+    assert r["bit_identical"], r
+    recording.close()
+    print(json.dumps({"rank": rank, "ok": True, "checks": checks,
+                      "fft_shapes": sorted(shapes)}), flush=True)
+    dist.barrier()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -833,6 +1370,14 @@ def main() -> int:
                                (200, 200), (10000, 10000))]
     stockham_cols = [check_fft_columns("fft_stockham", fft_stockham_columns,
                                        dft.stockham_fft, (128, 128), gen)]
+    # N = 1 and 2, as rows and as columns (the length-1 and length-2
+    # passes of pencil_tf and fourstep1d), on the Stockham kernel that
+    # ops.fft picks for them, against its plain version
+    tiny = ([check_fft("fft_stockham", fft_stockham, dft.stockham_fft, s,
+                       gen) for s in ((4096, 1), (4096, 2))]
+            + [check_fft_columns("fft_stockham", fft_stockham_columns,
+                                 dft.stockham_fft, s, gen)
+               for s in ((1, 1 << 20), (2, 1 << 20))])
     bandpass = [check_bandpass((8192, 8192), gen, soft)
                 for soft in (False, True)]
     t0 = time.perf_counter()
@@ -898,11 +1443,41 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    # 4b. the distributed path: one rank at full size, then four ranks
+    # sharing the card
+    fft_counters = {"fft_fourstep": ops.fft_fourstep,
+                    "fft_stockham": ops.fft_stockham,
+                    "bandpass_filter": ops.bandpass_filter}
+    t0 = time.perf_counter()
+    dist_shapes = set()
+    one_rank = distributed_one_rank(fft_counters, gen, dist_shapes)
+    emit({"phase": "distributed_one_rank_seconds",
+          "seconds": time.perf_counter() - t0})
+    ranks = distributed_ranks(ROOT / "build" / "chip_smoke_ranks")
+    shutil.rmtree(ROOT / "build" / "chip_smoke_ranks", ignore_errors=True)
+    # every FFT shape the distributed runs gave the kernels (one rank, and
+    # each rank's blocks of the four-rank runs), against the plain versions
+    for r in ranks:
+        dist_shapes.update(tuple(v) for v in r.pop("fft_shapes"))
+    t0 = time.perf_counter()
+    dist_checks = check_path_shapes(dist_shapes, gen)
+    emit({"phase": "distributed_shape_checks", "shapes": len(dist_checks),
+          "seconds": time.perf_counter() - t0})
+
     # 5. serve main path
     flash_launches = serve_path({"fft_fourstep": ops.fft_fourstep,
                                  "fft_stockham": ops.fft_stockham,
                                  "bandpass_filter": ops.bandpass_filter,
                                  "flash_attention": flash_attention})
+
+    # 6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as
+    # four mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26, four
+    # passes); held against the float64 oracle and torch.fft only (the
+    # plain four-step's float32 angles fail past 2^16). Last, because the
+    # Bluestein tables stay cached (1.28 GB for this N, both directions)
+    # and would count in the peaks above
+    long_rows = [check_fft("fft_fourstep", fft_fourstep, None, s, gen)
+                 for s in ((1, 1 << 25), (1, 5 ** 10), (1, (1 << 24) + 1))]
 
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
@@ -938,7 +1513,28 @@ def main() -> int:
          "bound_ms": r["bound_ms"],
          "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
                                    r["inverse_rel_err_vs_f64"])}
-        for r in fourstep + fourstep_cols]
+        for r in fourstep + fourstep_cols + long_rows]
+
+    def dist_launches(name):
+        """A kernel's launches on the distributed path: each one-rank
+        decomposition forward + backward, and rank 0's four-rank runs."""
+        one = {d: r["forward_launches"][name] + r["backward_launches"][name]
+               for d, r in one_rank.items()}
+        four = {f"{c['check']} {c['decomp']} {c['mesh']}":
+                c["launches"][name] for c in ranks[0]["checks"]
+                if "launches" in c}
+        return {"one_rank": one, "four_ranks_rank0": four}
+
+    def shape_checks(name):
+        """The distributed path's shapes checked on kernel ``name``."""
+        return [{"shape": r["shape"], "axis": r.get("axis", -1),
+                 "max_rel_err": max(r["max_rel_err"] or 0.0,
+                                    r["inverse_max_rel_err"] or 0.0)
+                 if r["plain_held"] else None,
+                 "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
+                                           r["inverse_rel_err_vs_f64"])}
+                for r in dist_checks if r["kernel"] == name]
+
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -947,13 +1543,21 @@ def main() -> int:
                  fourstep_cols[0]),
              routes=fourstep_routes,
              chain_launches={f"{d[0]}x{d[1]}": launches[d]["fft_fourstep"]
-                             for d in launches}),
-        row("fft_stockham", csrc + "fft_stockham.cu",
-            "src/repro/kernels/fft_stockham.py:64", stockham[0],
-            stockham_cols[0]),
+                             for d in launches},
+             distributed_launches=dist_launches("fft_fourstep"),
+             distributed_shapes=shape_checks("fft_fourstep")),
+        dict(row("fft_stockham", csrc + "fft_stockham.cu",
+                 "src/repro/kernels/fft_stockham.py:64", stockham[0],
+                 stockham_cols[0]),
+             tiny_n=[{"shape": r["shape"], "axis": r.get("axis", -1),
+                      "max_abs_err": r["max_abs_err"],
+                      "device_ms": r["device_ms"]} for r in tiny],
+             distributed_launches=dist_launches("fft_stockham"),
+             distributed_shapes=shape_checks("fft_stockham")),
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
-             device_ms=bandpass[0]["device_ms"]),
+             device_ms=bandpass[0]["device_ms"],
+             distributed_launches=dist_launches("bandpass_filter")),
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",
@@ -981,4 +1585,19 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        try:
+            rank_worker(int(args["--rank"]), int(args["--world"]),
+                        args["--store"])
+        except BaseException:
+            import traceback
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
+        # every rank is past the last collective: leave without running
+        # the process groups' destructors, whose gloo threads can abort
+        # the process at interpreter exit after the work is done
+        sys.stdout.flush()
+        os._exit(0)
     sys.exit(main())

@@ -14,9 +14,11 @@ kernel takes the same arrays as its reference. Two formulations:
 Angles are taken in float32 exactly as the reference takes them
 (``dft.py:44-55``), so these functions repeat its rounding.
 ``local_fft`` dispatches between them, the kernels (``"pallas"``) and
-``torch.fft`` (``"jnp"``). All functions operate along the LAST axis;
-callers move axes, except ``fft_along`` with ``backend="pallas"`` on a
-CUDA tensor, which hands the axis to the kernels' column route.
+``torch.fft`` (``"jnp"``). ``"auto"`` takes the kernels for a CUDA
+tensor and the plain versions for a CPU one, so a plan on the card runs
+no plain stage unless its caller names one. All functions operate along
+the LAST axis; callers move axes, except ``fft_along`` with the kernels
+on a CUDA tensor, which hands the axis to the kernels' column route.
 """
 from __future__ import annotations
 
@@ -167,11 +169,12 @@ def local_fft(re, im, *, inverse: bool = False, backend: str = "auto"
               ) -> Pair:
     """FFT along the last axis.
     backend: auto | fourstep | stockham | jnp (torch.fft) | pallas (the
-    hand-written CUDA kernels through ``kernels.ops``)."""
+    hand-written CUDA kernels through ``kernels.ops``); auto is pallas
+    on a CUDA tensor."""
     n = re.shape[-1]
     if backend == "auto":
-        backend = "fourstep" if n >= 64 else "stockham" \
-            if n & (n - 1) == 0 else "fourstep"
+        backend = "pallas" if re.is_cuda else "fourstep" if n >= 64 \
+            else "stockham" if n & (n - 1) == 0 else "fourstep"
     if backend == "pallas":
         from repro_torch.kernels import ops as kops
         shape = re.shape
@@ -190,11 +193,11 @@ def local_fft(re, im, *, inverse: bool = False, backend: str = "auto"
 
 
 def fft_along(re, im, axis: int, **kw) -> Pair:
-    """FFT along ``axis``. The pallas backend on a CUDA tensor transforms
-    the axis where it lies (``kernels.ops.fft_axis``), so its output is
-    contiguous and no transposed copy is made; everything else moves the
-    axis last and back, as the reference does."""
-    if kw.get("backend") == "pallas" and re.is_cuda:
+    """FFT along ``axis``. The kernels on a CUDA tensor (pallas or auto)
+    transform the axis where it lies (``kernels.ops.fft_axis``), so the
+    output is contiguous and no transposed copy is made; everything else
+    moves the axis last and back, as the reference does."""
+    if kw.get("backend", "auto") in ("pallas", "auto") and re.is_cuda:
         from repro_torch.kernels import ops as kops
         return kops.fft_axis(re, im, axis,
                              inverse=kw.get("inverse", False))

@@ -7,8 +7,10 @@ spectrum. The index math is numpy, as in the reference, so both
 packages build the same masks bit for bit; the masks come back as
 ``torch.bool`` tensors on the CPU, and callers move them to their
 device. The digit-permuted masks (``permute_mask_first_axis``,
-``mask_fourstep_1d``, ``mask_pencil_tf_3d[_r2c]``) and ``mask_r2c``
-need the distributed layout maps and come with ROADMAP queue 1 item 8.
+``mask_fourstep_1d``, ``mask_pencil_tf_3d``) gather a natural-order mask
+through ``distributed.fourstep_freq_of_position``. ``mask_r2c`` and
+``mask_pencil_tf_3d_r2c`` come with the half-spectrum maps, ROADMAP
+queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.fft.distributed import fourstep_freq_of_position
 
 
 def freq_index(n: int):
@@ -87,3 +91,28 @@ def halfspec_mask(full_mask, hp: int) -> torch.Tensor:
     out = m.new_zeros(m.shape[:-1] + (hp,))
     out[..., :h] = m[..., :h]
     return out
+
+
+def permute_mask_first_axis(mask, p: int) -> torch.Tensor:
+    """Gather a natural-order spectral mask into the four-step digit
+    order along its FIRST axis (the layout of ``fourstep_fft_1d`` output
+    and of axis 0 of the transpose-free pencil output): position g'
+    keeps what the natural mask says about bin
+    ``fourstep_freq_of_position[g']``."""
+    base = np.asarray(mask)
+    return torch.from_numpy(
+        np.ascontiguousarray(base[fourstep_freq_of_position(base.shape[0],
+                                                            p)]))
+
+
+def mask_fourstep_1d(n: int, p: int, build=lowpass_mask, **kw):
+    """Mask permuted into the four-step transposed digit order."""
+    return permute_mask_first_axis(build((n,), **kw), p)
+
+
+def mask_pencil_tf_3d(shape: Sequence[int], p0: int, build=lowpass_mask,
+                      **kw):
+    """Mask for the transpose-free pencil output layout: axis 0 in
+    four-step digit order over the ``p0``-way mesh axis (axes 1, 2
+    natural)."""
+    return permute_mask_first_axis(build(tuple(shape), **kw), p0)

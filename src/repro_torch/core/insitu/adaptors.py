@@ -2,7 +2,8 @@
 of ``repro/core/insitu/adaptors.py``).
 
 ``radiating_field`` draws from numpy exactly as the reference does, so
-both packages get the same field from a seed.
+both packages get the same field from a seed; across ranks each rank
+publishes its block of it.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.fft import distributed
 from repro_torch.core.insitu.bridge import BridgeData, GridMeta
 
 
@@ -35,22 +37,38 @@ def radiating_field(dims: Tuple[int, int] = (200, 200),
 class RadiatingSourceAdaptor:
     """Producer + Data Adaptor for the paper's demonstration workflow.
     Tensors land on ``device``: by default the mesh's device, else the
-    CUDA device."""
+    CUDA device.
 
-    def __init__(self, dims=(200, 200), *, mesh=None, device=None, **kw):
+    ``spec`` places the field as the reference's ``sharding`` does:
+    each rank publishes its block of the seeded field (and of the clean
+    reference) under it, for example the FFT plan's input spec
+    (``plan_dft(...).schedule().in_spec``). Without it every rank
+    publishes the whole field."""
+
+    def __init__(self, dims=(200, 200), *, mesh=None, device=None,
+                 spec=None, **kw):
         self.dims = tuple(dims)
         if device is None:
             device = mesh.device if mesh is not None else "cuda"
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.spec = None if spec is None else tuple(spec)
+        if self.spec is not None and mesh is None:
+            raise ValueError("spec places the field on a mesh: pass mesh=")
         self.kw = kw
         self.grid = GridMeta(self.dims)
+
+    def _publish(self, x: np.ndarray) -> torch.Tensor:
+        if self.spec is not None:
+            x = distributed.shard(x, self.mesh, self.spec)
+        return torch.as_tensor(x).to(self.device)
 
     def produce(self, step: int = 0) -> BridgeData:
         """One simulation step's payload: the noisy field (primary,
         seeded by ``step``) plus its clean reference."""
         noisy, clean = radiating_field(self.dims, seed=step, **self.kw)
         return BridgeData(
-            arrays={"field": torch.from_numpy(noisy).to(self.device),
-                    "clean_reference": torch.from_numpy(clean).to(
-                        self.device)},
-            grid=self.grid, step=step, meta={"primary": "field"})
+            arrays={"field": self._publish(noisy),
+                    "clean_reference": self._publish(clean)},
+            grid=self.grid, step=step, meta={"primary": "field"},
+            spec=self.spec)

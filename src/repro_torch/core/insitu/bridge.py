@@ -2,10 +2,12 @@
 ``repro/core/insitu/bridge.py``).
 
 ``BridgeData`` carries one step's named tensors plus structured-grid
-metadata through the chain. Spectral fields travel as split (re, im)
-float32 pairs, as in the reference. ``from_numpy`` / ``to_numpy`` carry
-a payload across from and back to numpy arrays, which is how the tests
-hand one step's state between the reference and the port.
+metadata through the chain; across ranks, each rank's payload holds its
+block of the grid arrays, and ``spec`` says which block. Spectral
+fields travel as split (re, im) float32 pairs, as in the reference.
+``from_numpy`` / ``to_numpy`` carry a payload across from and back to
+numpy arrays, which is how the tests hand one step's state between the
+reference and the port.
 """
 from __future__ import annotations
 
@@ -40,9 +42,14 @@ class BridgeData:
     step: int = 0
     time: float = 0.0
     domain: str = "spatial"                 # spatial | spectral
-    layout: str = "natural"        # spatial: natural; spectral: transposed
-                                   # (each "+-half" for r2c)
+    layout: str = "natural"        # spatial: natural or cyclic; spectral:
+                                   # transposed, rotated, fourstep or
+                                   # rotated-fourstep (each "+-half" for r2c)
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # PartitionSpec tail of the grid arrays over the grid dims: on a mesh
+    # of more than one rank each rank holds its block under it. None: no
+    # placement (every rank holds the whole grid)
+    spec: Optional[Tuple] = None
 
     def replace(self, **kw) -> "BridgeData":
         """Functional update (endpoints never mutate payloads in place)."""

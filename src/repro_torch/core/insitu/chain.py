@@ -1,15 +1,19 @@
 """In-situ chain composition — the paper's multi-stage daisy-chain
 (counterpart of ``repro/core/insitu/chain.py``).
 
-Two execution modes of the reference, on one device:
+Two execution modes of the reference. Across the ranks of a mesh every
+rank runs the same chain on its block of the field; the exchanges
+happen inside the planned FFT endpoints, the bandpass energies are
+all-reduced, and the writer gathers to rank 0.
 
 * **in-situ** — the device endpoints run back to back on the device
   tensors (the handoff between stages is the tensor itself), then the
   chain waits for the device once and runs the host endpoints (writer,
   visualization) on the results.
 * **in-transit (staged)** — the chain waits for the device after every
-  device stage and keeps a timing per stage. One device has nothing to
-  redistribute between stages, so ``reshard_bytes`` stays 0.
+  device stage and keeps a timing per stage. Every stage keeps the
+  layout the previous one left (no M→N move between stage meshes: that
+  is ROADMAP queue 1 item 14), so ``reshard_bytes`` stays 0.
 
 The ``pipelined`` mode (host tail on a background worker while the next
 field runs on the device) is ROADMAP queue 1 item 11.
@@ -115,7 +119,7 @@ class InSituChain:
 
     # -- reporting ------------------------------------------------------------
     def marshaling_report(self) -> Dict[str, Any]:
-        """Mode, reshard bytes (0 on one device) and per-stage timings in
-        seconds."""
+        """Mode, reshard bytes (0: no stage moves data between meshes) and
+        per-stage timings in seconds."""
         return {"mode": self.mode, "reshard_bytes": 0,
                 "timings_s": dict(self._timings)}

@@ -4,11 +4,16 @@
 Configured like the paper's XML (mesh / array / direction), it turns
 the bridge's named array into split-plane spectral form, runs the
 planned transform (FFTW's plan-execute lifecycle via the cached
-``FFTPlan``; decomposition inferred from grid rank and mesh), and
-republishes the result. Forward sets ``domain="spectral"`` + the layout
-tag; backward restores spatial data. ``local=True`` (or no mesh)
-transforms with ``torch.fft`` instead of a plan, as the reference does
-with ``jnp.fft``.
+``FFTPlan``; any ``schedule.CAPS`` decomposition — slab / slab3d /
+pencil / pencil_tf / pencil2d / fourstep1d — inferred from grid rank
+and mesh when ``decomp`` is omitted) on this rank's block, and
+republishes the result with the plan's output spec. Forward sets
+``domain="spectral"`` + the layout tag (``transposed``, ``rotated``,
+``fourstep`` or ``rotated-fourstep``); backward restores spatial data.
+The cyclic decompositions (pencil_tf, fourstep1d) transform the CYCLIC
+spatial layout: their forward input must be tagged ``cyclic`` and their
+backward output is. ``local=True`` (or no mesh) transforms with
+``torch.fft`` instead of a plan, as the reference does with ``jnp.fft``.
 
 ``real=True`` on a plan (r2c/c2r half-spectrum) is ROADMAP queue 1
 item 9; the ``local=True`` real path is here.
@@ -19,11 +24,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.fft.distributed import CYCLIC_DECOMPS
 from repro_torch.core.fft.plan import BACKWARD, FORWARD, plan_dft
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
 
-_LAYOUT = {"slab": "transposed", "slab3d": "transposed"}
+_LAYOUT = {"slab": "transposed", "slab3d": "transposed",
+           "pencil": "rotated", "pencil_tf": "rotated-fourstep",
+           "pencil2d": "transposed",   # natural order; only the
+           "fourstep1d": "fourstep"}   # sharding is 2-axis-transposed
 
 
 class FFTEndpoint(Endpoint):
@@ -88,20 +97,34 @@ class FFTEndpoint(Endpoint):
     def execute(self, data: BridgeData) -> BridgeData:
         """Transform ``array`` and republish it with the matching
         ``domain``/``layout`` tags."""
+        if (self.plan is not None and self.direction == FORWARD
+                and self.plan.decomp in CYCLIC_DECOMPS
+                and data.layout != "cyclic"):
+            raise ValueError(
+                f"decomp={self.plan.decomp!r} transforms the CYCLIC "
+                f"spatial layout (got layout={data.layout!r}): reorder "
+                f"the field with distributed.cyclic_order along the "
+                f"first sharded grid axis and publish it with "
+                f"BridgeData.layout='cyclic'")
         re, im = data.get_pair(self.array)
+        spec = data.spec
         if self.plan is None:
             (r, i), layout = self._run_local(re, im)
         else:
             r, i = self.plan.execute(re, im)
             layout = _LAYOUT[self.plan.decomp] \
                 if self.direction == FORWARD else "natural"
+            spec = self.plan.schedule().out_spec
 
         arrays = dict(data.arrays)
         if self.direction == FORWARD:
             arrays[self.array] = (r, i)
             return data.replace(arrays=arrays, domain="spectral",
-                                layout=layout)
+                                layout=layout, spec=spec)
         arrays[self.array] = r        # real field (imag ~ 0 for real input)
         arrays[self.array + "_imag"] = i
+        spatial = "cyclic" if (self.plan is not None
+                               and self.plan.decomp in CYCLIC_DECOMPS) \
+            else "natural"
         return data.replace(arrays=arrays, domain="spatial",
-                            layout="natural")
+                            layout=spatial, spec=spec)

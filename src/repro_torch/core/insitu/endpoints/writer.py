@@ -14,6 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.core.fft.distributed import unshard
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
 
@@ -22,10 +23,20 @@ def _host(v) -> np.ndarray:
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
+def _gather(v, mesh, spec):
+    """The global array from this rank's block, on rank 0 (None on the
+    others); ``v`` itself where nothing is placed."""
+    if mesh is None or spec is None:
+        return v
+    return unshard(v, mesh, spec, dst=0)
+
+
 class WriterEndpoint(Endpoint):
     """Persist one named array per step as an (atomically published)
     ``.npy`` file; ``finalize`` reports the files written, in step
-    order."""
+    order. Across ranks the payload's blocks are gathered to rank 0,
+    which writes the one global array the reference writes; the other
+    ranks write nothing."""
 
     name = "writer"
     host = True
@@ -37,10 +48,12 @@ class WriterEndpoint(Endpoint):
         self.out_dir = Path(out_dir)
         self.prefix = prefix
         self.every = every
+        self.mesh = None
         self.written = []
 
     def initialize(self, mesh=None, grid=None):
         """Create the output directory."""
+        self.mesh = mesh
         self.out_dir.mkdir(parents=True, exist_ok=True)
 
     def execute(self, data: BridgeData) -> BridgeData:
@@ -49,7 +62,11 @@ class WriterEndpoint(Endpoint):
         if data.step % self.every:
             return data
         v = data.arrays[self.array]
-        arr = _host(v[0] if isinstance(v, tuple) else v)
+        v = v[0] if isinstance(v, tuple) else v
+        v = _gather(v, self.mesh, data.spec)
+        if v is None:                 # not rank 0
+            return data
+        arr = _host(v)
         path = self.out_dir / f"{self.prefix}_{data.step:06d}.npy"
         tmp = path.with_suffix(".tmp.npy")
         np.save(tmp, arr)
@@ -64,7 +81,8 @@ class WriterEndpoint(Endpoint):
 
 class VisualizeEndpoint(Endpoint):
     """Render one named array per step to portable PGM (plus PNG when
-    matplotlib is available) — the paper's matplotlib endpoint role."""
+    matplotlib is available) — the paper's matplotlib endpoint role.
+    Across ranks rank 0 renders the gathered global array."""
 
     name = "visualize"
     host = True
@@ -77,20 +95,26 @@ class VisualizeEndpoint(Endpoint):
         self.out_dir = Path(out_dir)
         self.prefix = prefix
         self.log_scale = log_scale
+        self.mesh = None
         self.written = []
 
     def initialize(self, mesh=None, grid=None):
         """Create the output directory."""
+        self.mesh = mesh
         self.out_dir.mkdir(parents=True, exist_ok=True)
 
     def execute(self, data: BridgeData) -> BridgeData:
         """Render ``array`` (|z| for an (re, im) pair, mid-slice for 3-D
         fields, optional log scale) to ``<prefix>_<step>.pgm``."""
         v = data.arrays[self.array]
-        if isinstance(v, tuple):
-            arr = np.abs(_host(v[0]) + 1j * _host(v[1]))
+        parts = [_gather(x, self.mesh, data.spec)
+                 for x in (v if isinstance(v, tuple) else (v,))]
+        if parts[0] is None:          # not rank 0
+            return data
+        if len(parts) == 2:
+            arr = np.abs(_host(parts[0]) + 1j * _host(parts[1]))
         else:
-            arr = _host(v)
+            arr = _host(parts[0])
         if arr.ndim == 3:
             arr = arr[arr.shape[0] // 2]
         if self.log_scale:

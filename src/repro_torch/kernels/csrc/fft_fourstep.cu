@@ -23,15 +23,18 @@
 //     (mixed_lines_kernel: rows, or tiles of 8-32 neighbouring lines;
 //     mixed_reg_kernel: tiles whose points stay in registers). A row of
 //     up to ~14k points is one CTA; longer rows and columns of more than
-//     ~439 points run as two or three passes of <= 439 points each
+//     ~439 points run as two to four passes of <= 439 points each
 //     through a scratch buffer, the four-step twiddle fused into each
-//     pass's store (N = 10000: 100 x 100). The pass plan varies with N,
-//     so each radix has its own inlined butterfly with a constant R (no
+//     pass's store (N = 10000: 100 x 100; 2^25: 128 x 64 x 64 x 64).
+//     Offsets are 64-bit; a line holds at most 2^31 points (the wrapper
+//     refuses longer ones: fft_plan.LINE_MAX). The pass plan varies with
+//     N, so each radix has its own inlined butterfly with a constant R (no
 //     register array is indexed at run time), picked by a switch per
 //     pass, and the passes exchange through shared memory;
-//   * Bluestein, every N with a prime factor > 7: X = chirp * ((x *
-//     chirp) conv conj(chirp)), the convolution as two power-of-two FFTs
-//     of M >= 2N - 1 points on the routes above, with the chirp's spectrum
+//   * Bluestein, every N with a prime factor > 7 (or no split into four
+//     lines): X = chirp * ((x * chirp) conv conj(chirp)), the convolution
+//     as two power-of-two FFTs of M >= 2N - 1 points (M <= 2^30) on the
+//     routes above, with the chirp's spectrum
 //     made once per (N, direction) by the wrapper. Three pointwise kernels
 //     (pre-chirp and zero-pad, the product with the spectrum, post-chirp)
 //     surround the two FFTs.
@@ -62,7 +65,7 @@ constexpr int kRowMaxRadix = 16;
 constexpr int kLaneThreads = 512, kLaneMinBlocks = 2, kLanePoints = 8;
 constexpr int kLaneMaxRadix = 8;
 constexpr int kMaxPasses = 16;       // radix passes of one line
-constexpr int kMaxStages = 3;        // line passes of one transform
+constexpr int kMaxStages = 4;        // line passes of one transform
 constexpr int kTwS = 64;             // root(e) = hi[e / kTwS] * lo[e % kTwS]
 
 // One launch of mixed_lines_kernel: lines of n points, `C` lines a CTA.
@@ -853,7 +856,7 @@ extern "C" int repro_fft_mixed(const float* re, const float* im, float* ore,
     return (int)cudaErrorInvalidValue;
   long long N = 1;
   for (int s = 0; s < p.k; ++s) N *= p.s[s].n;
-  if (p.k > 1 && !work) return (int)cudaErrorInvalidValue;
+  if ((p.k > 1 && !work) || N > (1LL << 31)) return (int)cudaErrorInvalidValue;
   float* wre = (float*)work;
   float* wim = wre ? wre + outer * N * inner : nullptr;
   return (int)mixed_axis(p, p.k, re, im, ore, oim, wre, wim, outer, inner,

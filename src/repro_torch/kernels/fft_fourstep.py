@@ -34,8 +34,7 @@ def _bluestein_tables(n: int, inverse: bool, device):
     if key not in _CHIRPS:
         m = fft_plan.bluestein_size(n)
         sign = 1.0 if inverse else -1.0
-        e = torch.tensor(fft_plan.chirp_exponents(n), dtype=torch.float64,
-                         device=device)
+        e = fft_plan.chirp_exponents(n, device).double()
         ang = (sign * math.pi / n) * e
         chirp = torch.stack((torch.cos(ang), torch.sin(ang)), -1).float()
         # conj(chirp) laid out circularly: b[m] = b[M - m] = conj(c[m])

@@ -8,14 +8,18 @@ Pure integer arithmetic, cached per N, so the wrappers pay for it once:
 * ``stages(n, columns)`` — the line lengths of a mixed-radix transform:
   one line when it fits one CTA's shared memory (rows to
   ``MIXED_ROW_MAX`` points, a tile of 32 columns to ``MIXED_LINE_MAX``),
-  else two or three lines of at most ``MIXED_LINE_MAX`` points, passes
-  through a scratch buffer;
+  else two, three or four lines of at most ``MIXED_LINE_MAX`` points,
+  passes through a scratch buffer;
 * ``route(n, columns)`` — which route takes N: ``radix`` (powers of two
   to 16384 as rows, 65536 as columns), ``mixed`` (every other N whose
-  prime factors are <= 7) or ``bluestein`` (the rest), with its launch
-  count, scratch size and the plan array the C entry points take;
+  prime factors are <= 7 and that splits into at most four lines) or
+  ``bluestein`` (the rest), with its launch count, scratch size and the
+  plan array the C entry points take. It refuses a line of more than
+  ``LINE_MAX`` points, and a Bluestein N whose M would pass
+  ``BLUESTEIN_M_MAX`` (the C entry points take N and M as 32-bit ints);
 * ``bluestein_size(n)`` and ``chirp_exponents(n)`` — Bluestein's
-  power-of-two length M >= 2N - 1 and the chirp's exponents n^2 mod 2N.
+  power-of-two length M >= 2N - 1 and the chirp's exponents n^2 mod 2N
+  (an int64 tensor, made where the chirp is).
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
+
+import torch
 
 from repro_torch.kernels._build import SMEM_MAX
 
@@ -35,7 +41,11 @@ LANE_MAX_RADIX = 8
 RADIX_ROW_MAX = 16384
 RADIX_COLUMN_ONE_PASS_MAX = 256
 RADIX_COLUMN_MAX = 65536
-MAX_STAGES = 3
+MAX_STAGES = 4
+# the longest line the kernels take (64-bit offsets, 32-bit line counts),
+# and Bluestein's longest power-of-two convolution (a 32-bit int M)
+LINE_MAX = 1 << 31
+BLUESTEIN_M_MAX = 1 << 30
 TW_S = 64           # the kernel's split twiddle table: hi[e / 64] * lo[e % 64]
 LINE_TILE = 32      # lines a CTA on the column-like passes
 
@@ -99,7 +109,8 @@ def _divisors(n: int):
 def stages(n: int, columns: bool) -> Tuple[int, ...]:
     """Line lengths of a mixed-radix transform of n points, first pass
     first: one line if it fits a CTA, else the most balanced split into
-    two, or else three, lines of at most ``MIXED_LINE_MAX`` points."""
+    two, or else three, or else four, lines of at most
+    ``MIXED_LINE_MAX`` points."""
     if not smooth7(n):
         raise ValueError(f"stages: {n} has a prime factor above 7")
     if n <= (MIXED_LINE_MAX if columns else MIXED_ROW_MAX):
@@ -122,10 +133,36 @@ def stages(n: int, columns: bool) -> Tuple[int, ...]:
                 key = min(d1, d2, d3)
                 if best is None or key > best[0]:
                     best = (key, (d3, d2, d1))
+    if best:
+        return best[1]
+    for d1 in _divisors(n):
+        if d1 > cap:
+            continue
+        for d2 in _divisors(n // d1):
+            if d2 > cap:
+                continue
+            for d3 in _divisors(n // d1 // d2):
+                d4 = n // d1 // d2 // d3
+                if d3 <= cap and d4 <= cap:
+                    key = min(d1, d2, d3, d4)
+                    if best is None or key > best[0]:
+                        best = (key, (d4, d3, d2, d1))
     if best is None:
         raise ValueError(f"stages: {n} needs more than {MAX_STAGES} passes "
                          f"of <= {cap} points")
     return best[1]
+
+
+def splits(n: int, columns: bool) -> bool:
+    """Whether the mixed-radix route takes n: 7-smooth, in at most
+    ``MAX_STAGES`` lines."""
+    if not smooth7(n):
+        return False
+    try:
+        stages(n, columns)
+    except ValueError:
+        return False
+    return True
 
 
 # the register kernel (points in registers, one shared buffer): threads
@@ -172,10 +209,12 @@ def bluestein_size(n: int) -> int:
     return 1 << max(0, (2 * n - 2).bit_length())
 
 
-def chirp_exponents(n: int):
-    """k^2 mod 2n for k < n, as exact Python ints (the kernel's chirp is
-    exp(sign*pi*i*e/n) of these)."""
-    return [(k * k) % (2 * n) for k in range(n)]
+def chirp_exponents(n: int, device=None) -> torch.Tensor:
+    """k^2 mod 2n for k < n, exact in int64 (k^2 < 2^63 for every n the
+    route takes), on ``device``; the kernel's chirp is exp(sign*pi*i*e/n)
+    of these."""
+    k = torch.arange(n, dtype=torch.int64, device=device)
+    return (k * k) % (2 * n)
 
 
 class Route(NamedTuple):
@@ -195,15 +234,23 @@ def route(n: int, columns: bool) -> Route:
     False, inner == 1) or along the middle axis of (outer, n, inner)."""
     if n < 1:
         raise ValueError(f"route: N must be positive, got {n}")
+    if n > LINE_MAX:
+        raise ValueError(f"route: N = {n} is past the kernels' {LINE_MAX} "
+                         f"points a line")
     if is_pow2(n) and n <= (RADIX_COLUMN_MAX if columns else RADIX_ROW_MAX):
         two = columns and n > RADIX_COLUMN_ONE_PASS_MAX
         return Route("radix", n, (), None, 0, None, 2 if two else 1,
                      2 * n if two else 0)
-    if smooth7(n):
+    if splits(n, columns):
         lines = stages(n, columns)
         return Route("mixed", n, lines, plan_array(lines, columns), 0, None,
                      len(lines), 2 * n if len(lines) > 1 else 0)
     m = bluestein_size(n)
+    if m > BLUESTEIN_M_MAX:
+        raise ValueError(
+            f"route: N = {n} takes Bluestein (a prime factor above 7, or no "
+            f"split into {MAX_STAGES} lines of <= {MIXED_LINE_MAX} points), "
+            f"whose M = {m} is past its {BLUESTEIN_M_MAX}")
     inner = route(m, columns)
     return Route("bluestein", n, (), None, m, inner, 3 + 2 * inner.launches,
                  4 * m)

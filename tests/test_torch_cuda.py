@@ -64,7 +64,10 @@ ROUTE_ROWS = [(1, 8192), (3, 1024), (8200, 64), (9001, 200), (5, 360),
               (7, 257), (4, 1), (3, 16384), (64, 200), (64, 360), (64, 257),
               (200, 200), (2, 20000), (2, 32768), (64, 32768), (8, 65536),
               (4, 1 << 20), (8, 10007), (16, 4097), (3, 10000), (5, 7),
-              (2, 3 * 5 * 7 * 64)]
+              (2, 3 * 5 * 7 * 64),
+              # four passes of <= 439 points: 2^25 and 5^10, and 2^24 + 1
+              # on Bluestein (M = 2^26)
+              (1, 1 << 25), (1, 5 ** 10), (1, (1 << 24) + 1)]
 
 
 @pytest.mark.parametrize("shape", ROUTE_ROWS)
@@ -113,6 +116,66 @@ def test_stockham_kernel_matches_plain(gen, shape):
     for inverse in (False, True):
         got = fft_stockham.fft_stockham(re, im, inverse=inverse)
         assert _rel(got, dft.stockham_fft(re, im, inverse=inverse)) < 5e-5
+
+
+@pytest.mark.parametrize("shape", [(4096, 1), (4096, 2), (1, 1, 1 << 20),
+                                   (1, 2, 1 << 20), (3, 2, 1000),
+                                   (1, 1, 1 << 27)])
+def test_length_one_and_two_passes_match_plain(gen, shape):
+    # the length-1 passes of pencil_tf and fourstep1d on one rank, and
+    # the 2-point ones of pencil_tf on a 2-way first mesh axis, through
+    # ops (Stockham, log2 N = 0 or 1), rows and columns
+    re, im = _planes(gen, shape)
+    for inverse in (False, True):
+        if len(shape) == 2:
+            got = ops.fft(re, im, inverse=inverse)
+            want = dft.stockham_fft(re, im, inverse=inverse)
+        else:
+            got = ops.fft_axis(re, im, 1, inverse=inverse)
+            want = _columns_plain(dft.stockham_fft, re, im, inverse)
+        assert _rel(got, want) < 5e-5
+
+
+@pytest.mark.parametrize("decomp,grid", [
+    ("slab", (256, 384)), ("slab3d", (32, 48, 64)), ("pencil", (32, 48, 64)),
+    ("pencil_tf", (32, 48, 64)), ("pencil2d", (256, 384)),
+    ("fourstep1d", (1 << 16,))])
+def test_one_rank_decompositions_run_the_kernels(gen, decomp, grid):
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft.plan import plan_dft
+    axes = 2 if decomp in ("pencil", "pencil_tf", "pencil2d") else 1
+    mesh = make_mesh((1,) * axes, ("data", "model")[:axes])
+    assert mesh.device.type == "cuda"
+    re, im = _planes(gen, grid)
+    z = torch.complex(re.double(), im.double())
+    for direction, want in (("forward", torch.fft.fftn(z)),
+                            ("backward", torch.fft.ifftn(z))):
+        plan = plan_dft(grid, direction, mesh, decomp=decomp,
+                        backend="pallas")
+        before = (ops.fft_fourstep.launches, ops.fft_stockham.launches)
+        got = plan.execute(re, im)
+        assert got[0].is_cuda and got[0].shape == re.shape
+        assert (ops.fft_fourstep.launches, ops.fft_stockham.launches) \
+            != before
+        assert _rel64(got, (want.real, want.imag)) < 5e-5
+
+
+@pytest.mark.parametrize("wrapper,grid", [
+    ("slab_fft_2d", (256, 384)), ("slab_fft_3d", (32, 48, 64)),
+    ("pencil_fft_3d", (32, 48, 64)), ("pencil_tf_fft_3d", (32, 48, 64)),
+    ("pencil2d_fft_2d", (256, 384)), ("fourstep_fft_1d", (1 << 16,))])
+def test_default_backend_runs_the_kernels(gen, wrapper, grid):
+    # a caller who names no backend gets the kernels on a CUDA tensor
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft import distributed as D
+    axes = 2 if wrapper.startswith("pencil") else 1
+    mesh = make_mesh((1,) * axes, ("data", "model")[:axes])
+    re, im = _planes(gen, grid)
+    before = ops.fft_fourstep.launches + ops.fft_stockham.launches
+    got = getattr(D, wrapper)(re, im, mesh)
+    assert ops.fft_fourstep.launches + ops.fft_stockham.launches > before
+    want = torch.fft.fftn(torch.complex(re.double(), im.double()))
+    assert _rel64(got, (want.real, want.imag)) < 5e-5
 
 
 @pytest.mark.parametrize("block_b", [1, 8, 64, 128])

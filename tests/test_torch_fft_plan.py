@@ -46,7 +46,10 @@ def test_radix_plan_refuses_large_primes():
     (10000, True, "mixed", 2), (20000, False, "mixed", 2),
     (7, False, "mixed", 1),
     (257, False, "bluestein", 5), (4097, False, "bluestein", 5),
-    (10007, False, "bluestein", 7), (257, True, "bluestein", 7)])
+    (10007, False, "bluestein", 7), (257, True, "bluestein", 7),
+    (1 << 25, False, "mixed", 4), (1 << 25, True, "mixed", 4),
+    (5 ** 10, False, "mixed", 4), (1 << 31, False, "mixed", 4),
+    (16777217, False, "bluestein", 11), (1 << 29, False, "mixed", 4)])
 def test_route_per_n(n, columns, kind, passes):
     r = fft_plan.route(n, columns)
     assert r.kind == kind
@@ -94,7 +97,7 @@ def test_bluestein_size_is_least_power_of_two(n):
 
 @pytest.mark.parametrize("n", [7, 257, 4097, 10007])
 def test_chirp_table_matches_numpy(n):
-    e = np.array(fft_plan.chirp_exponents(n), dtype=np.int64)
+    e = fft_plan.chirp_exponents(n).numpy()
     k = np.arange(n, dtype=np.float64)
     want = np.exp(-1j * np.pi * k * k / n)
     got = np.exp(-1j * np.pi * e / n)
@@ -148,7 +151,7 @@ def _bluestein(x: torch.Tensor, sign: float) -> torch.Tensor:
     a power-of-two circular convolution of M points with conj(chirp)."""
     n = x.shape[-1]
     m = fft_plan.bluestein_size(n)
-    e = torch.tensor(fft_plan.chirp_exponents(n), dtype=torch.float64)
+    e = fft_plan.chirp_exponents(n).double()
     chirp = torch.exp(sign * 1j * math.pi * e / n)
     a = torch.zeros(*x.shape[:-1], m, dtype=torch.complex128)
     a[..., :n] = x * chirp
@@ -195,6 +198,30 @@ def test_three_pass_split_matches_numpy():
     got = _mixed(torch.from_numpy(x), lines, 1.0).numpy()
     want = np.fft.ifft(x) * 128
     assert np.abs(got - want).max() < 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("lines,inverse", [((4, 2, 4, 4), False),
+                                            ((5, 5, 3, 2), True),
+                                            ((7, 3, 4, 5), False)])
+def test_four_pass_split_matches_numpy(lines, inverse):
+    # the split of 2^25 and 5^10 (four passes), on short N
+    n = math.prod(lines)
+    x = _signal(2, n)
+    got = _mixed(torch.from_numpy(x), lines, 1.0 if inverse else -1.0)
+    want = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    assert np.abs(got.numpy() - want).max() < 1e-10 * np.abs(want).max()
+
+
+def test_routes_refuse_past_their_limits():
+    # a line past 2^31 points; 5^13 has no split into four lines of <= 439
+    # points, and its Bluestein M = 2^32 is past the 32-bit M
+    with pytest.raises(ValueError, match="points a line"):
+        fft_plan.route((1 << 31) + 2, False)
+    for n in (5 ** 13, (1 << 29) + 1):
+        with pytest.raises(ValueError, match="Bluestein"):
+            fft_plan.route(n, False)
+    assert not fft_plan.splits(5 ** 13, False)
+    assert fft_plan.route(1 << 29, False).kind == "mixed"
 
 
 @pytest.mark.parametrize("n", [7, 257, 4097, 10007])

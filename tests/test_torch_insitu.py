@@ -12,6 +12,7 @@ from repro.compat import make_mesh as jax_make_mesh
 from repro.core.insitu.adaptors import RadiatingSourceAdaptor as JaxSource
 from repro.core.insitu.config import build_chain as jax_build_chain
 from repro_torch.compat import make_mesh
+from repro_torch.core.fft.filters import lowpass_mask
 from repro_torch.core.insitu import bridge
 from repro_torch.core.insitu.adaptors import (RadiatingSourceAdaptor,
                                               radiating_field)
@@ -128,6 +129,26 @@ def test_source_matches_reference_and_defaults_to_cuda():
     assert RadiatingSourceAdaptor((4, 4), mesh=mesh).device.type == "cpu"
 
 
+def test_source_publishes_the_block_its_spec_names():
+    # rank 2 of a (4,) mesh under ("data", None): rows 32..47 of the
+    # seeded field; no spec: the whole field
+    from repro_torch.compat import Mesh
+    noisy, clean = radiating_field((64, 80), seed=3)
+    mesh = Mesh(("data",), {"data": 4}, torch.device("cpu"), {"data": 2})
+    data = RadiatingSourceAdaptor((64, 80), mesh=mesh,
+                                  spec=("data", None)).produce(3)
+    assert data.spec == ("data", None)
+    np.testing.assert_array_equal(data.arrays["field"].numpy(),
+                                  noisy[32:48])
+    np.testing.assert_array_equal(data.arrays["clean_reference"].numpy(),
+                                  clean[32:48])
+    whole = RadiatingSourceAdaptor((64, 80), mesh=mesh).produce(3)
+    assert whole.spec is None
+    np.testing.assert_array_equal(whole.arrays["field"].numpy(), noisy)
+    with pytest.raises(ValueError, match="mesh"):
+        RadiatingSourceAdaptor((64, 80), spec=("data", None), device="cpu")
+
+
 def test_bridge_numpy_round_trip():
     jdata = JaxSource(dims=(16, 24)).produce(step=1)
     arrays = {k: np.asarray(v) for k, v in jdata.arrays.items()}
@@ -156,10 +177,15 @@ def test_unported_chain_features_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         build_chain({"chain": [{"endpoint": "fft", "real": True}]},
                     mesh=mesh, grid=grid)
-    spectral = bridge.BridgeData(
-        arrays={"field": (torch.zeros(16, 16), torch.zeros(16, 16))},
-        grid=grid, domain="spectral", layout="fourstep")
-    chain = build_chain({"chain": [{"endpoint": "bandpass"}]}, mesh=mesh,
+    # bandpass on a digit-permuted layout, once refused: over one shard
+    # the four-step digit order is the natural order
+    re, im = torch.randn(16, 16), torch.randn(16, 16)
+    spectral = bridge.BridgeData(arrays={"field": (re, im)}, grid=grid,
+                                 domain="spectral", layout="fourstep")
+    chain = build_chain({"chain": [{"endpoint": "bandpass",
+                                    "keep_frac": 0.25}]}, mesh=mesh,
                         grid=grid)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        chain.execute(spectral)
+    out = chain.execute(spectral)
+    m = lowpass_mask((16, 16), 0.25).float()
+    assert torch.equal(out.arrays["field"][0], re * m)
+    assert torch.equal(out.arrays["field"][1], im * m)

@@ -60,14 +60,40 @@ def test_plan_cache_returns_the_same_object():
     assert plan.plan_cache_stats() == {"hits": 0, "misses": 0, "size": 0}
 
 
-def test_mesh_defaults_and_limits():
-    assert make_mesh((1,), ("data",)).device.type == "cuda"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_mesh((2,), ("data",))
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_mesh_defaults_and_limits(monkeypatch):
+    # the default device is cuda:{LOCAL_RANK}, and must exist
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert make_mesh((1,), ("data",)).device == torch.device("cuda", 0)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert make_mesh((1,), ("data",)).device == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="cuda:1"):
+        make_mesh((1,), ("data",))
+    # more than one device needs a default process group of that size
+    with pytest.raises(ValueError, match="process group"):
+        make_mesh((2,), ("data",), device="cpu")
+    with pytest.raises(ValueError, match="process group"):
         make_mesh((2, 2), ("data", "model"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        schedule.AllToAll("data", -1, -2, 4)
+    assert schedule.AllToAll("data", -1, -2, 4).shards == 4
+
+
+def test_plan_refuses_a_block_of_another_shape():
+    # rank 1 of a (4,) mesh takes a (4, 16) block of a 16 x 16 slab; the
+    # whole grid (a field every rank holds whole) raises before any
+    # exchange
+    from repro_torch.compat import Mesh
+    mesh = Mesh(("data",), {"data": 4}, torch.device("cpu"), {"data": 1},
+                hosts=("h",) * 4)
+    p = plan.plan_dft((16, 16), plan.FORWARD, mesh, backend="pallas")
+    assert p.block_shape() == (4, 16)
+    x = torch.zeros(16, 16)
+    with pytest.raises(ValueError, match=r"block \(4, 16\)"):
+        p.execute(x, x)
+    one = plan.plan_dft((16, 16), plan.FORWARD, _mesh(), backend="pallas",
+                        batch_ndim=1)
+    assert one.block_shape() == (16, 16)
+    with pytest.raises(ValueError, match="place"):
+        one.execute(torch.zeros(2, 8, 16), torch.zeros(2, 8, 16))
 
 
 @pytest.mark.parametrize("kw, item", [
@@ -75,12 +101,30 @@ def test_mesh_defaults_and_limits():
     ({"decomp": "measure"}, "item 10"),
     ({"real": True}, "item 9"),
     ({"wire_dtype": "bfloat16"}, "item 12"),
-    ({"overlap_chunks": 2}, "item 8"),
-    ({"decomp": "pencil2d"}, "item 8"),
 ])
 def test_unported_planning_raises(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         plan.plan_dft((16, 16), plan.FORWARD, _mesh(), **kw)
+
+
+@pytest.mark.parametrize("kw", [{"overlap_chunks": 2},
+                                {"decomp": "pencil2d"}])
+def test_one_device_plans_of_the_distributed_path(kw):
+    # overlap chunking and the 2-axis decomposition, once refused, on a
+    # one-device mesh: bit-identical to the plain slab where they chunk,
+    # and against numpy
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    x = (RNG.standard_normal((16, 24))
+         + 1j * RNG.standard_normal((16, 24))).astype(np.complex64)
+    p = plan.plan_dft((16, 24), plan.FORWARD, mesh, backend="pallas", **kw)
+    y = p.execute_complex(x)
+    want = np.fft.fft2(x)
+    assert np.abs(y.numpy() - want).max() / np.abs(want).max() < 5e-5
+    if "overlap_chunks" in kw:
+        plain = plan.plan_dft((16, 24), plan.FORWARD, mesh, backend="pallas")
+        assert p is not plain and torch.equal(y, plain.execute_complex(x))
+    else:
+        assert p.schedule().out_spec == (None, ("model", "data"))
 
 
 def test_planner_input_errors():
