@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card, through its kernels.
 
-Three main paths:
+Three main paths (and the real, r2c/c2r, variants of the first two):
   * the paper's Fig. 2 workflow: a noisy radiating source → forward FFT →
     bandpass → backward FFT → writer, built with ``build_chain`` on a
     one-device mesh with planned ``backend: "pallas"`` FFT endpoints, so
@@ -80,10 +80,32 @@ Phases, each printing one JSON line:
      step gives the logits of a prefill one token longer; a continuous
      batcher at the same width (4 slots, 6 requests); device time by
      kernel over one 2048-token prefill and one decode step;
+  4c. real (r2c/c2r) paths — the Fig. 2 chain with ``real: true`` FFT
+     endpoints at 8192² and 10000² in both modes (run in phase 4, beside
+     the complex chain, against the same float64 oracle; the energies
+     are the half-spectrum's stored bins', as the reference sums them),
+     with a profiled step of each; ``examples/insitu_rfft_batched.py``
+     at full width (4 fields of 8192², ``batch_ndim=1``, two steps, the
+     second from the plan cache); ``plan_rfft`` on a one-rank mesh:
+     pencil, slab3d, pencil_tf at 512³, slab and pencil2d at 8192², each
+     forward and back against float64 with host ms, device busy ms and
+     the idle share; ``backend="measure"`` on the 8192² slab and the 512³
+     pencil (every variant's time, the winner, the skips); the endcaps'
+     torch.fft times; the half-width column shapes (8192 x 4097, 10000 x
+     5001, 8192 x 4100) timed on the four-step kernel; and every FFT
+     shape those paths gave the kernels, against the plain versions,
+     torch.fft and float64. The four ranks (4b) also run every r2c
+     decomposition against float64, the real chain on the (4,) slab, the
+     complex slab with a bfloat16 and an int8_block64 wire (the
+     exchanged values within each wire's documented bound of the exact
+     wire's), the dtypes gloo's all_to_all takes on CUDA tensors, and
+     ``backend``/``decomp="measure"`` at 256³ (one winner on every rank,
+     then a warm start from wisdom that times no candidate);
   6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as four
      mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26), against the
-     float64 oracle and torch.fft (last: the Bluestein tables stay
-     cached, and would count in the earlier phases' peak memory);
+     float64 oracle and torch.fft (last, so its Bluestein tables do not
+     count in the earlier phases' peak memory); then the device memory
+     before and after ``plan_cache_clear()``, which must free the tables;
 then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
@@ -193,6 +215,42 @@ RANK_CYCLIC_KEEP_FRAC = 0.2
 # the four-rank phase against the float64 oracle: the CPU tests' bar
 # against the reference (tests/test_torch_distributed.py)
 RANK_TOL = 1e-4
+# the real (r2c/c2r) paths. The Fig. 2 chain with real=True at the
+# complex chain's full-width grids: 8192^2 (half-width columns of 4097)
+# and 10000^2 (5001)
+REAL_CHAIN_DIMS = ((8192, 8192), (10000, 10000))
+# examples/insitu_rfft_batched.py at full width: 4 fields of 8192^2
+# (1 GiB of input) a step, its keep fraction
+BATCH_FIELDS = (4, 8192, 8192)
+BATCH_KEEP_FRAC = 0.08
+# the r2c/c2r plans on a one-rank mesh: 512^3 real (512 MiB), 8192^2;
+# pencil_tf runs its 1-point pass on Stockham
+REAL_ONE_RANK = (
+    ("pencil", (1, 1), (512, 512, 512), ("fft_fourstep",)),
+    ("slab3d", (1,), (512, 512, 512), ("fft_fourstep",)),
+    ("pencil_tf", (1, 1), (512, 512, 512), ("fft_fourstep",
+                                            "fft_stockham")),
+    ("slab", (1,), (8192, 8192), ("fft_fourstep",)),
+    ("pencil2d", (1, 1), (8192, 8192), ("fft_fourstep",)))
+# measured planning on the card, one rank, full size
+MEASURE_ONE_CARD = (("slab", (1,), (8192, 8192)),
+                    ("pencil", (1, 1), (512, 512, 512)))
+# the half-width column shapes the real chains give the column route,
+# timed on their own: the one-rank half widths and the 8192 half padded
+# to a multiple of 4 (what a four-rank slab splits)
+HALF_COLUMNS = ((8192, 4097), (10000, 5001), (8192, 4100))
+# a measured winner with a reduced wire is held to the planner's own
+# error budget (plan_dft's wire_tol default)
+WIRE_TOL = 1e-2
+# four ranks: the r2c decompositions against float64
+RANK_REAL = (("slab", "(4,)", (8192, 8192)),
+             ("pencil2d", "(2, 2)", (8192, 8192)),
+             ("pencil", "(2, 2)", (256, 256, 256)),
+             ("pencil_tf", "(2, 2)", (256, 256, 256)),
+             ("slab3d", "(2, 2)", (256, 256, 256)))
+# the complex slab with each wire, against the exact wire
+RANK_WIRES = ("bfloat16", "int8_block64")
+RANK_MEASURE = (256, 256, 256)
 
 
 def emit(obj) -> None:
@@ -464,7 +522,11 @@ def check_bandpass(shape, gen, soft: bool):
 
 
 def oracle(dims):
-    """The chain in float64 numpy: fft2 → the same mask → ifft2."""
+    """The chain in float64 numpy: fft2 → the same mask → ifft2. The
+    energies come twice: over the whole spectrum (the complex chain's)
+    and over the half-spectrum's stored bins, k1 <= N1/2, with no
+    Hermitian weight (the real chain's, as the reference sums them).
+    The mask is Hermitian-symmetric, so both chains give one field."""
     import numpy as np
     from repro_torch.core.fft.filters import lowpass_mask
     from repro_torch.core.insitu.adaptors import radiating_field
@@ -472,13 +534,39 @@ def oracle(dims):
     spec = np.fft.fft2(noisy.astype(np.float64))
     power = spec.real ** 2 + spec.imag ** 2
     mask = lowpass_mask(dims, KEEP_FRAC).numpy()
+    h = dims[-1] // 2 + 1
     kept, total = float((power * mask).sum()), float(power.sum())
+    kept_half = float((power[:, :h] * mask[:, :h]).sum())
+    total_half = float(power[:, :h].sum())
+    del power
     spec *= mask
     denoised = np.fft.ifft2(spec).real
-    return noisy, clean, denoised, kept, total
+    return {"noisy": noisy, "clean": clean, "denoised": denoised,
+            "energies": (kept, total), "half_energies": (kept_half,
+                                                         total_half)}
 
 
-def run_chain(dims, mode, mesh, expected, out_dir):
+def chain_config(mode, real=False, out_dir=None):
+    """The Fig. 2 chain as a user configures it: kernel FFT endpoints
+    (r2c/c2r plans with ``real``), the bandpass, and a writer where
+    ``out_dir`` is given."""
+    chain = [
+        {"endpoint": "fft", "array": "field", "direction": "forward",
+         "backend": "pallas", "real": real},
+        {"endpoint": "bandpass", "array": "field", "keep_frac": KEEP_FRAC},
+        {"endpoint": "fft", "array": "field", "direction": "backward",
+         "backend": "pallas", "real": real}]
+    if out_dir is not None:
+        chain.append({"endpoint": "writer", "array": "field",
+                      "out_dir": str(out_dir)})
+    return {"mode": mode, "chain": chain}
+
+
+def run_chain(dims, mode, mesh, expected, out_dir, real=False, shapes=None):
+    """One chain step on the card against the float64 oracle, with its
+    launches, wall time and peak memory; ``real`` runs the r2c/c2r
+    chain, whose energies are those of the half-spectrum's bins.
+    ``shapes`` collects the FFT shapes the step gives the kernels."""
     import numpy as np
     import torch
     from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
@@ -487,19 +575,14 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     counters = {"fft_fourstep": ops.fft_fourstep,
                 "fft_stockham": ops.fft_stockham,
                 "bandpass_filter": ops.bandpass_filter}
-    noisy, clean, want, kept64, total64 = expected
+    noisy, clean, want = (expected[k] for k in ("noisy", "clean",
+                                                "denoised"))
+    kept64, total64 = expected["half_energies" if real else "energies"]
     data = RadiatingSourceAdaptor(dims, mesh=mesh).produce(0)
 
     def chain_for(out):
-        return build_chain({"mode": mode, "chain": [
-            {"endpoint": "fft", "array": "field", "direction": "forward",
-             "backend": "pallas"},
-            {"endpoint": "bandpass", "array": "field",
-             "keep_frac": KEEP_FRAC},
-            {"endpoint": "fft", "array": "field", "direction": "backward",
-             "backend": "pallas"},
-            {"endpoint": "writer", "array": "field", "out_dir": str(out)},
-        ]}, mesh=mesh, grid=data.grid)
+        return build_chain(chain_config(mode, real, out), mesh=mesh,
+                           grid=data.grid)
 
     # one untimed run first, so the timed one does not pay the caching
     # allocator's first growth to this size
@@ -509,7 +592,8 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
     t0 = time.perf_counter()
-    out = chain.execute(data)
+    with recording_fft_shapes(set() if shapes is None else shapes):
+        out = chain.execute(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(counters)
@@ -520,7 +604,8 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     kept = float(out.arrays["insitu_kept_energy"])
     total = float(out.arrays["insitu_total_energy"])
     files = chain.finalize()["writer"]["files"]
-    res = {"phase": "main_path", "dims": list(dims), "mode": mode,
+    res = {"phase": "real_chain" if real else "main_path",
+           "dims": list(dims), "mode": mode, "real": real,
            "wall_s": wall, "launches": launches,
            "field_max_abs_err": field_err, "field_tol": FIELD_TOL,
            "kept_rel_err": abs(kept - kept64) / kept64,
@@ -532,6 +617,8 @@ def run_chain(dims, mode, mesh, expected, out_dir):
     emit(res)
     assert np.isfinite(got).all() and got.shape == tuple(dims)
     assert field_err < FIELD_TOL, f"{dims} {mode}: field err {field_err}"
+    if real:
+        assert res["mse1"] < 0.5 * res["mse0"], res
     assert res["kept_rel_err"] < ENERGY_TOL, res["kept_rel_err"]
     assert res["total_rel_err"] < ENERGY_TOL, res["total_rel_err"]
     assert len(files) == 1
@@ -600,7 +687,7 @@ def queued_device_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_chain(dims, mesh, out_dir):
+def profile_chain(dims, mesh, out_dir, real=False):
     """One in-situ step of the chain: device busy ms from PROFILE_REPS
     steps queued behind a spin kernel (``queued_device_ms``: the
     endpoints back to back, without the chain's closing wait), the
@@ -612,13 +699,8 @@ def profile_chain(dims, mesh, out_dir):
     from repro_torch.core.insitu.config import build_chain
     from repro_torch.kernels import ops
     data = RadiatingSourceAdaptor(dims, mesh=mesh).produce(0)
-    chain = build_chain({"mode": "insitu", "chain": [
-        {"endpoint": "fft", "array": "field", "direction": "forward",
-         "backend": "pallas"},
-        {"endpoint": "bandpass", "array": "field", "keep_frac": KEEP_FRAC},
-        {"endpoint": "fft", "array": "field", "direction": "backward",
-         "backend": "pallas"},
-    ]}, mesh=mesh, grid=data.grid)
+    chain = build_chain(chain_config("insitu", real), mesh=mesh,
+                        grid=data.grid)
 
     def step():
         out = data
@@ -637,6 +719,7 @@ def profile_chain(dims, mesh, out_dir):
     copies = [(n, t, c) for n, t, c in rows
               if any(w in n.lower() for w in ("copy", "elementwise"))]
     res = {"phase": "profile", "dims": list(dims), "mode": "insitu",
+           "real": real,
            "stages": "fft -> bandpass -> fft (no writer)",
            "steps_recorded": PROFILE_REPS,
            "wall_ms": wall_ms, "device_busy_ms": busy,
@@ -1290,10 +1373,493 @@ def rank_worker(rank, world, store):
                bit_identical=all(torch.equal(a, b)
                                  for a, b in zip(got[0], got[1])))
     assert r["bit_identical"], r
+    del got, z
+    rank_real_paths(rank, meshes, counters, record, gen, store)
     recording.close()
     print(json.dumps({"rank": rank, "ok": True, "checks": checks,
                       "fft_shapes": sorted(shapes)}), flush=True)
     dist.barrier()
+
+
+def rank_real_paths(rank, meshes, counters, record, gen, store):
+    """The real paths on the four ranks (a part of ``rank_worker``): each
+    r2c/c2r decomposition against float64, the real chain on the (4,)
+    slab, the complex slab with each wire against the exact wire, the
+    dtypes gloo's all_to_all takes on CUDA tensors, measured planning
+    (the same winner on every rank) and the warm start from wisdom."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft import plan as P
+    from repro_torch.core.fft import wire
+    from repro_torch.core.fft.filters import lowpass_mask
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    from repro_torch.core.insitu.config import build_chain
+    dev = "cuda:0"
+
+    # every r2c decomposition: forward against float64, and back
+    for decomp, mkey, grid in RANK_REAL:
+        mesh = meshes[mkey]
+        p0 = mesh.shape["data"]
+        gen.manual_seed(11)              # the same global field everywhere
+        x = torch.randn(grid, generator=gen, device=dev)
+        if decomp in D.CYCLIC_DECOMPS:   # the spatial side is cyclic
+            x = x.index_select(0, torch.as_tensor(
+                D.cyclic_order(grid[0], p0), device=dev))
+        fwd = P.plan_rfft(grid, "forward", mesh, decomp=decomp)
+        bwd = P.plan_rfft(grid, "backward", mesh, decomp=decomp)
+        zero_counts(counters)
+        dist.barrier()
+        t0 = time.perf_counter()
+        y = fwd.execute(*fwd.place(x))
+        back = bwd.execute(*y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        yg = fwd.unplace(*y)
+        xg = bwd.unplace(back)
+        r = record(check="real_transform", decomp=decomp, mesh=mkey,
+                   grid=list(grid), wall_s=wall, launches=launches,
+                   half_extent=yg[0].shape[-1],
+                   forward_rel_err_vs_f64=half_err(
+                       yg, real_layout_oracle(x.double(), decomp, p0)),
+                   backward_rel_err_vs_input=float(
+                       (xg - x).abs().max() / x.abs().max()))
+        assert r["forward_rel_err_vs_f64"] < RANK_TOL, r
+        assert r["backward_rel_err_vs_input"] < RANK_TOL, r
+        assert launches["fft_fourstep"], r
+        del x, y, back, yg, xg
+
+    # the real chain on the (4,) slab: the field against float64, the
+    # half-spectrum's energies against float64 sums of its stored bins
+    dims = RANK_CHAIN_DIMS
+    mesh = meshes["(4,)"]
+    mask = lowpass_mask(dims, KEEP_FRAC).to(dev).double()
+    spec_in = P.plan_rfft(dims, "forward", mesh).schedule().in_spec
+    data = RadiatingSourceAdaptor(dims, mesh=mesh, spec=spec_in).produce(0)
+    chain = build_chain(chain_config("insitu", real=True), mesh=mesh,
+                        grid=data.grid)
+    zero_counts(counters)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = chain.execute(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    got = D.unshard(res.arrays["field"], mesh, res.spec).double()
+    noisy = D.unshard(data.arrays["field"], mesh, data.spec).double()
+    clean = D.unshard(data.arrays["clean_reference"], mesh,
+                      data.spec).double()
+    half = torch.fft.rfft2(noisy)
+    h = half.shape[-1]
+    power = half.real ** 2 + half.imag ** 2
+    kept64 = float((power * mask[:, :h]).sum())
+    total64 = float(power.sum())
+    want = torch.fft.irfft2(half * mask[:, :h], s=dims)
+    del half, power
+    mse0 = float(((noisy - clean) ** 2).mean())
+    mse1 = float(((got - clean) ** 2).mean())
+    r = record(check="real_chain", decomp="slab", mesh="(4,)",
+               dims=list(dims), wall_s=wall, launches=launches,
+               layout=res.layout,
+               field_max_abs_err=float((got - want).abs().max()),
+               kept_rel_err=abs(float(res.arrays["insitu_kept_energy"])
+                                - kept64) / kept64,
+               total_rel_err=abs(float(res.arrays["insitu_total_energy"])
+                                 - total64) / total64,
+               mse0=mse0, mse1=mse1)
+    assert r["field_max_abs_err"] < FIELD_TOL, r
+    assert r["kept_rel_err"] < ENERGY_TOL, r
+    assert r["total_rel_err"] < ENERGY_TOL, r
+    assert mse1 < 0.5 * mse0, r
+    assert launches["fft_fourstep"] and launches["bandpass_filter"], r
+    del got, noisy, clean, want, data, res, mask
+
+    # the complex slab with a wire on its exchange: the exchanged values
+    # (the row pass's output, recovered by undoing the column pass in
+    # float64) within the wire's documented bound of the exact wire's
+    gen.manual_seed(13)
+    z = torch.complex(torch.randn(dims, generator=gen, device=dev),
+                      torch.randn(dims, generator=gen, device=dev))
+    outs = {}
+    for w in (None,) + RANK_WIRES:
+        plan = P.plan_dft(dims, "forward", mesh, decomp="slab",
+                          wire_dtype=w)
+        dist.barrier()
+        t0 = time.perf_counter()
+        yw = plan.execute(*plan.place(z))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        yg = plan.unplace(*yw)
+        # undo the column pass: what the exchange delivered, re and im
+        x1 = torch.fft.ifft(torch.complex(yg[0].double(), yg[1].double()),
+                            dim=0)
+        outs[w] = (x1.real, x1.imag, wall)
+        del yw, yg, x1
+    ex_re, ex_im, ex_wall = outs[None]
+    for w in RANK_WIRES:
+        got_re, got_im, wall = outs[w]
+        excess = 0.0
+        for got_p, ex_p in ((got_re, ex_re), (got_im, ex_im)):
+            if w == "bfloat16":
+                bnd = wire.BF16_REL_BOUND * ex_p.abs() + wire.BF16_ABS_GUARD
+            else:   # absmax over each 64-column block of a row / 254
+                blocks = ex_p.abs().reshape(dims[0], -1,
+                                            wire.DEFAULT_BLOCK)
+                bnd = (blocks.amax(-1, keepdim=True)
+                       * wire.INT8_REL_BOUND).expand_as(blocks).reshape(
+                           dims)
+            # float32 roundoff of the two passes around the exchange
+            slack = 1e-5 * float(ex_p.abs().max())
+            excess = max(excess, float((got_p - ex_p).abs().sub(
+                bnd + slack).max()))
+        r = record(check="wire", decomp="slab", mesh="(4,)",
+                   dims=list(dims), wire_dtype=w, wall_s=wall,
+                   exact_wall_s=ex_wall,
+                   max_excess_over_bound=excess,
+                   wire_bytes_per_rank=(
+                       wire.get_codec(w).wire_bytes(
+                           (dims[0] // 4, dims[1])) * 2
+                       if wire.is_codec(w) else
+                       2 * 2 * dims[0] * dims[1] // 4),
+                   exact_bytes_per_rank=wire.exact_bytes(
+                       (dims[0] // 4, dims[1])) * 2)
+        assert excess <= 0.0, r
+    del outs, ex_re, ex_im, z
+
+    # which dtypes gloo's all_to_all takes on CUDA tensors (a reduced or
+    # encoded wire moves as uint8 bytes either way)
+    taken = {}
+    for dt in (torch.bfloat16, torch.float16, torch.int16, torch.uint8):
+        t = torch.ones(4, 8, dtype=dt, device=dev)
+        try:
+            dist.all_to_all_single(torch.empty_like(t), t)
+            taken[str(dt).split(".")[-1]] = True
+        except (RuntimeError, ValueError) as e:
+            taken[str(dt).split(".")[-1]] = f"{type(e).__name__}: {e}"[:120]
+    record(check="gloo_cuda_all_to_all_dtypes", taken=taken)
+
+    # measured planning at 256^3 on (2, 2): backend and decomposition
+    # measured, the same winner on every rank; then the warm start
+    mesh = meshes["(2, 2)"]
+    grid = RANK_MEASURE
+    P.set_wisdom(str(Path(store).parent / "wisdom.json"))
+    P.plan_cache_clear()
+    dist.barrier()
+    t0 = time.perf_counter()
+    plan = P.plan_dft(grid, "forward", mesh, decomp="measure",
+                      backend="measure")
+    sweep_s = time.perf_counter() - t0
+    cold = P.plan_cache_stats()
+    skips = P.autotune_skips()
+    mine = [plan.decomp, plan.backend, plan.overlap_chunks,
+            plan.wire_dtype]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    gen.manual_seed(14)
+    z = torch.complex(torch.randn(grid, generator=gen, device=dev),
+                      torch.randn(grid, generator=gen, device=dev))
+    yg = plan.unplace(*plan.execute(*plan.place(z)))
+    err = spectrum_err(yg, torch.fft.fftn(z.to(torch.complex128)))
+    del yg, z
+    P.plan_cache_clear()
+    dist.barrier()
+    t0 = time.perf_counter()
+    again = P.plan_dft(grid, "forward", mesh, decomp="measure",
+                       backend="measure")
+    warm_s = time.perf_counter() - t0
+    warm = P.plan_cache_stats()
+    P.set_wisdom(None)
+    tol = RANK_TOL if plan.wire_dtype is None else WIRE_TOL
+    r = record(check="measure", mesh="(2, 2)", grid=list(grid),
+               winner=mine, winners_every_rank=every, sweep_s=sweep_s,
+               rel_err_vs_f64=err, tol=tol,
+               codec_candidates=cold["wire_codec_candidates"],
+               profile_candidates=cold["wire_profile_candidates"],
+               one_host_note=("one host: no exchange crosses hosts, so the "
+                              "sweep makes no codec candidates and skips "
+                              "the per-stage profile candidate"),
+               skips=[{k: v for k, v in sk.items()
+                       if k not in ("shape", "direction", "batch_ndim")}
+                      for sk in skips],
+               timed_cold=cold["sweep_candidates_timed"],
+               timed_warm=warm["sweep_candidates_timed"],
+               wisdom_hits_warm=warm["wisdom_hits"], warm_s=warm_s,
+               warm_winner=[again.decomp, again.backend,
+                            again.overlap_chunks, again.wire_dtype])
+    assert all(w == every[0] for w in every), r
+    assert err < tol, r
+    assert cold["wire_codec_candidates"] == 0, r
+    assert any(sk.get("sweep") == "wire-profile" for sk in skips), r
+    assert warm["sweep_candidates_timed"] == 0 and warm["wisdom_hits"], r
+    assert r["warm_winner"] == mine, r
+
+
+def real_layout_oracle(x, decomp, p0):
+    """The float64 r2c transform of real float64 ``x`` over all its dims
+    in ``decomp``'s layouts (pencil_tf: cyclic spatial input and
+    digit-permuted spectrum along axis 0 over ``p0`` shards), the half
+    axis unpadded."""
+    import torch
+    from repro_torch.core.fft import distributed as D
+    n0 = x.shape[0]
+
+    def take(v, order):
+        return v.index_select(0, torch.as_tensor(order, device=v.device))
+
+    cyclic = decomp in D.CYCLIC_DECOMPS and p0 > 1
+    if cyclic:
+        x = take(x, D.cyclic_inverse_order(n0, p0))
+    y = torch.fft.rfftn(x)
+    return take(y, D.fourstep_freq_of_position(n0, p0)) if cyclic else y
+
+
+def half_err(got, want):
+    """Largest error of a half-spectrum pair ``got`` (last axis possibly
+    padded) against complex128 ``want``, relative to max |want|."""
+    h = want.shape[-1]
+    return spectrum_err((got[0][..., :h], got[1][..., :h]), want)
+
+
+def batched_fields(gen, shape):
+    """examples/insitu_rfft_batched.py's fields at ``shape`` = (B, N0, N1):
+    field b is sin(2πk(x + 2y)/N0)/k, k = b + 2, plus noise of std 0.5
+    from ``gen``; made on the card."""
+    import torch
+    b, n0, n1 = shape
+    yy = torch.arange(n0, device="cuda", dtype=torch.float32)[:, None]
+    xx = torch.arange(n1, device="cuda", dtype=torch.float32)[None, :]
+    k = torch.arange(2, 2 + b, device="cuda", dtype=torch.float32)
+    # the phase reduced mod N0 in integers first: float32 angles of
+    # 2π·k·(x + 2y) lose their digits at N0 = 8192
+    idx = (xx + 2 * yy).to(torch.int64)
+    phase = (k.to(torch.int64)[:, None, None] * idx) % n0
+    clean = torch.sin(2 * math.pi * phase.double() / n0).float() \
+        / k[:, None, None]
+    noise = torch.randn(shape, generator=gen, device="cuda")
+    return clean, clean + 0.5 * noise
+
+
+def batched_real_chain(mesh, gen, counters, shapes):
+    """The ``insitu_rfft_batched`` workload at full width: BATCH_FIELDS
+    real fields a step through one batched r2c/c2r plan pair
+    (``real=True``, ``batch_ndim=1``), two steps; every field's MSE must
+    improve, and the second step must be served from the plan cache."""
+    import torch
+    from repro_torch.core.fft.plan import plan_cache_stats
+    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
+    from repro_torch.core.insitu.config import build_chain
+    clean, fields = batched_fields(gen, BATCH_FIELDS)
+    grid = GridMeta(BATCH_FIELDS[1:])
+    cfg = {"mode": "insitu", "chain": [
+        {"endpoint": "fft", "array": "field", "direction": "forward",
+         "real": True, "batch_ndim": 1},
+        {"endpoint": "bandpass", "array": "field",
+         "keep_frac": BATCH_KEEP_FRAC, "use_kernel": False},
+        {"endpoint": "fft", "array": "field", "direction": "backward",
+         "real": True, "batch_ndim": 1}]}
+    steps = []
+    for step in (0, 1):
+        before = plan_cache_stats()
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        chain = build_chain(cfg, mesh=mesh, grid=grid)
+        with recording_fft_shapes(shapes):
+            out = chain.execute(BridgeData(arrays={"field": fields},
+                                           grid=grid))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        after = plan_cache_stats()
+        den = out.arrays["field"]
+        mse0 = ((fields - clean) ** 2).mean(dim=(1, 2)).tolist()
+        mse1 = ((den - clean) ** 2).mean(dim=(1, 2)).tolist()
+        steps.append({"step": step, "wall_s": wall,
+                      "launches": launch_counts(counters),
+                      "new_plans": after["misses"] - before["misses"],
+                      "plan_hits": after["hits"] - before["hits"],
+                      "mse0": mse0, "mse1": mse1, "peak_memory_bytes": peak,
+                      "finite": bool(torch.isfinite(den).all())})
+        del out, den
+    res = {"phase": "batched_real_chain", "fields": list(BATCH_FIELDS),
+           "input_bytes": fields.numel() * 4, "keep_frac": BATCH_KEEP_FRAC,
+           "steps": steps}
+    emit(res)
+    for st in steps:
+        assert st["finite"], st
+        assert all(a < b for a, b in zip(st["mse1"], st["mse0"])), st
+        assert st["launches"]["fft_fourstep"] > 0, st
+    assert steps[0]["new_plans"] == 2 and steps[1]["new_plans"] == 0, steps
+    del clean, fields
+    torch.cuda.empty_cache()
+    return res
+
+
+def real_one_rank(counters, gen, shapes):
+    """The r2c/c2r plans on a one-rank mesh at full size, through
+    ``plan_rfft`` with the default backend (the kernels): forward and
+    back, each against float64 (torch.fft on the card), with host ms,
+    device busy ms of runs queued behind a spin kernel, the idle share,
+    launches and peak memory."""
+    import torch
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft.plan import BACKWARD, FORWARD, plan_rfft
+    out = {}
+    for decomp, mshape, grid, must in REAL_ONE_RANK:
+        mesh = make_mesh(mshape, ("data", "model")[:len(mshape)])
+        x = torch.randn(grid, generator=gen, device="cuda")
+        fwd = plan_rfft(grid, FORWARD, mesh, decomp=decomp)
+        bwd = plan_rfft(grid, BACKWARD, mesh, decomp=decomp)
+        bwd.execute(*fwd.execute(x))               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = {"phase": "real_one_rank", "decomp": decomp,
+               "mesh": list(mshape), "grid": list(grid),
+               "schedule": fwd.schedule().name, "backend": fwd.backend,
+               "tol_vs_f64": FFT_TOL_F64}
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with recording_fft_shapes(shapes):
+            y = fwd.execute(x)
+        torch.cuda.synchronize()
+        res["forward_host_ms"] = (time.perf_counter() - t0) * 1e3
+        res["forward_launches"] = launch_counts(counters)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with recording_fft_shapes(shapes):
+            back = bwd.execute(*y)
+        torch.cuda.synchronize()
+        res["backward_host_ms"] = (time.perf_counter() - t0) * 1e3
+        res["backward_launches"] = launch_counts(counters)
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        res["half_extent"] = y[0].shape[-1]
+        res["forward_rel_err_vs_f64"] = half_err(
+            y, real_layout_oracle(x.double(), decomp, 1))
+        want = torch.fft.irfftn(torch.complex(
+            y[0][..., :grid[-1] // 2 + 1].double(),
+            y[1][..., :grid[-1] // 2 + 1].double()), s=grid)
+        res["backward_rel_err_vs_f64"] = float(
+            (back.double() - want).abs().max() / want.abs().max())
+        res["round_trip_max_abs_err"] = float((back - x).abs().max())
+        del want, back
+        res["steps_recorded"] = PROFILE_REPS
+        for tag, fn in (("forward", lambda: fwd.execute(x)),
+                        ("backward", lambda: bwd.execute(*y))):
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_REPS):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_REPS
+            busy = queued_device_ms(fn, PROFILE_REPS)
+            res[tag + "_wall_ms"] = wall_ms
+            res[tag + "_device_busy_ms"] = busy
+            res[tag + "_device_idle_share"] = 1.0 - busy / wall_ms
+        emit(res)
+        launched = {k: res["forward_launches"][k]
+                    + res["backward_launches"][k] for k in must}
+        assert all(launched.values()), (decomp, launched)
+        assert res["forward_rel_err_vs_f64"] < FFT_TOL_F64, res
+        assert res["backward_rel_err_vs_f64"] < FFT_TOL_F64, res
+        out[decomp] = res
+        del x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording_sweep_times(seen: list):
+    """While active, append to ``seen`` each candidate the measured sweeps
+    time (its knobs and seconds a call, the planner's own reading)."""
+    from repro_torch.core.fft import plan as P
+    time_plan = P._time_plan
+
+    def rec(plan, args, iters=3):
+        t = time_plan(plan, args, iters)
+        seen.append({"decomp": plan.decomp, "backend": plan.backend,
+                     "overlap_chunks": plan.overlap_chunks,
+                     "wire_dtype": plan.wire_dtype, "real": plan.real,
+                     "ms": t * 1e3})
+        return t
+
+    P._time_plan = rec
+    try:
+        yield seen
+    finally:
+        P._time_plan = time_plan
+
+
+def measured_one_card(shapes):
+    """``backend="measure"`` on a one-rank mesh at full size: every
+    variant's time, the winner and the recorded skips (where the hand
+    kernels lose to torch.fft is the sweep's own reading). Then the
+    winner is held against float64."""
+    import torch
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft import plan as P
+    out = []
+    for decomp, mshape, grid in MEASURE_ONE_CARD:
+        mesh = make_mesh(mshape, ("data", "model")[:len(mshape)])
+        P.plan_cache_clear()
+        times = []
+        t0 = time.perf_counter()
+        with recording_sweep_times(times), recording_fft_shapes(shapes):
+            plan = P.plan_dft(grid, "forward", mesh, decomp=decomp,
+                              backend="measure")
+        sweep_s = time.perf_counter() - t0
+        z = torch.complex(torch.randn(grid, device="cuda"),
+                          torch.randn(grid, device="cuda"))
+        y = plan.execute(z.real.contiguous(), z.imag.contiguous())
+        err = spectrum_err(y, torch.fft.fftn(z.to(torch.complex128)))
+        res = {"phase": "measured_one_card", "decomp": decomp,
+               "grid": list(grid), "sweep_s": sweep_s, "variants": times,
+               "winner": {"backend": plan.backend,
+                          "overlap_chunks": plan.overlap_chunks,
+                          "wire_dtype": plan.wire_dtype},
+               "winner_rel_err_vs_f64": err,
+               "skips": [{k: v for k, v in sk.items()
+                          if k not in ("shape", "direction", "decomp",
+                                       "real", "batch_ndim")}
+                         for sk in P.autotune_skips()],
+               "stats": P.plan_cache_stats()}
+        emit(res)
+        tol = FFT_TOL_F64 if plan.wire_dtype is None else WIRE_TOL
+        assert err < tol, res
+        assert {v["backend"] for v in times} == {"pallas", "jnp"}, times
+        out.append(res)
+        del z, y
+    P.plan_cache_clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def endcap_times():
+    """The r2c/c2r endcaps' torch.fft calls (the one library FFT on the
+    real path, where the reference calls jnp.fft) at the real chains'
+    grids: CUDA-event ms, device busy ms of 10 calls queued behind a spin
+    kernel (the profiler's trace lost launches of these), and their byte
+    bound."""
+    import torch
+    out = []
+    for n0, n1 in REAL_CHAIN_DIMS:
+        x = torch.randn((n0, n1), device="cuda")
+        z = torch.fft.rfft(x, dim=-1)
+        h = n1 // 2 + 1
+        for name, fn, nbytes in (
+                ("rfft", lambda: torch.fft.rfft(x, dim=-1),
+                 4 * n0 * n1 + 8 * n0 * h),
+                ("irfft", lambda: torch.fft.irfft(z, n=n1, dim=-1),
+                 8 * n0 * h + 4 * n0 * n1)):
+            ms = time_ms(fn)
+            bound_ms, by = bound(fft_flops(n1) / 2 * n0, nbytes)
+            out.append({"endcap": name, "shape": [n0, n1], "events_ms": ms,
+                        "device_busy_ms": queued_device_ms(fn, 10),
+                        "bound_ms": bound_ms, "bound_by": by})
+        del x, z
+    emit({"phase": "real_endcaps", "rows": out})
+    return out
 
 
 def main() -> int:
@@ -1418,6 +1984,12 @@ def main() -> int:
              ((2048, 32768), ("insitu",), four))
     launches = {}
     profiles = {}
+    # the real chain (r2c/c2r endpoints) at the same grids, against the
+    # same oracle: its launches apart, and every FFT shape it gives the
+    # kernels (half-width columns) for the shape checks below
+    real_launches = {}
+    chains, real_chains = {}, {}
+    real_shapes = set()
     try:
         for dims, modes, must_run in sizes:
             expected = oracle(dims)
@@ -1426,12 +1998,23 @@ def main() -> int:
                  "fft_fourstep_columns", "fft_stockham_columns"), 0)
             for mode in modes:
                 res = run_chain(dims, mode, mesh, expected, out_dir)
+                chains[(dims, mode)] = res
                 for k in must_run:
                     assert res["launches"][k] > 0, (dims, mode, k)
                 for k, v in res["launches"].items():
                     launches[dims][k] += v
                 if dims in ((8192, 8192), (10000, 10000)):
                     assert res["mse1"] < 0.5 * res["mse0"], res
+            if dims in REAL_CHAIN_DIMS:
+                real_launches[dims] = dict.fromkeys(launches[dims], 0)
+                for mode in both:
+                    res = run_chain(dims, mode, mesh, expected, out_dir,
+                                    real=True, shapes=real_shapes)
+                    real_chains[(dims, mode)] = res
+                    for k in four:
+                        assert res["launches"][k] > 0, (dims, mode, k)
+                    for k, v in res["launches"].items():
+                        real_launches[dims][k] += v
             del expected
             shutil.rmtree(out_dir, ignore_errors=True)
         for dims in ((8192, 8192), (10000, 10000), (200, 200)):
@@ -1440,8 +2023,22 @@ def main() -> int:
         names = [k["name"] for k in profiles[(10000, 10000)]["by_kernel_ms"]]
         assert not [n for n in names if "copy" in n.lower()], names
         assert any("mixed_lines_kernel" in n for n in names), names
+        real_profiles = {dims: profile_chain(dims, mesh, out_dir, real=True)
+                         for dims in REAL_CHAIN_DIMS}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "real_vs_complex_chain", "rows": [
+        {"dims": list(dims), "mode": mode,
+         "complex_wall_s": chains[(dims, mode)]["wall_s"],
+         "real_wall_s": r["wall_s"],
+         "complex_peak_memory_bytes":
+         chains[(dims, mode)]["peak_memory_bytes"],
+         "real_peak_memory_bytes": r["peak_memory_bytes"],
+         "real_device_busy_ms": real_profiles[dims]["device_busy_ms"]
+         if mode == "insitu" else None,
+         "complex_device_busy_ms": profiles[dims]["device_busy_ms"]
+         if mode == "insitu" else None}
+        for (dims, mode), r in real_chains.items()]})
 
     # 4b. the distributed path: one rank at full size, then four ranks
     # sharing the card
@@ -1464,6 +2061,39 @@ def main() -> int:
     emit({"phase": "distributed_shape_checks", "shapes": len(dist_checks),
           "seconds": time.perf_counter() - t0})
 
+    # 4c. the real paths beyond the chain: the batched real chain, the
+    # r2c/c2r plans on one rank, measured planning, the endcaps' cuFFT
+    # times; then every FFT shape they gave the kernels, and the
+    # half-width column shapes timed on their own
+    t0 = time.perf_counter()
+    batched = batched_real_chain(mesh, gen, fft_counters, real_shapes)
+    real_plans = real_one_rank(fft_counters, gen, real_shapes)
+    measured = measured_one_card(real_shapes)
+    endcaps = endcap_times()
+    half_cols = [check_fft_columns("fft_fourstep", fft_fourstep_columns,
+                                   dft.fourstep_fft, shape, gen)
+                 for shape in HALF_COLUMNS]
+    # device busy ms of the kernel and of torch.fft at these shapes, from
+    # 10 calls queued behind a spin kernel: the profiler's trace lost
+    # torch.fft's launches here (its device ms fell below the byte bound)
+    for r in half_cols:
+        re = torch.randn(r["shape"], generator=gen, device="cuda")
+        im = torch.randn(r["shape"], generator=gen, device="cuda")
+        v3 = (1,) + tuple(r["shape"])
+        z = torch.complex(re, im)
+        r["busy_ms"] = queued_device_ms(
+            lambda: fft_fourstep_columns(re.view(v3), im.view(v3)), 10)
+        r["library_busy_ms"] = queued_device_ms(
+            lambda: torch.fft.fft(z, dim=-2), 10)
+        emit({"phase": "half_width_columns", "shape": r["shape"],
+              "busy_ms": r["busy_ms"],
+              "library_busy_ms": r["library_busy_ms"],
+              "bound_ms": r["bound_ms"]})
+        del re, im, z
+    real_checks = check_path_shapes(real_shapes, gen)
+    emit({"phase": "real_paths_seconds", "shapes": len(real_checks),
+          "seconds": time.perf_counter() - t0})
+
     # 5. serve main path
     flash_launches = serve_path({"fft_fourstep": ops.fft_fourstep,
                                  "fft_stockham": ops.fft_stockham,
@@ -1474,10 +2104,27 @@ def main() -> int:
     # four mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26, four
     # passes); held against the float64 oracle and torch.fft only (the
     # plain four-step's float32 angles fail past 2^16). Last, because the
-    # Bluestein tables stay cached (1.28 GB for this N, both directions)
-    # and would count in the peaks above
+    # Bluestein tables stay cached (671 MB a direction for this N, one
+    # direction at a time under the cap) and would count in the peaks
+    # above
     long_rows = [check_fft("fft_fourstep", fft_fourstep, None, s, gen)
                  for s in ((1, 1 << 25), (1, 5 ** 10), (1, (1 << 24) + 1))]
+    # the Bluestein tables are capped and go with plan_cache_clear()
+    from repro_torch.core.fft.plan import plan_cache_clear
+    from repro_torch.kernels import fft_fourstep as fourstep_mod
+    torch.cuda.synchronize()
+    tables = fourstep_mod.table_bytes()
+    before = torch.cuda.memory_allocated()
+    plan_cache_clear()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    emit({"phase": "bluestein_tables", "table_bytes": tables,
+          "cap_bytes": fourstep_mod.CHIRP_CACHE_BYTES,
+          "memory_allocated_before_clear": before,
+          "memory_allocated_after_clear": after,
+          "table_bytes_after_clear": fourstep_mod.table_bytes()})
+    assert 0 < tables <= fourstep_mod.CHIRP_CACHE_BYTES, tables
+    assert before - after >= tables, (before, after, tables)
 
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
@@ -1535,6 +2182,35 @@ def main() -> int:
                                            r["inverse_rel_err_vs_f64"])}
                 for r in dist_checks if r["kernel"] == name]
 
+    def real_path_launches(name):
+        """A kernel's launches on the real paths: each real chain size
+        (insitu + intransit), each batched step, each one-rank r2c/c2r
+        plan forward + backward, each measured sweep (every variant
+        timed), and rank 0's four-rank real runs."""
+        return {
+            "real_chain": {f"{d[0]}x{d[1]}": real_launches[d][name]
+                           for d in real_launches},
+            "batched_real_chain": [st["launches"][name]
+                                   for st in batched["steps"]],
+            "real_one_rank": {d: r["forward_launches"][name]
+                              + r["backward_launches"][name]
+                              for d, r in real_plans.items()},
+            "four_ranks_rank0": {
+                f"{c['check']} {c['decomp']} {c['mesh']}":
+                c["launches"][name] for c in ranks[0]["checks"]
+                if c["check"] in ("real_transform", "real_chain")}}
+
+    def real_shape_checks(name):
+        """The real paths' shapes (one device) checked on kernel
+        ``name``."""
+        return [{"shape": r["shape"], "axis": r.get("axis", -1),
+                 "max_rel_err": max(r["max_rel_err"] or 0.0,
+                                    r["inverse_max_rel_err"] or 0.0)
+                 if r["plain_held"] else None,
+                 "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
+                                           r["inverse_rel_err_vs_f64"])}
+                for r in real_checks if r["kernel"] == name]
+
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -1545,7 +2221,20 @@ def main() -> int:
              chain_launches={f"{d[0]}x{d[1]}": launches[d]["fft_fourstep"]
                              for d in launches},
              distributed_launches=dist_launches("fft_fourstep"),
-             distributed_shapes=shape_checks("fft_fourstep")),
+             distributed_shapes=shape_checks("fft_fourstep"),
+             real_launches=real_path_launches("fft_fourstep"),
+             real_shapes=real_shape_checks("fft_fourstep"),
+             half_width_columns=[
+                 {"shape": r["shape"], "axis": -2,
+                  "route": r["column_route"], "lines": r["lines"],
+                  "ms": r["kernel_ms"], "device_ms": r["device_ms"],
+                  "busy_ms": r["busy_ms"], "library_ms": r["library_ms"],
+                  "library_busy_ms": r["library_busy_ms"],
+                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                  "max_abs_err": r["max_abs_err"],
+                  "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
+                                            r["inverse_rel_err_vs_f64"])}
+                 for r in half_cols]),
         dict(row("fft_stockham", csrc + "fft_stockham.cu",
                  "src/repro/kernels/fft_stockham.py:64", stockham[0],
                  stockham_cols[0]),
@@ -1553,11 +2242,14 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"],
                       "device_ms": r["device_ms"]} for r in tiny],
              distributed_launches=dist_launches("fft_stockham"),
-             distributed_shapes=shape_checks("fft_stockham")),
+             distributed_shapes=shape_checks("fft_stockham"),
+             real_launches=real_path_launches("fft_stockham"),
+             real_shapes=real_shape_checks("fft_stockham")),
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
-             distributed_launches=dist_launches("bandpass_filter")),
+             distributed_launches=dist_launches("bandpass_filter"),
+             real_launches=real_path_launches("bandpass_filter")),
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",

@@ -40,6 +40,7 @@ producer and consumer meshes, is ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -65,6 +66,18 @@ def _names(entry) -> Tuple[str, ...]:
 def spec_axes(spec: Sequence) -> set:
     """The mesh axes a spec shards over; the others hold copies."""
     return {name for entry in spec for name in _names(entry)}
+
+
+def sum_over_blocks(t: torch.Tensor, mesh: Mesh, spec: Sequence):
+    """The sum over the mesh's ranks of each rank's ``t`` (a reduction of
+    its block), in float64, each block of ``spec`` counted once: ranks
+    along an axis the spec does not name hold copies (collective)."""
+    used = spec_axes(spec)
+    copies = math.prod(mesh.shape[n] for n in mesh.axis_names
+                       if n not in used)
+    t = t.to(torch.float64, copy=True)   # the all-reduce writes into it
+    dist.all_reduce(t)
+    return t / copies
 
 
 def _block(mesh: Mesh, entry, coordinate) -> Tuple[int, int]:

@@ -8,9 +8,11 @@ packages build the same masks bit for bit; the masks come back as
 ``torch.bool`` tensors on the CPU, and callers move them to their
 device. The digit-permuted masks (``permute_mask_first_axis``,
 ``mask_fourstep_1d``, ``mask_pencil_tf_3d``) gather a natural-order mask
-through ``distributed.fourstep_freq_of_position``. ``mask_r2c`` and
-``mask_pencil_tf_3d_r2c`` come with the half-spectrum maps, ROADMAP
-queue 1 item 9.
+through ``distributed.fourstep_freq_of_position``. The r2c half-spectrum
+masks (``halfspec_mask``, ``mask_r2c``, ``mask_pencil_tf_3d_r2c``) slice
+the last axis to the non-negative bins and zero-pad it to the schedule's
+half extent (``rfft.spectral_half_extent``); the last composes both, for
+the digit-permuted half-spectrum of the r2c transpose-free pencil.
 """
 from __future__ import annotations
 
@@ -116,3 +118,24 @@ def mask_pencil_tf_3d(shape: Sequence[int], p0: int, build=lowpass_mask,
     four-step digit order over the ``p0``-way mesh axis (axes 1, 2
     natural)."""
     return permute_mask_first_axis(build(tuple(shape), **kw), p0)
+
+
+def mask_r2c(shape: Sequence[int], hp: int = None, build=lowpass_mask,
+             **kw):
+    """Natural-order half-spectrum mask for the r2c slab, slab3d, pencil
+    and pencil2d outputs (natural frequency order on every axis; only
+    the last axis is cut to N/2+1 and padded to ``hp``, by default the
+    unpadded half extent)."""
+    shape = tuple(shape)
+    hp = shape[-1] // 2 + 1 if hp is None else hp
+    return halfspec_mask(build(shape, **kw), hp)
+
+
+def mask_pencil_tf_3d_r2c(shape: Sequence[int], p0: int, hp: int = None,
+                          build=lowpass_mask, **kw):
+    """Mask for the transpose-free pencil r2c output: axis 0 in four-step
+    digit order over the ``p0``-way mesh axis AND the last axis in the
+    padded half layout (different axes, so the two compose)."""
+    shape = tuple(shape)
+    hp = shape[-1] // 2 + 1 if hp is None else hp
+    return halfspec_mask(mask_pencil_tf_3d(shape, p0, build, **kw), hp)

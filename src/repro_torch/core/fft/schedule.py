@@ -8,11 +8,22 @@ it is the per-rank function itself, taking and returning this rank's
 local blocks. The stage IR:
 
 * ``LocalFFT(axis, inverse, backend)`` — 1-D FFT along one local axis;
-* ``AllToAll(axis_name, split, concat, shards)`` — the tiled exchange of
+* ``LocalRFFT(pad_to)`` / ``LocalIRFFT(n, half)`` — the real (r2c /
+  c2r) endcaps along the last axis, through ``torch.fft.rfft``/``irfft``
+  where the reference calls ``jnp.fft``; the half-spectrum is zero-padded
+  to ``pad_to`` (a multiple of the shard counts that split it) for the
+  tiled exchange;
+* ``AllToAll(axis_name, split, concat, shards, wire_dtype,
+  crosses_hosts, wire_codec)`` — the tiled exchange of
   ``jax.lax.all_to_all(tiled=True)``: the ``split`` axis is cut into P
   chunks, chunk j goes to the axis's rank j, and what arrives is
   concatenated along ``concat`` in source-rank order, through
   ``torch.distributed.all_to_all_single`` on the mesh axis's group.
+  ``wire_dtype`` (``"bfloat16"``, ...) casts the payload for the wire;
+  ``wire_codec`` (a ``wire.py`` codec name) encodes it and moves the
+  encoded parts packed into ONE byte buffer. A reduced or encoded wire
+  always moves as ``uint8`` bytes, whatever dtypes the backend takes
+  (gloo refuses ``int16``; the collectives of other backends differ).
   ``crosses_hosts`` is metadata (``annotate_topology``);
 * ``Twiddle(axis, axis_name, shards, sign)`` — the four-step inter-shard
   twiddle exp(sign·2πi·p·k/N), p = this rank's coordinate on the axis;
@@ -20,10 +31,13 @@ local blocks. The stage IR:
   ``merge``, ``fold_T``, ``unfold_T``).
 
 Builders: ``slab_2d``, ``slab_3d``, ``pencil_3d``, ``pencil_tf_3d``,
-``pencil_2d`` and ``fourstep_1d``. ``overlap_chunks > 1`` pipelines the
-first exchange against the local stages before it, chunk by chunk, with
-a bit-identical result. Not here: the r2c/c2r builders and endcaps
-(ROADMAP queue 1 item 9) and reduced or compressed wire (item 12).
+``pencil_2d`` and ``fourstep_1d``; the r2c/c2r builders live in
+``rfft.py`` and ``build_schedule(real=True)`` dispatches to them. A wire
+spec is one name for every exchange or a tuple with one entry per
+exchange (``_wire_tuple``). ``overlap_chunks > 1`` pipelines the first
+exchange against the local stages before it, chunk by chunk, with a
+bit-identical result; a real endcap before the exchange owns the last
+axis, so that axis cannot be the chunk axis.
 
 All stage axes are NEGATIVE (counted from the trailing transform dims),
 so any leading dims are batch for free.
@@ -32,13 +46,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.compat import Mesh, axis_crosses_processes
+from repro_torch.core.fft import wire as wire_mod
 from repro_torch.core.fft.dft import cmul, fft_along
+
+# A wire spec entry is a dtype NAME ("bfloat16"), a wire CODEC name
+# ("int8", "int8_block64", "bf16"; see wire.py), or None (exact).
+WireSpec = Union[None, str, Tuple[Optional[str], ...]]
 
 
 # ---------------------------------------------------------------------------
@@ -59,53 +78,118 @@ class LocalFFT:
 
 
 @dataclasses.dataclass(frozen=True)
+class LocalRFFT:
+    """r2c endcap: real field → padded half-spectrum pair (last axis)."""
+    pad_to: int
+
+    def apply(self, state, mesh):
+        (x,) = state
+        z = torch.fft.rfft(x.float(), dim=-1)
+        re = z.real.new_zeros(z.shape[:-1] + (self.pad_to,))
+        im = torch.zeros_like(re)
+        re[..., :z.shape[-1]] = z.real
+        im[..., :z.shape[-1]] = z.imag
+        return re, im
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalIRFFT:
+    """c2r endcap: padded half-spectrum pair → real field of extent n."""
+    n: int
+    half: int
+
+    def apply(self, state, mesh):
+        re, im = state
+        z = torch.complex(re[..., :self.half], im[..., :self.half])
+        return (torch.fft.irfft(z, n=self.n, dim=-1).float(),)
+
+
+@dataclasses.dataclass(frozen=True)
 class AllToAll:
-    """Tiled all_to_all over one mesh axis. ``crosses_hosts`` says
-    whether the axis's ranks span more than one node (None: not
+    """Tiled all_to_all over one mesh axis, with an optional reduced
+    (``wire_dtype``) or encoded (``wire_codec``) wire. ``crosses_hosts``
+    says whether the axis's ranks span more than one node (None: not
     annotated); execution is the same either way."""
     axis_name: str
     split: int
     concat: int
     shards: int
-    wire_dtype: Optional[str] = None
-    crosses_hosts: Optional[bool] = None
-    wire_codec: Optional[str] = None
+    wire_dtype: Optional[str] = None        # dtype NAME (hashable)
+    crosses_hosts: Optional[bool] = None    # None = not annotated
+    wire_codec: Optional[str] = None        # codec NAME (wire.py)
 
     def __post_init__(self):
-        if self.wire_dtype is not None or self.wire_codec is not None:
-            raise NotImplementedError(
-                "reduced-precision and compressed wire are ROADMAP queue 1 "
-                "item 12")
+        # builders pass one wire spec entry positionally as wire_dtype;
+        # codec names reroute to the codec slot, as in the reference
+        if self.wire_dtype is not None and self.wire_codec is None \
+                and wire_mod.is_codec(self.wire_dtype):
+            object.__setattr__(self, "wire_codec", self.wire_dtype)
+            object.__setattr__(self, "wire_dtype", None)
+
+    def _encode(self, x, s: int, c: int):
+        """(the tensor that travels, what ``_decode`` needs). A reduced
+        or encoded wire travels as uint8 bytes along a widened last axis,
+        which splits and concatenates as the elements do."""
+        if self.wire_codec is not None:
+            codec = wire_mod.get_codec(self.wire_codec)
+            parts = codec.encode_wire(x)
+            if len(parts) == 1:
+                return (wire_mod.as_bytes(parts[0]),
+                        ("part", codec, parts[0].dtype, x.dtype))
+            # payload and scales ride ONE packed collective
+            last = x.dim() - 1
+            packed, meta = wire_mod.pack_wire(
+                parts, self.shards, split_last=(s == last),
+                concat_last=(c == last))
+            return packed, ("packed", codec, meta, x.dtype)
+        wd = _torch_dtype(self.wire_dtype) if self.wire_dtype else None
+        if wd is not None and x.dtype != wd:
+            return (wire_mod.as_bytes(x.to(wd)),
+                    ("cast", None, wd, x.dtype))
+        return x, None
+
+    @staticmethod
+    def _decode(y, meta):
+        if meta is None:
+            return y
+        kind, codec, how, dtype = meta
+        if kind == "cast":
+            return wire_mod.from_bytes(y, how).to(dtype)
+        if kind == "part":
+            return codec.decode((wire_mod.from_bytes(y, how),), dtype)
+        return codec.decode(wire_mod.unpack_wire(y, how), dtype)
 
     def start(self, x, mesh):
-        """Issue the exchange of ``x``; returns the handle ``finish``
-        takes: (work, received, sent), work None where nothing moves (one
-        shard). The sent buffer stays referenced until the wait."""
+        """Encode ``x`` for the wire and issue its exchange; returns the
+        handle ``finish`` takes: (work, received, sent, wire meta), work
+        None where nothing moves (one shard). The sent buffer stays
+        referenced until the wait."""
+        s, c = self.split % x.dim(), self.concat % x.dim()
+        if x.shape[s] % self.shards:
+            raise ValueError(f"all_to_all: split extent {x.shape[s]} does "
+                             f"not divide into {self.shards} shards")
+        payload, meta = self._encode(x, s, c)
         if self.shards == 1:
-            return None, x, None
-        s = self.split % x.dim()
-        n = x.shape[s]
-        if n % self.shards:
-            raise ValueError(f"all_to_all: split extent {n} does not "
-                             f"divide into {self.shards} shards")
+            return None, payload, None, meta
+        n = payload.shape[s]
         # chunk j (along split) to the front, for rank j of the group
-        send = x.unflatten(s, (self.shards, n // self.shards)).movedim(s, 0)
-        send = send.contiguous()
+        send = payload.unflatten(s, (self.shards, n // self.shards))
+        send = send.movedim(s, 0).contiguous()
         out = torch.empty_like(send)
         work = dist.all_to_all_single(out, send,
                                       group=mesh.group(self.axis_name),
                                       async_op=True)
-        return work, out, send
+        return work, out, send, meta
 
     def finish(self, handle, ndim: int):
-        """Wait for the exchange and fold the source-rank dim in front of
-        the concat axis."""
-        work, out, _ = handle
-        if work is None:
-            return out
-        work.wait()
-        c = self.concat % ndim
-        return out.movedim(0, c).flatten(c, c + 1)
+        """Wait for the exchange, fold the source-rank dim in front of
+        the concat axis, and decode the wire."""
+        work, out, _, meta = handle
+        if work is not None:
+            work.wait()
+            c = self.concat % ndim
+            out = out.movedim(0, c).flatten(c, c + 1)
+        return self._decode(out, meta)
 
     def apply(self, state, mesh):
         started = [self.start(x, mesh) for x in state]
@@ -205,6 +289,40 @@ class Caps:
     real: bool = False
 
 
+def _torch_dtype(name) -> torch.dtype:
+    """The torch dtype a wire dtype name (or dtype) names."""
+    if isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"{name!r} names no torch dtype")
+    return dt
+
+
+def wire_entry(w) -> Optional[str]:
+    """Normalise ONE wire spec entry: None, a codec name (verbatim; see
+    ``wire.py``), or a dtype name in canonical form (``"bfloat16"``)."""
+    if w is None:
+        return None
+    if wire_mod.is_codec(w):
+        return w
+    return str(_torch_dtype(w)).split(".")[-1]
+
+
+def _wire_tuple(wire_dtype: WireSpec, n_a2a: int
+                ) -> Tuple[Optional[str], ...]:
+    """One dtype/codec NAME per AllToAll stage: None (exact everywhere),
+    one name (every exchange), or a tuple with one entry per exchange
+    (per-stage wire, e.g. only the host-crossing rotation of a pencil)."""
+    if isinstance(wire_dtype, (tuple, list)):
+        if len(wire_dtype) != n_a2a:
+            raise ValueError(
+                f"wire_dtype tuple has {len(wire_dtype)} entries for "
+                f"{n_a2a} all_to_all stages")
+        return tuple(wire_entry(w) for w in wire_dtype)
+    return (wire_entry(wire_dtype),) * n_a2a
+
+
 # ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
@@ -228,6 +346,10 @@ def overlap_site(sched: Schedule) -> Tuple[int, int]:
                 raise ValueError(
                     f"{sched.name}: pre-exchange stage transforms the "
                     f"chunk axis {t}")
+        elif isinstance(pre, (LocalRFFT, LocalIRFFT)):
+            if t == -1:
+                raise ValueError(
+                    f"{sched.name}: real endcap owns the chunk axis")
         else:
             raise ValueError(
                 f"{sched.name}: overlap unsupported across "
@@ -301,38 +423,41 @@ def execute_schedule(sched: Schedule, mesh: Mesh, *arrays,
 # ---------------------------------------------------------------------------
 
 def slab_2d(mesh: Mesh, axis_name: str = "data", *, inverse: bool = False,
-            backend: str = "auto", wire_dtype=None) -> Schedule:
+            backend: str = "auto", wire_dtype: WireSpec = None) -> Schedule:
     """FFTW-MPI's slab: local FFT, one exchange, local FFT.
     forward P(ax, None) → P(None, ax); inverse mirrors."""
     pn = mesh.shape[axis_name]
+    (w,) = _wire_tuple(wire_dtype, 1)
     if inverse:
         stages = (LocalFFT(-2, True, backend),
-                  AllToAll(axis_name, -2, -1, pn, wire_dtype),
+                  AllToAll(axis_name, -2, -1, pn, w),
                   LocalFFT(-1, True, backend))
         return Schedule("slab2d_inv", 2, stages,
                         (None, axis_name), (axis_name, None))
     stages = (LocalFFT(-1, False, backend),
-              AllToAll(axis_name, -1, -2, pn, wire_dtype),
+              AllToAll(axis_name, -1, -2, pn, w),
               LocalFFT(-2, False, backend))
     return Schedule("slab2d", 2, stages,
                     (axis_name, None), (None, axis_name))
 
 
 def slab_3d(mesh: Mesh, axis_name: str = "data", *, inverse: bool = False,
-            backend: str = "auto", wire_dtype=None) -> Schedule:
-    """3-D slab on ONE mesh axis: three local passes, one exchange.
+            backend: str = "auto", wire_dtype: WireSpec = None) -> Schedule:
+    """3-D slab on ONE mesh axis: three local passes, one exchange —
+    3-D grids without a 2-axis mesh.
     forward P(ax, None, None) → P(None, ax, None); inverse mirrors."""
     pn = mesh.shape[axis_name]
+    (w,) = _wire_tuple(wire_dtype, 1)
     if inverse:
         stages = (LocalFFT(-3, True, backend),
-                  AllToAll(axis_name, -3, -2, pn, wire_dtype),
+                  AllToAll(axis_name, -3, -2, pn, w),
                   LocalFFT(-2, True, backend),
                   LocalFFT(-1, True, backend))
         return Schedule("slab3d_inv", 3, stages,
                         (None, axis_name, None), (axis_name, None, None))
     stages = (LocalFFT(-1, False, backend),
               LocalFFT(-2, False, backend),
-              AllToAll(axis_name, -2, -3, pn, wire_dtype),
+              AllToAll(axis_name, -2, -3, pn, w),
               LocalFFT(-3, False, backend))
     return Schedule("slab3d", 3, stages,
                     (axis_name, None, None), (None, axis_name, None))
@@ -340,23 +465,24 @@ def slab_3d(mesh: Mesh, axis_name: str = "data", *, inverse: bool = False,
 
 def pencil_3d(mesh: Mesh, axes: Tuple[str, str] = ("data", "model"), *,
               inverse: bool = False, backend: str = "auto",
-              wire_dtype=None) -> Schedule:
+              wire_dtype: WireSpec = None) -> Schedule:
     """Standard pencil: three local passes, two full rotations.
     forward P(a0, a1, None) → P(None, a0, a1); inverse mirrors."""
     a0, a1 = axes
     p0, p1 = mesh.shape[a0], mesh.shape[a1]
+    w0, w1 = _wire_tuple(wire_dtype, 2)
     if inverse:
         stages = (LocalFFT(-3, True, backend),
-                  AllToAll(a0, -3, -2, p0, wire_dtype),
+                  AllToAll(a0, -3, -2, p0, w0),
                   LocalFFT(-2, True, backend),
-                  AllToAll(a1, -2, -1, p1, wire_dtype),
+                  AllToAll(a1, -2, -1, p1, w1),
                   LocalFFT(-1, True, backend))
         return Schedule("pencil_inv", 3, stages,
                         (None, a0, a1), (a0, a1, None))
     stages = (LocalFFT(-1, False, backend),
-              AllToAll(a1, -1, -2, p1, wire_dtype),
+              AllToAll(a1, -1, -2, p1, w0),
               LocalFFT(-2, False, backend),
-              AllToAll(a0, -2, -3, p0, wire_dtype),
+              AllToAll(a0, -2, -3, p0, w1),
               LocalFFT(-3, False, backend))
     return Schedule("pencil", 3, stages,
                     (a0, a1, None), (None, a0, a1))
@@ -364,38 +490,42 @@ def pencil_3d(mesh: Mesh, axes: Tuple[str, str] = ("data", "model"), *,
 
 def pencil_tf_3d(mesh: Mesh, axes: Tuple[str, str] = ("data", "model"), *,
                  inverse: bool = False, backend: str = "auto",
-                 wire_dtype=None) -> Schedule:
+                 wire_dtype: WireSpec = None) -> Schedule:
     """Transpose-free pencil (Chatterjee-Verma-style): the second full
-    rotation becomes a four-step exchange along the still-sharded first
-    grid axis.
+    rotation is replaced by a four-step exchange along the still-sharded
+    first grid axis.
 
-    forward: input x[n0, n1, n2] P(a0, a1, None), axis 0 in cyclic order
-    over a0 (``distributed.cyclic_order``) → output P(a0, None, a1),
-    position g' along axis 0 holding bin
-    ``fourstep_freq_of_position(n0, P0)[g']``, axes 1, 2 natural.
-    Requires P0 | (n0 / P0). inverse: exact mirror, back to the cyclic
-    spatial layout."""
+    forward: input x[n0, n1, n2] P(a0, a1, None), **axis 0 in cyclic
+    order over a0** (global element g = m·P0 + p on shard p, exactly
+    ``fourstep_fft_1d``'s contract; ``distributed.cyclic_order`` builds
+    it) → output P(a0, None, a1) where position g' along axis 0 holds
+    bin ``fourstep_freq_of_position(n0, P0)[g']`` and axes 1, 2 are in
+    natural frequency order. Requires P0 | (n0 / P0). The x-axis
+    sharding never moves — that is the "transpose-free" part; only
+    M0/P0-deep bricks travel in the second exchange's four-step pattern.
+    inverse: exact mirror, back to the cyclic spatial layout."""
     a0, a1 = axes
     p0, p1 = mesh.shape[a0], mesh.shape[a1]
+    wa, wb = _wire_tuple(wire_dtype, 2)
     if inverse:
         stages = (Reorder("unfold_T", -3, p0),       # x: (M0)→(P0, M0/P0)
                   LocalFFT(-4, True, backend),       # length-P0 pass
-                  AllToAll(a0, -4, -3, p0, wire_dtype),   # → (1, M0, ...)
+                  AllToAll(a0, -4, -3, p0, wa),      # → (1, M0, ...)
                   Reorder("merge", -4),
                   Twiddle(-3, a0, p0, +1.0),
                   LocalFFT(-3, True, backend),       # x local
                   LocalFFT(-2, True, backend),       # y
-                  AllToAll(a1, -2, -1, p1, wire_dtype),   # y ↔ z rotation
+                  AllToAll(a1, -2, -1, p1, wb),      # y ↔ z rotation
                   LocalFFT(-1, True, backend))       # z
         return Schedule("pencil_tf_inv", 3, stages,
                         (a0, None, a1), (a0, a1, None))
     stages = (LocalFFT(-1, False, backend),          # z
-              AllToAll(a1, -1, -2, p1, wire_dtype),  # z ↔ y rotation
+              AllToAll(a1, -1, -2, p1, wa),          # z ↔ y rotation
               LocalFFT(-2, False, backend),          # y
               LocalFFT(-3, False, backend),          # x local (cyclic)
               Twiddle(-3, a0, p0, -1.0),
               Reorder("expand", -4),
-              AllToAll(a0, -3, -4, p0, wire_dtype),  # four-step exchange
+              AllToAll(a0, -3, -4, p0, wb),          # four-step exchange
               LocalFFT(-4, False, backend),          # length-P0 pass
               Reorder("fold_T", -4))                 # column-major flatten
     return Schedule("pencil_tf", 3, stages,
@@ -404,25 +534,36 @@ def pencil_tf_3d(mesh: Mesh, axes: Tuple[str, str] = ("data", "model"), *,
 
 def pencil_2d(mesh: Mesh, axes: Tuple[str, str] = ("data", "model"), *,
               inverse: bool = False, backend: str = "auto",
-              wire_dtype=None) -> Schedule:
-    """2-axis decomposition of 2-D grids over 2-D meshes: input tiled
-    P(a0, a1), output P(None, (a1, a0)) in natural frequency order,
-    three exchanges each over one mesh axis. Requires P0·P1 | N0 and
-    P0·P1 | N1. inverse mirrors."""
+              wire_dtype: WireSpec = None) -> Schedule:
+    """2-axis decomposition of 2-D grids over 2-D meshes — huge 2-D
+    grids stop being stuck with the P0-way slab: the input is tiled
+    P(a0, a1) (the natural layout of a 2-D domain-decomposed
+    simulation) and all P0·P1 devices participate.
+
+    forward: gather axis 1 over a1 (axis 0 picks up a1 as its minor
+    sharding factor), FFT it, scatter the frequency axis back over a1,
+    then one rotation over a0 gathers axis 0 and scatters k1's minor
+    factor — P(a0, a1) → P(None, (a1, a0)), both frequency axes in
+    natural order. Three exchanges, but each moves only the 1/(P0·P1)
+    local tile, and they split across the two mesh axes: on a DCN×ICI
+    mesh only the a0 rotation crosses hosts, which is exactly what the
+    per-stage wire sweep keys on. Requires P0·P1 | N0 and P0·P1 | N1.
+    inverse mirrors."""
     a0, a1 = axes
     p0, p1 = mesh.shape[a0], mesh.shape[a1]
+    w0, w1, w2 = _wire_tuple(wire_dtype, 3)
     if inverse:
         stages = (LocalFFT(-2, True, backend),
-                  AllToAll(a0, -2, -1, p0, wire_dtype),   # undo the k0 gather
-                  AllToAll(a1, -2, -1, p1, wire_dtype),   # regroup axis 1
+                  AllToAll(a0, -2, -1, p0, w0),   # undo the k0 gather
+                  AllToAll(a1, -2, -1, p1, w1),   # regroup axis 1
                   LocalFFT(-1, True, backend),
-                  AllToAll(a1, -1, -2, p1, wire_dtype))   # re-scatter axis 1
+                  AllToAll(a1, -1, -2, p1, w2))   # re-scatter axis 1
         return Schedule("pencil2d_inv", 2, stages,
                         (None, (a1, a0)), (a0, a1))
-    stages = (AllToAll(a1, -2, -1, p1, wire_dtype),       # gather axis 1
+    stages = (AllToAll(a1, -2, -1, p1, w0),       # gather axis 1 locally
               LocalFFT(-1, False, backend),
-              AllToAll(a1, -1, -2, p1, wire_dtype),       # scatter k1 over a1
-              AllToAll(a0, -1, -2, p0, wire_dtype),       # gather axis 0
+              AllToAll(a1, -1, -2, p1, w1),       # scatter k1 over a1
+              AllToAll(a0, -1, -2, p0, w2),       # gather axis 0 / split k1
               LocalFFT(-2, False, backend))
     return Schedule("pencil2d", 2, stages,
                     (a0, a1), (None, (a1, a0)))
@@ -430,14 +571,15 @@ def pencil_2d(mesh: Mesh, axes: Tuple[str, str] = ("data", "model"), *,
 
 def fourstep_1d(mesh: Mesh, axis_name: str = "data", *,
                 inverse: bool = False, backend: str = "auto",
-                wire_dtype=None) -> Schedule:
+                wire_dtype: WireSpec = None) -> Schedule:
     """Bailey's four-step across the mesh: cyclic input layout, output
     in transposed digit order (``fourstep_freq_of_position``)."""
     pn = mesh.shape[axis_name]
+    (w,) = _wire_tuple(wire_dtype, 1)
     if inverse:
         stages = (Reorder("unfold_T", -1, pn),
                   LocalFFT(-2, True, backend),
-                  AllToAll(axis_name, -2, -1, pn, wire_dtype),
+                  AllToAll(axis_name, -2, -1, pn, w),
                   Reorder("merge", -2),
                   Twiddle(-1, axis_name, pn, +1.0),
                   LocalFFT(-1, True, backend))
@@ -446,7 +588,7 @@ def fourstep_1d(mesh: Mesh, axis_name: str = "data", *,
     stages = (LocalFFT(-1, False, backend),
               Twiddle(-1, axis_name, pn, -1.0),
               Reorder("expand", -2),
-              AllToAll(axis_name, -1, -2, pn, wire_dtype),
+              AllToAll(axis_name, -1, -2, pn, w),
               LocalFFT(-2, False, backend),
               Reorder("fold_T", -2))
     return Schedule("fourstep1d", 1, stages, (axis_name,), (axis_name,))
@@ -505,10 +647,11 @@ def exchange_topology(sched: Schedule) -> Tuple[dict, ...]:
 
 def build_schedule(decomp: str, shape: Tuple[int, ...], mesh: Mesh,
                    axis_names: Tuple[str, ...], *, inverse: bool = False,
-                   backend: str = "auto", wire_dtype=None,
+                   backend: str = "auto", wire_dtype: WireSpec = None,
                    real: bool = False) -> Schedule:
     """One entry point from (decomp, knobs) to a runnable Schedule,
-    topology-annotated from the mesh."""
+    topology-annotated from the mesh; ``real=True`` builds the r2c/c2r
+    schedule of ``rfft.RFFT_BUILDERS``."""
     caps = CAPS.get(decomp)
     if caps is None:
         raise ValueError(f"unknown decomposition {decomp!r}; "
@@ -516,14 +659,23 @@ def build_schedule(decomp: str, shape: Tuple[int, ...], mesh: Mesh,
     if len(shape) != caps.rank:
         raise ValueError(f"{decomp} transforms rank-{caps.rank} grids, "
                          f"got shape {shape}")
+    if caps.mesh_axes == 2 and len(axis_names) < 2:
+        raise ValueError(f"{decomp} needs two mesh axes, got "
+                         f"{tuple(axis_names)}")
     if real:
-        raise NotImplementedError(
-            "r2c/c2r schedules are ROADMAP queue 1 item 9")
+        if not caps.real:
+            raise ValueError(
+                f"real (r2c/c2r) plans support "
+                f"{sorted(k for k, c in CAPS.items() if c.real)}, "
+                f"not {decomp!r}")
+        from repro_torch.core.fft import rfft as rfft_mod
+        build_r, naxes = rfft_mod.RFFT_BUILDERS[decomp]
+        axes = tuple(axis_names[:2]) if naxes == 2 else axis_names[0]
+        sched = build_r(shape[-1], mesh, axes, inverse=inverse,
+                        backend=backend, wire_dtype=wire_dtype)
+        return annotate_topology(sched, mesh)
     build = _BUILDERS[decomp]
     if caps.mesh_axes == 2:
-        if len(axis_names) < 2:
-            raise ValueError(f"{decomp} needs two mesh axes, got "
-                             f"{tuple(axis_names)}")
         sched = build(mesh, tuple(axis_names[:2]), inverse=inverse,
                       backend=backend, wire_dtype=wire_dtype)
     else:

@@ -27,18 +27,22 @@ from repro_torch.core.insitu.chain import InSituChain
 from repro_torch.core.insitu.endpoint import Endpoint
 from repro_torch.core.insitu.endpoints.bandpass import BandpassEndpoint
 from repro_torch.core.insitu.endpoints.fft_endpoint import FFTEndpoint
+from repro_torch.core.insitu.endpoints.spectral_monitor import \
+    SpectralMonitorEndpoint
+from repro_torch.core.insitu.endpoints.stats import (SpectrumEndpoint,
+                                                     StatsEndpoint)
 from repro_torch.core.insitu.endpoints.writer import (VisualizeEndpoint,
                                                       WriterEndpoint)
 
 ENDPOINTS: Dict[str, type] = {
     "fft": FFTEndpoint,
     "bandpass": BandpassEndpoint,
+    "stats": StatsEndpoint,
+    "spectrum": SpectrumEndpoint,
+    "spectral_monitor": SpectralMonitorEndpoint,
     "writer": WriterEndpoint,
     "visualize": VisualizeEndpoint,
 }
-
-# endpoints of the reference that this port does not have yet
-_UNPORTED = ("stats", "spectrum", "spectral_monitor")
 
 
 def register_endpoint(name: str, cls: type):
@@ -58,9 +62,6 @@ def build_chain(cfg: Union[Dict[str, Any], str, Path], mesh=None,
     for spec in cfg["chain"]:
         spec = dict(spec)
         kind = spec.pop("endpoint")
-        if kind in _UNPORTED and kind not in ENDPOINTS:
-            raise NotImplementedError(
-                f"endpoint {kind!r} is ROADMAP queue 1 item 6")
         if kind not in ENDPOINTS:
             raise KeyError(f"unknown endpoint {kind!r}; "
                            f"known: {sorted(ENDPOINTS)}")

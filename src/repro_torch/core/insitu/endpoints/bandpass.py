@@ -13,10 +13,7 @@ all-reduced in float64 (each replicated block counted once).
 """
 from __future__ import annotations
 
-import math
-
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.fft import distributed, filters
 from repro_torch.core.insitu.bridge import BridgeData
@@ -83,9 +80,13 @@ class BandpassEndpoint(Endpoint):
                     f"grid) it, or pre-permute the mask")
             mask = filters.permute_mask_first_axis(
                 mask, self._mesh.shape[self._mesh.axis_names[0]])
-        if data.layout.endswith("half") and mask.shape[-1] != re.shape[-1]:
-            # r2c path: the spectrum keeps only k_last <= N/2 (padded)
-            mask = filters.halfspec_mask(mask, re.shape[-1])
+        hp = re.shape[-1]
+        if self._mesh is not None and data.spec is not None:
+            hp *= distributed.shard_count(self._mesh, data.spec[-1])
+        if data.layout.endswith("half") and mask.shape[-1] != hp:
+            # r2c path: the spectrum keeps only k_last <= N/2, padded to
+            # the global half extent hp (this rank holds a block of it)
+            mask = filters.halfspec_mask(mask, hp)
         if self._mesh is not None and data.spec is not None:
             mask = distributed.shard(mask, self._mesh, data.spec)
         mask = mask.to(device=re.device, dtype=torch.float32).contiguous()
@@ -98,12 +99,8 @@ class BandpassEndpoint(Endpoint):
         mesh = self._mesh
         if mesh is None or mesh.size == 1 or spec is None:
             return kept, tot
-        used = distributed.spec_axes(spec)
-        copies = math.prod(mesh.shape[n] for n in mesh.axis_names
-                           if n not in used)
-        sums = torch.stack((kept, tot)).double()
-        dist.all_reduce(sums)
-        sums = (sums / copies).float()
+        sums = distributed.sum_over_blocks(torch.stack((kept, tot)), mesh,
+                                           spec).float()
         return sums[0], sums[1]
 
     def execute(self, data: BridgeData) -> BridgeData:

@@ -15,8 +15,13 @@ spatial layout: their forward input must be tagged ``cyclic`` and their
 backward output is. ``local=True`` (or no mesh) transforms with
 ``torch.fft`` instead of a plan, as the reference does with ``jnp.fft``.
 
-``real=True`` on a plan (r2c/c2r half-spectrum) is ROADMAP queue 1
-item 9; the ``local=True`` real path is here.
+``real=True`` plans through ``plan_rfft`` (r2c forward, c2r back): half
+the local FFT work and about half the exchange bytes for a real field,
+on every decomposition but ``fourstep1d``. Forward publishes the
+half-spectrum pair and tags the layout ``*-half``; ``Bandpass`` cuts its
+mask to match. ``batch_ndim=k`` transforms arrays with ``k`` leading
+batch dims under one plan; ``backend="measure"`` measures the plan on
+first use (FFTW_MEASURE).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fft.distributed import CYCLIC_DECOMPS
-from repro_torch.core.fft.plan import BACKWARD, FORWARD, plan_dft
+from repro_torch.core.fft.plan import (BACKWARD, FORWARD, plan_dft,
+                                      plan_rfft)
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
 
@@ -68,14 +74,12 @@ class FFTEndpoint(Endpoint):
             return
         if grid is None:
             raise ValueError("FFTEndpoint needs grid dims to plan")
-        if self.real:
-            raise NotImplementedError(
-                "real=True plans (r2c/c2r) are ROADMAP queue 1 item 9")
-        self.plan = plan_dft(grid.dims, self.direction, mesh,
-                             decomp=self.decomp, backend=self.backend,
-                             overlap_chunks=self.overlap_chunks,
-                             batch_ndim=self.batch_ndim,
-                             wire_dtype=self.wire_dtype)
+        planner = plan_rfft if self.real else plan_dft
+        self.plan = planner(grid.dims, self.direction, mesh,
+                            decomp=self.decomp, backend=self.backend,
+                            overlap_chunks=self.overlap_chunks,
+                            batch_ndim=self.batch_ndim,
+                            wire_dtype=self.wire_dtype)
 
     def _run_local(self, re, im):
         # transform only the trailing grid dims — leading batch dims are
@@ -106,14 +110,25 @@ class FFTEndpoint(Endpoint):
                 f"the field with distributed.cyclic_order along the "
                 f"first sharded grid axis and publish it with "
                 f"BridgeData.layout='cyclic'")
-        re, im = data.get_pair(self.array)
         spec = data.spec
         if self.plan is None:
+            re, im = data.get_pair(self.array)
             (r, i), layout = self._run_local(re, im)
+        elif self.real and self.direction == FORWARD:
+            x = data.arrays[self.array]
+            if isinstance(x, tuple):
+                x = x[0]              # real field travelling as (x, 0)
+            r, i = self.plan.execute(x)
+            layout = _LAYOUT[self.plan.decomp] + "-half"
+        elif self.real:               # c2r backward: returns the field
+            r = self.plan.execute(*data.get_pair(self.array))
+            i = torch.zeros_like(r)
+            layout = "natural"
         else:
-            r, i = self.plan.execute(re, im)
+            r, i = self.plan.execute(*data.get_pair(self.array))
             layout = _LAYOUT[self.plan.decomp] \
                 if self.direction == FORWARD else "natural"
+        if self.plan is not None:
             spec = self.plan.schedule().out_spec
 
         arrays = dict(data.arrays)

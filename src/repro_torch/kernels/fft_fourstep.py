@@ -8,7 +8,9 @@ every N. ``fft_plan.route`` picks the route once per N: the radix
 Stockham kernels (powers of two to 16384 as rows, 65536 as columns),
 mixed radix 2-16/3/5/7 (every other N whose prime factors are <= 7), or
 Bluestein (the rest: a power-of-two convolution, with the chirp and its
-spectrum made once per N and direction and kept on the device). On a
+spectrum made once per N and direction and kept on the device that
+asked, in a byte-capped LRU cache that ``plan.plan_cache_clear()``
+empties: ``CHIRP_CACHE_BYTES``, ``clear_tables``). On a
 CUDA tensor each wrapper launches the kernels or raises; on a CPU tensor
 it computes the plain version, ``dft.fourstep_fft`` (moved to the last
 axis and back for columns). ``fft_fourstep.launches`` counts every
@@ -17,36 +19,82 @@ kernel launched, rows and columns alike;
 """
 from __future__ import annotations
 
+import collections
 import math
+import threading
 
 import torch
 
 from repro_torch.core.fft.dft import fourstep_fft
 from repro_torch.kernels import _build, fft_plan
 
+# The byte cap of the Bluestein tables kept on the devices, least recently
+# used out first. A direction's tables take 8·(N + M) bytes (the chirp,
+# N complex64, and its conjugate's spectrum, M complex64): both
+# directions of every N to 2^24 (M <= 2^25, 384 MiB a direction) fit
+# together in 1 GiB, 1.25% of an H100's 80 GB that a simulation pays
+# beside its own state; a larger N keeps one direction at a time, and a
+# table past the cap (M = 2^27 and up) is made for its call and not kept.
+CHIRP_CACHE_BYTES = 1 << 30
+
 # Bluestein's chirp and the spectrum of its conjugate, per (N, inverse,
 # device): made on the device once, by the route's own kernels
-_CHIRPS: dict = {}
+_CHIRPS: "collections.OrderedDict" = collections.OrderedDict()
+_CHIRPS_LOCK = threading.Lock()
+
+
+def table_bytes() -> int:
+    """Bytes the cached Bluestein tables hold, over every device."""
+    with _CHIRPS_LOCK:
+        return sum(t.numel() * t.element_size()
+                   for pair in _CHIRPS.values() for t in pair)
+
+
+def clear_tables() -> None:
+    """Drop every cached Bluestein table (``plan.plan_cache_clear``)."""
+    with _CHIRPS_LOCK:
+        _CHIRPS.clear()
+
+
+def _keep(key, tables) -> None:
+    """Cache ``tables`` under ``key``, evicting the least recently used
+    until the cache fits ``CHIRP_CACHE_BYTES``; a table larger than the
+    cap alone is not kept."""
+    size = sum(t.numel() * t.element_size() for t in tables)
+    if size > CHIRP_CACHE_BYTES:
+        return
+    with _CHIRPS_LOCK:
+        held = sum(t.numel() * t.element_size()
+                   for pair in _CHIRPS.values() for t in pair)
+        while _CHIRPS and held + size > CHIRP_CACHE_BYTES:
+            _, old = _CHIRPS.popitem(last=False)
+            held -= sum(t.numel() * t.element_size() for t in old)
+        _CHIRPS[key] = tables
 
 
 def _bluestein_tables(n: int, inverse: bool, device):
-    key = (n, inverse, device)
-    if key not in _CHIRPS:
-        m = fft_plan.bluestein_size(n)
-        sign = 1.0 if inverse else -1.0
-        e = fft_plan.chirp_exponents(n, device).double()
-        ang = (sign * math.pi / n) * e
-        chirp = torch.stack((torch.cos(ang), torch.sin(ang)), -1).float()
-        # conj(chirp) laid out circularly: b[m] = b[M - m] = conj(c[m])
-        bre = torch.zeros((1, m), dtype=torch.float32, device=device)
-        bim = torch.zeros_like(bre)
-        bre[0, :n], bim[0, :n] = chirp[:, 0], -chirp[:, 1]
-        bre[0, m - n + 1:] = chirp[1:, 0].flip(0)
-        bim[0, m - n + 1:] = -chirp[1:, 1].flip(0)
-        sre, sim = fft_fourstep(bre, bim)
-        spec = torch.stack((sre[0], sim[0]), -1).contiguous()
-        _CHIRPS[key] = (chirp.contiguous(), spec)
-    return _CHIRPS[key]
+    key = (n, inverse, torch.device(device))
+    with _CHIRPS_LOCK:
+        hit = _CHIRPS.get(key)
+        if hit is not None:
+            _CHIRPS.move_to_end(key)
+            return hit
+    m = fft_plan.bluestein_size(n)
+    sign = 1.0 if inverse else -1.0
+    e = fft_plan.chirp_exponents(n, device).double()
+    ang = (sign * math.pi / n) * e
+    chirp = torch.stack((torch.cos(ang), torch.sin(ang)), -1).float()
+    # conj(chirp) laid out circularly: b[m] = b[M - m] = conj(c[m])
+    bre = torch.zeros((1, m), dtype=torch.float32, device=device)
+    bim = torch.zeros_like(bre)
+    bre[0, :n], bim[0, :n] = chirp[:, 0], -chirp[:, 1]
+    bre[0, m - n + 1:] = chirp[1:, 0].flip(0)
+    bim[0, m - n + 1:] = -chirp[1:, 1].flip(0)
+    sre, sim = fft_fourstep(bre, bim)
+    spec = torch.stack((sre[0], sim[0]), -1).contiguous()
+    tables = (chirp.contiguous(), spec)
+    _keep(key, tables)
+    return tables
 
 
 def _launch(re, im, outer: int, n: int, inner: int, inverse: bool,

@@ -11,9 +11,11 @@ is given; a missing card is an error, never a move to the CPU. Times on
 the card are host clock around work that ends in
 ``torch.cuda.synchronize()``.
 
-No mesh and no sharding policy are built (one device). The reference's
-in-situ logits monitor, M→N transit, elastic consumer mesh, wisdom file
-and multi-process cluster flags are accepted and raise
+No mesh and no sharding policy are built (one device). ``--wisdom FILE``
+(with ``--wisdom-mode off|read|readwrite``) installs the FFT planner's
+persistent wisdom store before anything is planned, as the reference
+does. The reference's in-situ logits monitor, M→N transit, elastic
+consumer mesh and multi-process cluster flags are accepted and raise
 ``NotImplementedError`` naming their ROADMAP items.
 """
 from __future__ import annotations
@@ -26,18 +28,17 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core.fft import plan as plan_mod
 from repro_torch.models import lm
 
 # flag -> (its "off" value, what it needs that the port does not have)
 _CLUSTER = "multi-process clusters (ROADMAP queue 1 item 14)"
 NOT_PORTED = {
     "monitor_every": (0, "the pipelined in-situ chain and the FFT serving "
-                         "engine (ROADMAP queue 1 items 11 and 15) and the "
-                         "stats endpoint"),
+                         "engine (ROADMAP queue 1 items 11 and 15)"),
     "transit_consumers": (0, "M→N transit (ROADMAP queue 1 item 14)"),
     "elastic": (False, "the elastic consumer mesh (ROADMAP queue 1 "
                        "item 17)"),
-    "wisdom": (None, "autotune wisdom (ROADMAP queue 1 item 13)"),
     "coordinator": (None, _CLUSTER),
     "num_processes": (None, _CLUSTER),
     "process_id": (None, _CLUSTER),
@@ -88,7 +89,14 @@ def main(argv=None, *, params=None):
     ap.add_argument("--monitor-every", type=int, default=0)
     ap.add_argument("--transit-consumers", type=int, default=0)
     ap.add_argument("--elastic", action="store_true")
-    ap.add_argument("--wisdom", default=None)
+    ap.add_argument("--wisdom", default=None, metavar="FILE",
+                    help="persistent FFT autotune wisdom: measured sweep "
+                         "winners are read at bring-up and new ones "
+                         "written, so restarts skip the timed sweeps "
+                         "(overrides REPRO_WISDOM_FILE)")
+    ap.add_argument("--wisdom-mode", default="readwrite",
+                    choices=("off", "read", "readwrite"),
+                    help="read = consult wisdom but never write it")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -97,6 +105,9 @@ def main(argv=None, *, params=None):
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} needs {needs}, not ported yet")
+    if args.wisdom:
+        # before any measured planning, so a restart warm-starts from it
+        plan_mod.set_wisdom(args.wisdom, args.wisdom_mode)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

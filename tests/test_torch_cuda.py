@@ -460,3 +460,79 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):
                                         v[..., :48])
     with pytest.raises(ValueError, match="block"):
         flash_attention.flash_attention(q, k, v, block_q=0)
+
+
+# ---------------------------------------------------------------------------
+# The planner's real (r2c/c2r) plans, wires, tables and measured sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("decomp,grid", [
+    ("slab", (256, 384)), ("slab3d", (32, 48, 64)), ("pencil", (32, 48, 64)),
+    ("pencil_tf", (32, 48, 64)), ("pencil2d", (256, 384)),
+    ("slab", (200, 250))])
+def test_one_rank_real_plans_run_the_kernels(gen, decomp, grid):
+    # every complex pass of an r2c/c2r plan on the kernels (the endcaps
+    # are torch.fft's rfft/irfft, as the reference's are jnp.fft's)
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft.plan import plan_rfft
+    axes = 2 if decomp in ("pencil", "pencil_tf", "pencil2d") else 1
+    mesh = make_mesh((1,) * axes, ("data", "model")[:axes])
+    x = torch.randn(grid, generator=gen, device="cuda")
+    fwd = plan_rfft(grid, "forward", mesh, decomp=decomp)
+    bwd = plan_rfft(grid, "backward", mesh, decomp=decomp)
+    before = ops.fft_fourstep.launches + ops.fft_stockham.launches
+    re, im = fwd.execute(x)
+    assert ops.fft_fourstep.launches + ops.fft_stockham.launches > before
+    want = torch.fft.rfftn(x.double())
+    h = want.shape[-1]
+    assert re.shape[-1] == h and re.is_cuda
+    assert _rel64((re, im), (want.real, want.imag)) < 5e-5
+    before = ops.fft_fourstep.launches + ops.fft_stockham.launches
+    back = bwd.execute(re, im)
+    assert ops.fft_fourstep.launches + ops.fft_stockham.launches > before
+    assert float((back - x).abs().max() / x.abs().max()) < 5e-5
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "bf16", "int8",
+                                  "int8_block64"])
+def test_wire_on_the_card_matches_the_cpu(gen, wire):
+    # encode and decode on CUDA tensors give the CPU's bytes (half-even
+    # rounding on both), through a one-shard exchange
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft import schedule as S
+    mesh = make_mesh((1,), ("data",))
+    x = torch.randn((8, 256), generator=gen, device="cuda") * 10
+    st = S.AllToAll("data", -2, -1, 1, wire)
+    (got,) = st.apply((x,), mesh)
+    (want,) = st.apply((x.cpu(),), make_mesh((1,), ("data",),
+                                              device="cpu"))
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_bluestein_tables_stay_on_the_card_and_clear(gen):
+    from repro_torch.core.fft.plan import plan_cache_clear
+    plan_cache_clear()
+    re, im = _planes(gen, (4, 257))
+    fft_fourstep.fft_fourstep(re, im)
+    assert fft_fourstep.table_bytes() > 0
+    assert all(t.is_cuda for pair in fft_fourstep._CHIRPS.values()
+               for t in pair)
+    held = torch.cuda.memory_allocated()
+    plan_cache_clear()
+    assert fft_fourstep.table_bytes() == 0
+    assert torch.cuda.memory_allocated() < held
+
+
+def test_measure_on_the_card_times_the_kernels_and_torch_fft(gen):
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft import plan as P
+    P.plan_cache_clear()
+    mesh = make_mesh((1,), ("data",))
+    p = P.plan_dft((256, 384), "forward", mesh, backend="measure",
+                   allow_reduced_wire=False)
+    assert p.backend in ("pallas", "jnp")
+    assert P.plan_cache_stats()["sweep_candidates_timed"] == 2 * 3
+    re, im = _planes(gen, (256, 384))
+    want = torch.fft.fftn(torch.complex(re.double(), im.double()))
+    assert _rel64(p.execute(re, im), (want.real, want.imag)) < 5e-5
+    P.plan_cache_clear()

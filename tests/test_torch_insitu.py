@@ -168,15 +168,17 @@ def test_bridge_numpy_round_trip():
 def test_unported_chain_features_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         build_chain({"mode": "pipelined", "chain": []})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_chain({"chain": [{"endpoint": "stats"}]})
     with pytest.raises(KeyError):
         build_chain({"chain": [{"endpoint": "nope"}]})
     mesh = make_mesh((1,), ("data",), device="cpu")
     grid = bridge.GridMeta((16, 16))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_chain({"chain": [{"endpoint": "fft", "real": True}]},
-                    mesh=mesh, grid=grid)
+    # the stats endpoint and real FFT plans, once refused, now build
+    stats = build_chain({"chain": [{"endpoint": "stats"}]})
+    assert [ep.name for ep in stats.endpoints] == ["stats"]
+    real = build_chain({"chain": [{"endpoint": "fft", "real": True}]},
+                       mesh=mesh, grid=grid)
+    assert real.endpoints[0].plan.real
+    assert real.endpoints[0].plan.schedule().name == "rfft_slab"
     # bandpass on a digit-permuted layout, once refused: over one shard
     # the four-step digit order is the natural order
     re, im = torch.randn(16, 16), torch.randn(16, 16)

@@ -234,8 +234,16 @@ def test_axis_crosses_hosts_from_the_ranks_hostnames():
 
 
 def test_stage_ir_refusals():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        S.AllToAll("data", -1, -2, 4, "bfloat16")
+    # a wire dtype, once refused, is a stage knob; a codec name given
+    # in its place moves to the codec slot, as in the reference
+    assert S.AllToAll("data", -1, -2, 4, "bfloat16").wire_dtype == "bfloat16"
+    st = S.AllToAll("data", -1, -2, 4, "int8_block64")
+    assert (st.wire_dtype, st.wire_codec) == (None, "int8_block64")
+    jst = JS.AllToAll("data", -1, -2, 4, "int8_block64")
+    assert (jst.wire_dtype, jst.wire_codec) == (st.wire_dtype, st.wire_codec)
+    with pytest.raises(TypeError):
+        S.AllToAll("data", -1, -2, 4, "float8_e9")._encode(
+            torch.zeros(4, 4), 1, 0)
     one = Mesh(("data",), {"data": 1}, torch.device("cpu"), {"data": 0})
     with pytest.raises(ValueError, match="two mesh axes"):
         S.build_schedule("pencil", (8, 8, 8), one, ("data",))

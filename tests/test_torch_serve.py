@@ -107,20 +107,46 @@ def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
         "sample"] == report["sample"]
 
 
+# explicit ids: the ones these cases had while the list still held the
+# wisdom flag (flags3), now ported and tested below
 @pytest.mark.parametrize("flags,item", [
-    (["--monitor-every", "2"], "items 11 and 15"),
-    (["--transit-consumers", "1"], "item 14"),
-    (["--elastic"], "item 17"),
-    (["--wisdom", "w.json"], "item 13"),
-    (["--coordinator", "localhost:1234"], "item 14"),
-    (["--num-processes", "2"], "item 14"),
-    (["--process-id", "0"], "item 14"),
-    (["--arch", "dbrx-132b"], "item 18"),
+    pytest.param(["--monitor-every", "2"], "items 11 and 15",
+                 id="flags0-items 11 and 15"),
+    pytest.param(["--transit-consumers", "1"], "item 14",
+                 id="flags1-item 14"),
+    pytest.param(["--elastic"], "item 17", id="flags2-item 17"),
+    pytest.param(["--coordinator", "localhost:1234"], "item 14",
+                 id="flags4-item 14"),
+    pytest.param(["--num-processes", "2"], "item 14", id="flags5-item 14"),
+    pytest.param(["--process-id", "0"], "item 14", id="flags6-item 14"),
+    pytest.param(["--arch", "dbrx-132b"], "item 18", id="flags7-item 18"),
 ])
 def test_serve_flags_not_ported_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
                     *flags])
+
+
+@pytest.mark.parametrize("mode", ["read", "readwrite", "off"])
+def test_serve_wisdom_installs_the_store(mode, tmp_path):
+    """``--wisdom FILE --wisdom-mode M`` installs the FFT planner's
+    wisdom store before serving, as the reference's serve does (once it
+    raised: the wisdom flag's case above)."""
+    from repro_torch.core.fft import plan as plan_mod
+    path = tmp_path / "w.json"
+    try:
+        report = serve.main(["--reduced", "--device", "cpu", "--batch", "1",
+                             "--prompt-len", "4", "--tokens", "2",
+                             "--bench-out", "", "--wisdom", str(path),
+                             "--wisdom-mode", mode])
+        store = plan_mod.wisdom_store()
+        assert len(report["sample"]) == 2
+        if mode == "off":
+            assert store is None
+        else:
+            assert store.path == path and store.mode == mode
+    finally:
+        plan_mod.set_wisdom(None)
 
 
 def test_serve_on_cuda_without_a_card_raises():

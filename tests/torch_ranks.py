@@ -45,8 +45,45 @@ A2A_PAIRS = ((-1, -2), (-2, -1), (-2, -3), (-3, -2), (-3, -4), (-4, -3))
 A2A_LOCAL = (4, 8, 4, 8)
 
 
+# the r2c/c2r decompositions (every one but fourstep1d) -> (mesh, grid)
+RFFT_DECOMPS = {"slab": ("1d", (16, 24)), "slab3d": ("1d", (8, 12, 16)),
+                "pencil": ("2d", (8, 12, 16)),
+                "pencil_tf": ("2d", (8, 12, 16)),
+                "pencil2d": ("2d", (8, 12))}
+RFFT_CASES = [(d, direction, batched) for d in RFFT_DECOMPS
+              for direction in ("forward", "backward")
+              for batched in (False, True)]
+# examples/insitu_rfft_batched.py's chain: 4 real fields a step, one
+# batched r2c/c2r plan pair, on the (4,) mesh
+RFFT_BATCH = (4, 128, 128)
+RFFT_KEEP_FRAC = 0.08
+# wire: the tiled exchange with each codec / wire dtype on the (4,) mesh,
+# global (8, 16, 256) cut on the concat axis; the uniform int8 codec has
+# one scale a row, so it cannot ride a split of the last axis
+WIRE_GLOBAL = (8, 16, 256)
+WIRE_PAIRS = ((-1, -2), (-2, -1), (-2, -3), (-3, -2))
+WIRES = ("bfloat16", "bf16", "int8", "int8_block64")
+WIRE_CASES = [(w, s, c) for w in WIRES for s, c in WIRE_PAIRS
+              if not (w == "int8" and s == -1)]
+# a complex slab with a wire on its exchange, against the exact wire (its
+# exchange splits the last axis, which the uniform int8 codec refuses)
+WIRE_SLAB = (16, 256)
+SLAB_WIRES = ("bfloat16", "bf16", "int8_block64")
+# measured planning on four ranks: the knob sweep of a slab, the decomp
+# sweep of a 3-D grid, and a pencil2d whose "data" exchange crosses hosts
+# on a mesh that names two hosts (codec candidates, the error budget)
+MEASURE_SLAB = (16, 64)
+MEASURE_3D = (8, 8, 8)
+MEASURE_HOSTED = (16, 256)
+MEASURE_HOSTS = ("a", "a", "b", "b")
+
+
 def case_id(decomp, direction, batched):
     return f"{decomp}-{direction}-{'batched' if batched else 'single'}"
+
+
+def wire_id(wire, split, concat):
+    return f"{wire}_{split}_{concat}"
 
 
 def a2a_input(rank):
@@ -246,6 +283,180 @@ def job_schedule(inputs, out, workdir):
         out["wrong_size_refused"] = np.array(True)
 
 
+def job_rfft(inputs, out, workdir):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft.plan import plan_cache_stats, plan_rfft
+    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
+    from repro_torch.core.insitu.config import build_chain
+    meshes = _meshes()
+    for decomp, direction, batched in RFFT_CASES:
+        cid = case_id(decomp, direction, batched)
+        mesh = meshes[RFFT_DECOMPS[decomp][0]]
+        plan = plan_rfft(RFFT_DECOMPS[decomp][1], direction, mesh,
+                         decomp=decomp, backend="pallas",
+                         batch_ndim=int(batched))
+        y = plan.execute(*plan.place(inputs["rin_" + cid]))
+        got = plan.unplace(*y, dst=0) if direction == "forward" \
+            else plan.unplace(y, dst=0)
+        if dist.get_rank() == 0:
+            out["rout_" + cid] = ((got[0] + 1j * got[1]).numpy()
+                                  if direction == "forward"
+                                  else got.numpy())
+    # overlap chunking on every real forward: bit-identical to unchunked
+    for decomp, (mkey, grid) in RFFT_DECOMPS.items():
+        mesh = meshes[mkey]
+        x = inputs["rin_" + case_id(decomp, "forward", False)]
+        got = []
+        for chunks in (0, 2):
+            plan = plan_rfft(grid, "forward", mesh, decomp=decomp,
+                             backend="pallas", overlap_chunks=chunks)
+            got.append(plan.unplace(*plan.execute(*plan.place(x)), dst=0))
+        if dist.get_rank() == 0:
+            out[f"roverlap_{decomp}"] = np.array(
+                all(torch.equal(a, b) for a, b in zip(*got)))
+    # examples/insitu_rfft_batched.py's chain, twice (the second step
+    # served from the plan cache)
+    mesh = meshes["1d"]
+    dims = RFFT_BATCH[1:]
+    grid = GridMeta(dims)
+    cfg = {"mode": "insitu", "chain": [
+        {"endpoint": "fft", "array": "field", "direction": "forward",
+         "real": True, "batch_ndim": 1},
+        {"endpoint": "bandpass", "array": "field",
+         "keep_frac": RFFT_KEEP_FRAC, "use_kernel": False},
+        {"endpoint": "fft", "array": "field", "direction": "backward",
+         "real": True, "batch_ndim": 1}]}
+    fields = inputs["batch_fields"]
+    for step in (0, 1):
+        before = plan_cache_stats()
+        chain = build_chain(cfg, mesh=mesh, grid=grid)
+        spec = chain.endpoints[0].plan.schedule().in_spec
+        data = BridgeData(arrays={"field": D.shard(fields, mesh, spec)},
+                          grid=grid, spec=spec)
+        res = chain.execute(data)
+        den = D.unshard(res.arrays["field"], mesh, res.spec, dst=0)
+        if dist.get_rank() == 0:
+            out[f"batch_step{step}_field"] = den.numpy()
+            out[f"batch_step{step}_layout"] = np.array(res.layout)
+        seen = [None] * WORLD
+        dist.all_gather_object(seen, (
+            float(res.arrays["insitu_kept_energy"]),
+            float(res.arrays["insitu_total_energy"])))
+        out[f"batch_step{step}_energies"] = np.array(seen)
+        out[f"batch_step{step}_new_plans"] = np.array(
+            plan_cache_stats()["misses"] - before["misses"])
+    # the analysis endpoints across the ranks: global statistics of the
+    # field's blocks, and the spectrum of the transposed (complex) and
+    # transposed-half (real) spectra's blocks
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    dims = CHAINS["slab"][1]
+    for real in (False, True):
+        data = RadiatingSourceAdaptor(dims, mesh=mesh,
+                                      spec=("data", None)).produce(0)
+        chain = build_chain({"mode": "insitu", "chain": [
+            {"endpoint": "stats"},
+            {"endpoint": "fft", "direction": "forward", "real": real},
+            {"endpoint": "spectrum", "nbins": 16}]}, mesh=mesh,
+            grid=data.grid)
+        res = chain.execute(data)
+        seen = [None] * WORLD
+        dist.all_gather_object(seen, [
+            res.arrays[k].numpy().tolist() for k in
+            ("insitu_stats", "insitu_spectrum_k", "insitu_spectrum_e")])
+        out[f"analysis_real{int(real)}"] = np.array(seen, dtype=object)
+
+
+def job_wire(inputs, out, workdir):
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft import plan as P
+    meshes = _meshes()
+    rank = dist.get_rank()
+    # one exchange with each wire, as a one-stage schedule
+    for wire, s, c in WIRE_CASES:
+        key = "wire_" + wire_id(wire, s, c)
+        sched = _wire_schedule(wire, s, c, meshes["1d"])
+        x = D.shard(torch.from_numpy(inputs[key]), meshes["1d"],
+                    sched.in_spec)
+        (y,) = sched.stages[0].apply((x,), meshes["1d"])
+        got = D.unshard(y, meshes["1d"], sched.out_spec, dst=0)
+        if got is not None:
+            out["out_" + key] = got.numpy()
+    # the complex slab with each wire against the exact wire
+    mesh = meshes["1d"]
+    z = inputs["wire_slab"]
+    for wire in (None,) + SLAB_WIRES:
+        plan = P.plan_dft(WIRE_SLAB, "forward", mesh, decomp="slab",
+                          backend="pallas", wire_dtype=wire)
+        got = plan.unplace(*plan.execute(*plan.place(z)), dst=0)
+        if rank == 0:
+            out[f"slab_{wire}"] = (got[0] + 1j * got[1]).numpy()
+    plan = P.plan_dft(WIRE_SLAB, "forward", mesh, decomp="slab",
+                      backend="pallas", wire_dtype="int8")
+    try:
+        plan.execute(*plan.place(z))
+        out["slab_int8_refused"] = np.array("")
+    except ValueError as e:            # raised before any exchange
+        out["slab_int8_refused"] = np.array(str(e))
+    # measured planning: every rank caches the first rank's winner
+    P.plan_cache_clear()
+    mine = []
+    slab = P.plan_dft(MEASURE_SLAB, "forward", mesh, backend="measure")
+    mine.append(("slab", slab.backend, slab.overlap_chunks,
+                 slab.wire_dtype))
+    mesh2 = meshes["2d"]
+    cube = P.plan_dft(MEASURE_3D, "forward", mesh2, decomp="measure")
+    mine.append(("decomp", cube.decomp, cube.backend, cube.axis_names))
+    both = P.plan_dft(MEASURE_3D, "backward", mesh2, decomp="measure",
+                      backend="measure", real=True)
+    mine.append(("both", both.decomp, both.backend, both.overlap_chunks,
+                 both.wire_dtype))
+    y = cube.unplace(*cube.execute(*cube.place(inputs["measure_cube"])),
+                     dst=0)
+    if rank == 0:
+        out["measure_cube_out"] = (y[0] + 1j * y[1]).numpy()
+    one_host = P.plan_cache_stats()["wire_codec_candidates"]
+    # two named hosts: the "data" exchange of a pencil2d crosses them
+    hosted = dataclasses.replace(mesh2, hosts=MEASURE_HOSTS)
+    for tol in (1e-2, 1e-9):
+        p = P.plan_dft(MEASURE_HOSTED, "forward", hosted, decomp="pencil2d",
+                       backend="measure", wire_tol=tol)
+        mine.append(("hosted", tol, p.backend, p.overlap_chunks,
+                     p.wire_dtype))
+    stats = P.plan_cache_stats()
+    skips = [(sk.get("wire_dtype"), sk["error"], sk.get("max_rel_err"))
+             for sk in P.autotune_skips()
+             if sk.get("decomp") == "pencil2d"]
+    seen = [None] * WORLD
+    dist.all_gather_object(seen, mine)
+    if rank == 0:
+        out["measure_winners"] = np.array(seen, dtype=object)
+        out["measure_codec_candidates"] = np.array(
+            [one_host, stats["wire_codec_candidates"]])
+        out["measure_profile_candidates"] = np.array(
+            stats["wire_profile_candidates"])
+        out["measure_hosted_skips"] = np.array(skips, dtype=object)
+        out["measure_topology"] = np.array(
+            [t["crosses_hosts"] for t in P.plan_dft(
+                MEASURE_HOSTED, "forward", hosted,
+                decomp="pencil2d").topology()])
+
+
+def _wire_schedule(wire, s, c, mesh):
+    """One exchange with ``wire`` between the specs that make it a full
+    transform stage on the (4,) mesh."""
+    from repro_torch.core.fft import schedule as S
+    spec_in, spec_out = [None] * 3, [None] * 3
+    spec_in[c] = spec_out[s] = "data"
+    return S.Schedule("wire", 3, (S.AllToAll("data", s, c, mesh.shape["data"],
+                                             wire),),
+                      tuple(spec_in), tuple(spec_out), 1, 1)
+
+
 def _mini_schedule(key, mesh):
     """``sched_<mesh>_<kind>_...``: one exchange or one twiddle between
     the specs that make it a full transform stage."""
@@ -280,8 +491,8 @@ def main():
         inputs = dict(f)
     out = {}
     try:
-        {"distributed": job_distributed, "schedule": job_schedule}[job](
-            inputs, out, workdir)
+        {"distributed": job_distributed, "schedule": job_schedule,
+         "rfft": job_rfft, "wire": job_wire}[job](inputs, out, workdir)
         dist.barrier()
         if rank == 0:
             tmp = workdir / "outputs.tmp.npz"
