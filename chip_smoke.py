@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card, through its kernels.
 
-Three main paths (and the real, r2c/c2r, variants of the first two):
+Four main paths (and the real, r2c/c2r, variants of the first two):
   * the paper's Fig. 2 workflow: a noisy radiating source → forward FFT →
     bandpass → backward FFT → writer, built with ``build_chain`` on a
     one-device mesh with planned ``backend: "pallas"`` FFT endpoints, so
@@ -15,7 +15,10 @@ Three main paths (and the real, r2c/c2r, variants of the first two):
     width and depth (36 layers, float32, random weights from a seed),
     batch 4, a 2048-token prompt and 32 greedy tokens. Every prefill
     attention layer runs the hand-written flash-attention kernel; decode
-    attends to the KV cache with plain PyTorch, as the reference does.
+    attends to the KV cache with plain PyTorch, as the reference does;
+  * the pipelined in-situ chain (host tail on a worker behind CUDA
+    events), the FFT serving engine, and serving with the pipelined
+    logits monitor (phase 7).
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -106,6 +109,30 @@ Phases, each printing one JSON line:
      float64 oracle and torch.fft (last, so its Bluestein tables do not
      count in the earlier phases' peak memory); then the device memory
      before and after ``plan_cache_clear()``, which must free the tables;
+  7. pipelined_and_engine — the pipelined Fig. 2 chain with the writer
+     (``mode: "pipelined"``, depth 2) at complex 8192² and 10000² and
+     real 8192²: 8 fields after a warm-up, each bit-identical to the
+     insitu chain's on the same field and within 1e-4 of the float64
+     oracle (mse1/mse0 < 0.5), the files in step order, the launches a
+     field equal to an insitu step's, per-field wall ms and what the
+     producer pays (``execute`` ms) beside insitu's, the pipeline's
+     wait, backpressure, overlap efficiency, queue depth and peak
+     memory; a steady-state ``execute`` queued behind a 50 ms spin kernel
+     must return while the spin still runs (the producer never waits on
+     the device). The four ranks (4b) also run the chain pipelined on the
+     (4,) slab at 8192², 4 fields against depth 2, each bit-identical to
+     insitu, the files on rank 0 in step order. The FFT serving engine
+     on a CUDA host mesh: 96 requests from 4 client threads over
+     (2048, 2048), (1000, 1000) and (128, 4096), each cycling c2c fft,
+     r2c fft and r2c bandpass (keep_frac 0.25), prewarmed, served one
+     request an execute and then batched (max_batch 8); every answer
+     against float64 (fft 5e-5 of max |X|, bandpass 1e-4); latency
+     percentiles, throughput, batched-execute ratio, queue depth, peak
+     memory; four-step and Stockham launches. Then ``serve.main`` with
+     ``--monitor-every 4 --monitor-batch 4`` on phase 5's parameters:
+     the same tokens as phase 5's run, 36 flash launches, 2 monitor
+     executes and files, the written statistics within 1e-5 of float64
+     statistics of the captured last-token logits;
 then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
@@ -251,6 +278,46 @@ RANK_REAL = (("slab", "(4,)", (8192, 8192)),
 # the complex slab with each wire, against the exact wire
 RANK_WIRES = ("bfloat16", "int8_block64")
 RANK_MEASURE = (256, 256, 256)
+# the pipelined chain (phase 7): the Fig. 2 chain with a writer at each
+# (grid, real) below, PIPE_FIELDS fields after a warm-up against a queue
+# of PIPE_DEPTH, beside the insitu chain on the same fields; the spin the
+# producer's steady-state execute must not wait behind
+PIPE_CHAINS = (((8192, 8192), False), ((8192, 8192), True),
+               ((10000, 10000), False))
+PIPE_FIELDS = 8
+PIPE_DEPTH = 2
+PIPE_SPIN_S = 0.05
+# threads making the fields (numpy releases the GIL in its array work;
+# one 10000^2 field takes ~10 s alone and ~4 GB of float64 temporaries)
+PIPE_PRODUCERS = 4
+# four-step and bandpass launches a field of the complex 8192^2 chain: 2
+# row and 4 column passes, one bandpass
+PIPE_8192_LAUNCHES = {"fft_fourstep": 6, "bandpass_filter": 1}
+# the pipelined chain on four ranks: the (4,) slab at RANK_CHAIN_DIMS
+RANK_PIPE_FIELDS = 4
+# the FFT serving engine's trace (the reference's bench_serve_fft shape,
+# benchmarks/run.py): ENGINE_REQUESTS requests from ENGINE_CLIENTS client
+# threads, request k on shape k % 3 and op (k // 3) % 3
+ENGINE_SHAPES = ((2048, 2048), (1000, 1000), (128, 4096))
+ENGINE_OPS = ({"op": "fft"}, {"op": "fft", "real": True},
+              {"op": "bandpass", "real": True, "keep_frac": 0.25})
+ENGINE_REQUESTS = 96
+ENGINE_CLIENTS = 4
+ENGINE_TIMEOUT_S = 300
+# engine answers against float64 (torch.fft in complex128): an fft answer
+# relative to max |X| at the kernels' bar, a bandpass answer (a forward
+# and a backward transform) relative to max |field| at the field bar
+ENGINE_FFT_TOL = 5e-5
+ENGINE_BANDPASS_TOL = 1e-4
+# the monitored serve: a snapshot every MONITOR_EVERY decode steps,
+# MONITOR_BATCH snapshots a chain execute; the written statistics against
+# float64 statistics of the captured logits, relative to the largest
+MONITOR_EVERY = 4
+MONITOR_BATCH = 4
+MONITOR_TOL = 1e-5
+# decode ms/token without and with the monitor, in turns after the checked
+# monitored run (decode is host-paced: compare only within one call)
+MONITOR_TURNS = (False, True, True, False)
 
 
 def emit(obj) -> None:
@@ -861,7 +928,8 @@ def profile_serve(cfg, params, tokens):
 
 def serve_path(counters):
     """The serving main path at full qwen3-4b width and depth; returns
-    its flash launch count."""
+    its flash launch count, its report, the config and the seeded
+    parameters (phase 7's monitored serve runs on them)."""
     import numpy as np
     import torch
     from repro_torch.configs import registry
@@ -959,7 +1027,7 @@ def serve_path(counters):
     profile_serve(cfg, params, tokens[:, :-1])
     emit({"phase": "profile_serve_seconds",
           "seconds": time.perf_counter() - t0})
-    return launches["flash_attention"]
+    return launches["flash_attention"], report, cfg, params
 
 
 def layout_oracle(z, decomp, p0, inverse):
@@ -1270,6 +1338,7 @@ def rank_worker(rank, world, store):
         assert len(files) == (1 if rank == 0 else 0), r
         assert launches["fft_fourstep"] and launches["bandpass_filter"], r
         del got, noisy, clean, want, data, res
+    pipelined_ranks(rank, meshes["(4,)"], counters, record, store)
 
     # 3-D and 1-D decompositions: forward, then back
     gen = torch.Generator(device=dev)
@@ -1862,6 +1931,441 @@ def endcap_times():
     return out
 
 
+def pipelined_ranks(rank, mesh, counters, record, store):
+    """The pipelined chain on the four ranks (a part of ``rank_worker``):
+    the Fig. 2 chain with a writer on the (4,) slab at RANK_CHAIN_DIMS,
+    RANK_PIPE_FIELDS fields against a queue of PIPE_DEPTH, each field
+    bit-identical to the insitu chain's on the same ranks, the files on
+    rank 0 only, in step order. The writer gathers on the chain's own
+    process group from the pipeline worker while the producer runs the
+    next field's exchanges."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft.plan import FORWARD, plan_dft
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    from repro_torch.core.insitu.config import build_chain
+    dims = RANK_CHAIN_DIMS
+    spec = plan_dft(dims, FORWARD, mesh, decomp="slab").schedule().in_spec
+    src = RadiatingSourceAdaptor(dims, mesh=mesh, spec=spec)
+    fields = [src.produce(s) for s in range(1, RANK_PIPE_FIELDS + 1)]
+
+    def chain_for(mode):
+        return build_chain({"mode": mode, "pipeline_depth": PIPE_DEPTH,
+                            "chain": [
+            {"endpoint": "fft", "direction": "forward", "backend": "pallas",
+             "decomp": "slab"},
+            {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
+            {"endpoint": "fft", "direction": "backward", "backend": "pallas",
+             "decomp": "slab"},
+            {"endpoint": "writer",
+             "out_dir": str(Path(store).parent / f"pipe_{mode}")},
+        ]}, mesh=mesh, grid=src.grid)
+
+    insitu = chain_for("insitu")
+    dist.barrier()
+    t0 = time.perf_counter()
+    want = [insitu.execute(f).arrays["field"] for f in fields]
+    insitu_wall = time.perf_counter() - t0
+    insitu.finalize()
+    piped = chain_for("pipelined")
+    zero_counts(counters)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [piped.execute(f) for f in fields]
+    piped.drain(timeout=RANK_TIMEOUT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    pipe = piped.marshaling_report()["pipeline"]
+    files = [Path(f).name for f in piped.finalize()["writer"]["files"]]
+    same = all(torch.equal(o.arrays["field"], w)
+               for o, w in zip(outs, want))
+    r = record(check="pipelined_chain", decomp="slab", mesh="(4,)",
+               dims=list(dims), fields=RANK_PIPE_FIELDS, depth=PIPE_DEPTH,
+               wall_s=wall, insitu_wall_s=insitu_wall, launches=launches,
+               bit_identical_to_insitu=same, files=files,
+               queue_depth_max=pipe["queue_depth_max"],
+               wait_s=pipe["wait_s"], backpressure_s=pipe["backpressure_s"],
+               host_busy_s=pipe["host_busy_s"], dropped=pipe["dropped"],
+               error=pipe["error"])
+    assert same and pipe["error"] is None, r
+    expect = [f"field_{s:06d}.npy" for s in range(1, RANK_PIPE_FIELDS + 1)]
+    assert files == (expect if rank == 0 else []), r
+    assert launches["fft_fourstep"] and launches["bandpass_filter"], r
+    del outs, want, fields
+
+
+def pipelined_chain(mesh, counters, dims, real, fields, out_dir):
+    """One (grid, real) of the pipelined chain on the card: the insitu
+    chain over ``fields[1:]`` (after ``fields[0]`` as its warm-up), then
+    the pipelined chain over the same fields (after a warm-up of three
+    executes of ``fields[0]``: the first field, the device-probe wait,
+    and a steady-state execute queued behind a spin kernel, which must
+    return while the spin still runs). Each pipelined field is held
+    bit-identical to the insitu field and against the float64 oracle
+    (torch.fft in complex128 on the card); the files must come in step
+    order; each field launches what an insitu step launches."""
+    import torch
+    from repro_torch.core.fft.filters import lowpass_mask
+    from repro_torch.core.insitu.config import build_chain
+    warm, fields = fields[0], fields[1:]
+
+    def chain_for(mode):
+        cfg = chain_config(mode, real, out_dir / mode)
+        cfg["pipeline_depth"] = PIPE_DEPTH
+        return build_chain(cfg, mesh=mesh, grid=warm.grid)
+
+    def drop_warmup(chain):
+        writer = chain.endpoints[-1]
+        for f in writer.written:
+            Path(f).unlink(missing_ok=True)
+        writer.written.clear()
+
+    def run(chain):
+        """The timed fields: per-field host ms of ``execute`` (what the
+        producer pays), the wall to the last host effect, launches and
+        the run's own peak memory."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        outs, ms = [], []
+        t0 = time.perf_counter()
+        for f in fields:
+            t1 = time.perf_counter()
+            outs.append(chain.execute(f))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        chain.drain(timeout=ENGINE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"outs": outs, "execute_ms": ms,
+                "wall_ms_per_field": wall * 1e3 / len(fields),
+                "launches": launch_counts(counters),
+                "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+    insitu = chain_for("insitu")
+    insitu.execute(warm)
+    drop_warmup(insitu)
+    ins = run(insitu)
+    insitu_files = insitu.finalize()["writer"]["files"]
+
+    piped = chain_for("pipelined")
+    piped.execute(warm)           # first field: masks, plans, allocations
+    piped.execute(warm)           # the device-probe wait
+    piped.drain(timeout=ENGINE_TIMEOUT_S)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * PIPE_SPIN_S))
+    spin = torch.cuda.Event()
+    spin.record()
+    t1 = time.perf_counter()
+    piped.execute(warm)
+    spin_execute_ms = (time.perf_counter() - t1) * 1e3
+    returned_before_spin = not spin.query()
+    piped.drain(timeout=ENGINE_TIMEOUT_S)
+    drop_warmup(piped)
+    piped.reset_stats()
+    pip = run(piped)
+    pipe = piped.marshaling_report()["pipeline"]
+    files = [Path(f).name for f in piped.finalize()["writer"]["files"]]
+
+    same = all(torch.equal(a.arrays["field"], b.arrays["field"])
+               for a, b in zip(pip["outs"], ins["outs"]))
+    mask = lowpass_mask(dims, KEEP_FRAC).to("cuda", torch.float64)
+    errs, ratios = [], []
+    for f, out in zip(fields, pip["outs"]):
+        noisy = f.arrays["field"].double()
+        clean = f.arrays["clean_reference"].double()
+        want = torch.fft.ifft2(torch.fft.fft2(noisy) * mask).real
+        got = out.arrays["field"].double()
+        errs.append(float((got - want).abs().max()))
+        ratios.append(float(((got - clean) ** 2).mean()
+                            / ((noisy - clean) ** 2).mean()))
+        del noisy, clean, want, got
+    steps = [f.step for f in fields]
+    res = {"phase": "pipelined_chain", "dims": list(dims), "real": real,
+           "fields": len(fields), "depth": PIPE_DEPTH,
+           "bit_identical_to_insitu": same,
+           "field_max_abs_err_vs_f64": max(errs), "field_tol": FIELD_TOL,
+           "mse1_over_mse0_max": max(ratios),
+           "files": files,
+           "insitu_wall_ms_per_field": ins["wall_ms_per_field"],
+           "pipelined_wall_ms_per_field": pip["wall_ms_per_field"],
+           "insitu_execute_ms": ins["execute_ms"],
+           "pipelined_dispatch_ms": pip["execute_ms"],
+           "pipelined_dispatch_ms_median": statistics.median(
+               pip["execute_ms"]),
+           "insitu_execute_ms_median": statistics.median(ins["execute_ms"]),
+           "wait_s": pipe["wait_s"],
+           "backpressure_s": pipe["backpressure_s"],
+           "host_busy_s": pipe["host_busy_s"],
+           "device_probe_s": pipe["device_probe_s"],
+           "overlap_efficiency": pipe["overlap_efficiency"],
+           "queue_depth_max": pipe["queue_depth_max"],
+           "insitu_peak_bytes": ins["peak_bytes"],
+           "pipelined_peak_bytes": pip["peak_bytes"],
+           "insitu_launches": ins["launches"],
+           "pipelined_launches": pip["launches"],
+           "spin_ms": PIPE_SPIN_S * 1e3,
+           "execute_ms_behind_spin": spin_execute_ms,
+           "returned_while_spin_pending": returned_before_spin}
+    emit(res)
+    assert same, res
+    assert max(errs) < FIELD_TOL and max(ratios) < 0.5, res
+    assert files == [f"field_{s:06d}.npy" for s in steps], res
+    assert [Path(f).name for f in insitu_files] == files, res
+    assert pip["launches"] == ins["launches"], res
+    if (dims, real) == ((8192, 8192), False):
+        for k, n in PIPE_8192_LAUNCHES.items():
+            assert pip["launches"][k] == n * len(fields), res
+    assert returned_before_spin, res
+    assert pipe["error"] is None and pipe["completed"] == len(fields), res
+    del pip, ins
+    return res
+
+
+def pipelined_chains(mesh, counters, out_dir):
+    """Phase 7a: every PIPE_CHAINS configuration, fields made once per
+    grid (the warm-up at step 0, then steps 1..PIPE_FIELDS, on
+    PIPE_PRODUCERS threads) and shared by the complex and the real
+    chain."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    out, made = [], {}
+    try:
+        for dims, real in PIPE_CHAINS:
+            if dims not in made:
+                made.clear()
+                t0 = time.perf_counter()
+                src = RadiatingSourceAdaptor(dims, mesh=mesh)
+                with ThreadPoolExecutor(PIPE_PRODUCERS) as pool:
+                    made[dims] = list(pool.map(src.produce,
+                                               range(PIPE_FIELDS + 1)))
+                emit({"phase": "pipelined_fields", "dims": list(dims),
+                      "seconds": time.perf_counter() - t0})
+            out.append(pipelined_chain(mesh, counters, dims, real,
+                                       made[dims], out_dir))
+            shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def engine_trace(counters):
+    """Phase 7b: the FFT serving engine on a one-rank CUDA mesh, the
+    reference's serving harness at full size: the trace served
+    prewarmed, one request an execute (max_batch=1), then continuously
+    batched (max_batch=8) from ENGINE_CLIENTS client threads; every
+    answer against float64."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core.fft.filters import lowpass_mask
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.fft_engine import FFTServeEngine
+    mesh = make_host_mesh()
+    rng = np.random.default_rng(0)
+    traffic = []
+    for k in range(ENGINE_REQUESTS):
+        shape = ENGINE_SHAPES[k % len(ENGINE_SHAPES)]
+        kw = ENGINE_OPS[(k // len(ENGINE_SHAPES)) % len(ENGINE_OPS)]
+        x = rng.standard_normal(shape).astype(np.float32)
+        traffic.append((x if kw.get("real") else x.astype(np.complex64),
+                        kw))
+    signatures = {}
+    for payload, kw in traffic:
+        signatures.setdefault((payload.shape, payload.dtype.str,
+                               tuple(sorted(kw.items()))),
+                              {"shape": payload.shape, **kw})
+
+    def replay(max_batch, threaded):
+        eng = FFTServeEngine(mesh, max_batch=max_batch,
+                             max_pending=ENGINE_REQUESTS, linger_s=0.002)
+        prewarm = eng.prewarm(list(signatures.values()))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        futs = [None] * len(traffic)
+        t0 = time.perf_counter()
+        if threaded:
+            per = -(-len(traffic) // ENGINE_CLIENTS)
+
+            def client(lo):
+                for i in range(lo, min(lo + per, len(traffic))):
+                    payload, kw = traffic[i]
+                    futs[i] = eng.submit(payload, **kw)
+
+            ts = [threading.Thread(target=client, args=(i * per,),
+                                   daemon=True)
+                  for i in range(ENGINE_CLIENTS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=ENGINE_TIMEOUT_S)
+                assert not t.is_alive(), "a client thread hung"
+            eng.start()
+            eng.drain(timeout=ENGINE_TIMEOUT_S)
+        else:
+            for i, (payload, kw) in enumerate(traffic):
+                futs[i] = eng.submit(payload, **kw)
+                eng.step(force=True)
+            eng.drain(timeout=ENGINE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        rep = eng.report()
+        launches = launch_counts(counters)
+        peak = torch.cuda.max_memory_allocated() - base
+        eng.stop()
+        answers = [f.result(timeout=ENGINE_TIMEOUT_S) for f in futs]
+        return {"max_batch": max_batch, "threaded": threaded,
+                "wall_s": wall, "throughput_rps": len(traffic) / wall,
+                "latency_ms": rep["latency_ms"],
+                "executes": rep["batching"]["executes"],
+                "batched_execute_ratio":
+                    rep["batching"]["batched_execute_ratio"],
+                "padded_rows": rep["batching"]["padded_rows"],
+                "queue_depth_max": rep["queue"]["depth_max"],
+                "completion_wait_s": rep["queue"]["completion"]["wait_s"],
+                "peak_bytes": peak, "launches": launches,
+                "prewarm": {k: prewarm[k] for k in ("requests", "wall_s",
+                                                    "errors")},
+                "failed": rep["requests"]["failed"]}, answers
+
+    def errors(answers):
+        """Largest error of each op's answers against float64."""
+        worst = {}
+        for (payload, kw), got in zip(traffic, answers):
+            x = torch.from_numpy(payload).to("cuda", torch.complex128)
+            if kw["op"] == "fft":
+                want = (torch.fft.rfftn(x.real) if kw.get("real")
+                        else torch.fft.fftn(x))
+                name = "r2c_fft" if kw.get("real") else "c2c_fft"
+            else:
+                m = lowpass_mask(payload.shape, kw["keep_frac"]).to(
+                    "cuda", torch.float64)
+                want = torch.fft.ifftn(torch.fft.fftn(x) * m).real
+                name = "r2c_bandpass"
+            g = torch.from_numpy(np.asarray(got)).to("cuda")
+            assert tuple(g.shape) == tuple(want.shape), (name, g.shape)
+            err = float((g.to(want.dtype) - want).abs().max()
+                        / want.abs().max())
+            worst[name] = max(worst.get(name, 0.0), err)
+        return worst
+
+    sequential, seq_answers = replay(1, False)
+    sequential["max_rel_err"] = errors(seq_answers)
+    del seq_answers
+    batched, answers = replay(8, True)
+    batched["max_rel_err"] = errors(answers)
+    del answers
+    res = {"phase": "fft_engine", "requests": ENGINE_REQUESTS,
+           "clients": ENGINE_CLIENTS,
+           "shapes": [list(s) for s in ENGINE_SHAPES],
+           "ops": list(ENGINE_OPS), "sequential": sequential,
+           "batched": batched,
+           "batched_beats_sequential": batched["wall_s"]
+           < sequential["wall_s"],
+           "tol": {"fft": ENGINE_FFT_TOL, "bandpass": ENGINE_BANDPASS_TOL}}
+    emit(res)
+    for run in (sequential, batched):
+        assert run["failed"] == 0 and not run["prewarm"]["errors"], run
+        for name, err in run["max_rel_err"].items():
+            tol = ENGINE_BANDPASS_TOL if "bandpass" in name \
+                else ENGINE_FFT_TOL
+            assert err < tol, (name, err, run)
+    assert batched["executes"] < ENGINE_REQUESTS, batched
+    assert batched["launches"]["fft_fourstep"] > 0, batched
+    assert batched["launches"]["fft_stockham"] > 0, batched
+    return res
+
+
+def monitored_serve(cfg, params, unmonitored, counters, out_dir):
+    """Phase 7c: ``serve.main`` with the pipelined logits monitor on
+    qwen3-4b at full width and depth, on ``serve_path``'s parameters:
+    the same tokens as the unmonitored run, one flash launch a layer,
+    the monitor's executes and files, and the written statistics against
+    float64 statistics of the last-token logits the decode loop handed
+    the engine (captured at ``FFTServeEngine.submit``)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serve import fft_engine
+    captured = []
+    submit = fft_engine.FFTServeEngine.submit
+
+    def capture(self, payload, **kw):
+        if kw.get("bucket") == "monitor":
+            captured.append(payload)
+        return submit(self, payload, **kw)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    zero_counts(counters)
+    fft_engine.FFTServeEngine.submit = capture
+    try:
+        report = serve.main([
+            "--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--tokens",
+            str(SERVE_TOKENS), "--seed", "0", "--bench-out", "",
+            "--monitor-every", str(MONITOR_EVERY), "--monitor-batch",
+            str(MONITOR_BATCH), "--monitor-dir", str(out_dir)],
+            params=params)
+    finally:
+        fft_engine.FFTServeEngine.submit = submit
+    launches = {k: fn.launches for k, fn in counters.items()}
+    files = sorted(out_dir.glob("logit_stats_*.npy"))
+    turns = []
+    errs = []
+    for k, path in enumerate(files):
+        x = torch.stack(captured[k * MONITOR_BATCH:(k + 1) * MONITOR_BATCH]
+                        ).double()
+        want = torch.stack([x.min(), x.max(), x.mean(),
+                            x.std(correction=0),
+                            torch.sqrt((x * x).mean())]).cpu().numpy()
+        got = np.load(path).astype(np.float64)
+        errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for monitor in MONITOR_TURNS:
+        flags = (["--monitor-every", str(MONITOR_EVERY), "--monitor-batch",
+                  str(MONITOR_BATCH), "--monitor-dir", str(out_dir)]
+                 if monitor else [])
+        r = serve.main([
+            "--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--tokens",
+            str(SERVE_TOKENS), "--seed", "0", "--bench-out", "", *flags],
+            params=params)
+        turns.append({"monitor": monitor, "sample": r["sample"],
+                      "decode_ms_per_token": r["decode_ms_per_token"]})
+        shutil.rmtree(out_dir, ignore_errors=True)
+    mon = report["monitor"]
+    res = {"phase": "monitored_serve", "arch": SERVE_ARCH,
+           "monitor_every": MONITOR_EVERY, "monitor_batch": MONITOR_BATCH,
+           "sample": report["sample"],
+           "unmonitored_sample": unmonitored["sample"],
+           "decode_ms_per_token": report["decode_ms_per_token"],
+           "unmonitored_decode_ms_per_token":
+               unmonitored["decode_ms_per_token"],
+           "prefill_ms": report["prefill_ms"],
+           "turns": turns,
+           "turns_median_decode_ms_per_token": {
+               k: statistics.median(t["decode_ms_per_token"] for t in turns
+                                    if t["monitor"] == m)
+               for k, m in (("unmonitored", False), ("monitored", True))},
+           "launches": launches, "snapshots_captured": len(captured),
+           "files": len(files), "stats_rel_err": errs,
+           "stats_tol": MONITOR_TOL, "monitor": mon}
+    emit(res)
+    assert report["sample"] == unmonitored["sample"], res
+    assert all(t["sample"] == unmonitored["sample"] for t in turns), res
+    assert launches["flash_attention"] == cfg.num_layers, res
+    snapshots = -(-SERVE_TOKENS // MONITOR_EVERY)
+    assert mon["snapshots"] == snapshots == len(captured), res
+    assert mon["submits"] == len(files) == \
+        -(-snapshots // MONITOR_BATCH) == mon["files"], res
+    assert errs and max(errs) < MONITOR_TOL, res
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2095,10 +2599,12 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # 5. serve main path
-    flash_launches = serve_path({"fft_fourstep": ops.fft_fourstep,
-                                 "fft_stockham": ops.fft_stockham,
-                                 "bandpass_filter": ops.bandpass_filter,
-                                 "flash_attention": flash_attention})
+    all_counters = {"fft_fourstep": ops.fft_fourstep,
+                    "fft_stockham": ops.fft_stockham,
+                    "bandpass_filter": ops.bandpass_filter,
+                    "flash_attention": flash_attention}
+    flash_launches, serve_report, serve_cfg, params = serve_path(
+        all_counters)
 
     # 6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as
     # four mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26, four
@@ -2126,12 +2632,52 @@ def main() -> int:
     assert 0 < tables <= fourstep_mod.CHIRP_CACHE_BYTES, tables
     assert before - after >= tables, (before, after, tables)
 
+    # 7. pipelined_and_engine: the pipelined chain on one card (its four
+    # ranks ran in 4b, beside the other four-rank checks), the FFT
+    # serving engine's trace, and the monitored serve on phase 5's
+    # parameters
+    t0 = time.perf_counter()
+    pipelined = pipelined_chains(mesh, fft_counters,
+                                 ROOT / "build" / "chip_smoke_pipe")
+    engine = engine_trace(fft_counters)
+    monitored = monitored_serve(serve_cfg, params, serve_report,
+                                all_counters,
+                                ROOT / "build" / "chip_smoke_monitor")
+    del params
+    rank_pipe = [c for c in ranks[0]["checks"]
+                 if c["check"] == "pipelined_chain"]
+    emit({"phase": "pipelined_and_engine",
+          "seconds": time.perf_counter() - t0,
+          "chains": [{k: r[k] for k in (
+              "dims", "real", "insitu_wall_ms_per_field",
+              "pipelined_wall_ms_per_field", "insitu_execute_ms_median",
+              "pipelined_dispatch_ms_median", "wait_s", "backpressure_s",
+              "overlap_efficiency", "queue_depth_max", "insitu_peak_bytes",
+              "pipelined_peak_bytes", "execute_ms_behind_spin")}
+              for r in pipelined],
+          "four_ranks_rank0": rank_pipe,
+          "engine": {k: {m: engine[k][m] for m in (
+              "latency_ms", "throughput_rps", "batched_execute_ratio",
+              "queue_depth_max", "peak_bytes", "executes")}
+              for k in ("sequential", "batched")},
+          "batched_beats_sequential": engine["batched_beats_sequential"],
+          "monitored_decode_ms_per_token":
+              monitored["decode_ms_per_token"],
+          "unmonitored_decode_ms_per_token":
+              monitored["unmonitored_decode_ms_per_token"],
+          "decode_ms_per_token_in_turns":
+              monitored["turns_median_decode_ms_per_token"],
+          "monitor": monitored["monitor"]})
+
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[dims][name],
                "launches_from": f"{dims[0]}x{dims[1]} main path, insitu + "
-                                f"intransit",
+                                f"intransit; pipelined_launches: the "
+                                f"pipelined chain ({PIPE_FIELDS} fields a "
+                                f"grid); engine_launches: the FFT serving "
+                                f"engine's trace",
                "shape": main["shape"],
                "max_abs_err": main["max_abs_err"],
                "max_rel_err": main["max_rel_err"],
@@ -2211,6 +2757,22 @@ def main() -> int:
                                            r["inverse_rel_err_vs_f64"])}
                 for r in real_checks if r["kernel"] == name]
 
+    def phase7_launches(name):
+        """A kernel's launches on phase 7: each pipelined chain's fields
+        (and the insitu run of the same fields), rank 0's four-rank
+        pipelined chain, and the engine's two passes."""
+        return {
+            "pipelined_launches": {
+                f"{r['dims'][0]}x{r['dims'][1]}"
+                f"{' real' if r['real'] else ''}":
+                {"pipelined": r["pipelined_launches"][name],
+                 "insitu": r["insitu_launches"][name]}
+                for r in pipelined},
+            "four_ranks_pipelined_rank0": [c["launches"][name]
+                                           for c in rank_pipe],
+            "engine_launches": {k: engine[k]["launches"][name]
+                                for k in ("sequential", "batched")}}
+
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -2224,6 +2786,7 @@ def main() -> int:
              distributed_shapes=shape_checks("fft_fourstep"),
              real_launches=real_path_launches("fft_fourstep"),
              real_shapes=real_shape_checks("fft_fourstep"),
+             **phase7_launches("fft_fourstep"),
              half_width_columns=[
                  {"shape": r["shape"], "axis": -2,
                   "route": r["column_route"], "lines": r["lines"],
@@ -2244,19 +2807,24 @@ def main() -> int:
              distributed_launches=dist_launches("fft_stockham"),
              distributed_shapes=shape_checks("fft_stockham"),
              real_launches=real_path_launches("fft_stockham"),
-             real_shapes=real_shape_checks("fft_stockham")),
+             real_shapes=real_shape_checks("fft_stockham"),
+             **phase7_launches("fft_stockham")),
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
              distributed_launches=dist_launches("bandpass_filter"),
-             real_launches=real_path_launches("bandpass_filter")),
+             real_launches=real_path_launches("bandpass_filter"),
+             **phase7_launches("bandpass_filter")),
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",
          "launches": flash_launches,
          "launches_from": f"{SERVE_ARCH} serve main path (one "
                           f"{SERVE_PROMPT}-token prefill, {SERVE_TOKENS} "
-                          f"decode steps)",
+                          f"decode steps); monitored_serve_launches: the "
+                          f"same serve with the pipelined logits monitor",
+         "monitored_serve_launches": monitored["launches"][
+             "flash_attention"],
          "shape": flash[0]["shape"], "dtype": flash[0]["dtype"],
          "max_abs_err": flash[0]["max_abs_err"],
          "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],

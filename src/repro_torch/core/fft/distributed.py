@@ -122,14 +122,16 @@ def shard(x, mesh: Mesh, spec: Sequence) -> torch.Tensor:
 
 
 def unshard(local: torch.Tensor, mesh: Mesh, spec: Sequence, *,
-            dst=None):
+            dst=None, group=None):
     """The global array from every rank's block (collective): on every
-    rank, or with ``dst`` only on that rank (None elsewhere)."""
+    rank, or with ``dst`` only on that rank (None elsewhere). ``group``
+    is a process group over the mesh's ranks in rank order (default: the
+    world's); the pipelined chain's host tail gathers on its own."""
     if mesh.size == 1:
         return local
     local = local.contiguous()
     blocks = [torch.empty_like(local) for _ in range(mesh.size)]
-    dist.all_gather(blocks, local)
+    dist.all_gather(blocks, local, group=group)
     if dst is not None and dist.get_rank() != dst:
         return None
     lead = local.dim() - len(spec)

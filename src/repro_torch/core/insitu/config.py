@@ -12,6 +12,8 @@ A chain is a JSON-able dict, the same dict that drives the reference:
          "backend": "pallas"},
         {"endpoint": "writer"}]}
 
+``"mode": "pipelined"`` takes ``pipeline_depth``, ``pipeline_workers``
+and ``donate_buffers`` beside it, as in the reference (``chain.py``).
 ``backend: "pallas"`` selects the hand-written CUDA kernels, as it
 selects the Pallas kernels in the reference. ``build_chain(cfg, mesh,
 grid)`` instantiates the registered endpoints and initializes them
@@ -66,6 +68,10 @@ def build_chain(cfg: Union[Dict[str, Any], str, Path], mesh=None,
             raise KeyError(f"unknown endpoint {kind!r}; "
                            f"known: {sorted(ENDPOINTS)}")
         eps.append(ENDPOINTS[kind](**spec))
-    chain = InSituChain(eps, mesh=mesh, mode=cfg.get("mode", "insitu"))
+    chain = InSituChain(
+        eps, mesh=mesh, mode=cfg.get("mode", "insitu"),
+        pipeline_depth=cfg.get("pipeline_depth", 2),
+        pipeline_workers=cfg.get("pipeline_workers", 1),
+        donate_buffers=cfg.get("donate_buffers", False))
     chain.initialize(grid)
     return chain

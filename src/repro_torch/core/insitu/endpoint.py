@@ -3,9 +3,19 @@
 
 Device endpoints (``host = False``) run on the device tensors of the
 payload; host endpoints (writers, visualization) set ``host = True`` and
-run on materialized outputs after the device stages. The pipelined
-mode's declarations (``thread_safe``, ``ordered``) come with it, ROADMAP
-queue 1 item 11.
+run on materialized outputs after the device stages.
+
+Pipelined mode (``InSituChain(mode="pipelined")``, see ``pipeline.py``)
+additionally runs host endpoints on a background worker so they overlap
+the next field's device stages. Endpoints declare what that worker may
+assume about them:
+
+* ``thread_safe`` — ``execute`` may run concurrently with itself (from
+  several worker threads at once). Required for ``pipeline_workers > 1``.
+* ``ordered`` — ``execute`` must observe fields in submission (step)
+  order. Ordered endpoints force a single worker; only endpoints
+  declaring ``ordered = False`` *and* ``thread_safe = True`` may fan
+  out across multiple workers.
 """
 from __future__ import annotations
 
@@ -19,10 +29,14 @@ class Endpoint(abc.ABC):
     * ``name`` — registry/report key (``config.ENDPOINTS``,
       ``chain.marshaling_report()``).
     * ``host`` — True: runs on host data after the device stages.
+    * ``thread_safe`` / ``ordered`` — pipelined-mode declarations, see
+      the module docstring.
     """
 
     name: str = "endpoint"
     host: bool = False
+    thread_safe: bool = False     # execute() may run concurrently w/ itself
+    ordered: bool = True          # must see fields in submission order
 
     def __init__(self, **params):
         """Record the (JSON-able) config the endpoint was built from."""

@@ -4,7 +4,12 @@ of ``repro/core/insitu/endpoints/writer.py``).
 These terminate a chain the way the paper's matplotlib endpoint does
 (§2.3). ``host = True``: they run on materialized arrays after the
 device stages. The visualizer writes portable PGM (and a PNG when
-matplotlib is installed).
+matplotlib is installed). Both declare ``ordered = True``: in pipelined
+mode their file lists follow submission order, so the chain keeps them
+on one pipeline worker. Across ranks they gather to rank 0 on the
+payload's ``meta[pipeline.HOST_GROUP]`` process group when it names one
+(the pipelined chain's own group, so the worker's gathers never
+interleave with the producer's exchanges), else on the world's.
 """
 from __future__ import annotations
 
@@ -17,18 +22,20 @@ import torch
 from repro_torch.core.fft.distributed import unshard
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
+from repro_torch.core.insitu.pipeline import HOST_GROUP
 
 
 def _host(v) -> np.ndarray:
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
-def _gather(v, mesh, spec):
+def _gather(v, mesh, data: BridgeData):
     """The global array from this rank's block, on rank 0 (None on the
     others); ``v`` itself where nothing is placed."""
-    if mesh is None or spec is None:
+    if mesh is None or data.spec is None:
         return v
-    return unshard(v, mesh, spec, dst=0)
+    return unshard(v, mesh, data.spec, dst=0,
+                   group=data.meta.get(HOST_GROUP))
 
 
 class WriterEndpoint(Endpoint):
@@ -36,10 +43,12 @@ class WriterEndpoint(Endpoint):
     ``.npy`` file; ``finalize`` reports the files written, in step
     order. Across ranks the payload's blocks are gathered to rank 0,
     which writes the one global array the reference writes; the other
-    ranks write nothing."""
+    ranks write nothing. ``ordered = True``: in pipelined mode the file
+    list must follow submission order."""
 
     name = "writer"
     host = True
+    ordered = True
 
     def __init__(self, *, array: str = "field", out_dir: str = "results/insitu",
                  prefix: str = "field", every: int = 1):
@@ -63,7 +72,7 @@ class WriterEndpoint(Endpoint):
             return data
         v = data.arrays[self.array]
         v = v[0] if isinstance(v, tuple) else v
-        v = _gather(v, self.mesh, data.spec)
+        v = _gather(v, self.mesh, data)
         if v is None:                 # not rank 0
             return data
         arr = _host(v)
@@ -82,10 +91,12 @@ class WriterEndpoint(Endpoint):
 class VisualizeEndpoint(Endpoint):
     """Render one named array per step to portable PGM (plus PNG when
     matplotlib is available) — the paper's matplotlib endpoint role.
-    Across ranks rank 0 renders the gathered global array."""
+    Across ranks rank 0 renders the gathered global array. Ordered for
+    the same file-list reason as ``WriterEndpoint``."""
 
     name = "visualize"
     host = True
+    ordered = True
 
     def __init__(self, *, array: str = "field",
                  out_dir: str = "results/insitu", prefix: str = "viz",
@@ -107,7 +118,7 @@ class VisualizeEndpoint(Endpoint):
         """Render ``array`` (|z| for an (re, im) pair, mid-slice for 3-D
         fields, optional log scale) to ``<prefix>_<step>.pgm``."""
         v = data.arrays[self.array]
-        parts = [_gather(x, self.mesh, data.spec)
+        parts = [_gather(x, self.mesh, data)
                  for x in (v if isinstance(v, tuple) else (v,))]
         if parts[0] is None:          # not rank 0
             return data

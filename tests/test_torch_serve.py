@@ -1,8 +1,10 @@
 """The port's continuous-batching engine and serve entry point on CPU: the
 engine's tokens against the reference engine's on the same weights and
 prompts (those of ``tests/test_engine.py``), and against the port's own
-serial greedy decoding; slot reuse; the entry point's report; the flags that
-need modules not ported yet."""
+serial greedy decoding; slot reuse; the entry point's report; the pipelined
+logits monitor (``--monitor-every``) against the run without it and its
+chain against the reference's; the flags that need modules not ported
+yet."""
 import json
 
 import jax
@@ -108,10 +110,9 @@ def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
 
 
 # explicit ids: the ones these cases had while the list still held the
-# wisdom flag (flags3), now ported and tested below
+# monitor flag (flags0) and the wisdom flag (flags3), both now ported and
+# tested below
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--monitor-every", "2"], "items 11 and 15",
-                 id="flags0-items 11 and 15"),
     pytest.param(["--transit-consumers", "1"], "item 14",
                  id="flags1-item 14"),
     pytest.param(["--elastic"], "item 17", id="flags2-item 17"),
@@ -181,3 +182,83 @@ def test_loaders_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             kvcache.init_cache(1, 4, 1, 16)
+
+
+def test_serve_monitor_keeps_tokens_and_writes_stats(tmp_path):
+    """``--monitor-every 2 --monitor-batch 2``: the same tokens as the
+    run without the monitor, one stats file a chain execute, the
+    reference's ``monitor`` report keys and the submit row."""
+    base = ["--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--tokens", "8"]
+    plain = serve.main(base + ["--bench-out", ""])
+    out = tmp_path / "bench.json"
+    report = serve.main(base + [
+        "--bench-out", str(out), "--monitor-every", "2",
+        "--monitor-batch", "2", "--monitor-dir", str(tmp_path / "mon")])
+    assert report["sample"] == plain["sample"]
+    mon = report["monitor"]
+    assert {"submits", "snapshots", "snapshot_batch", "files",
+            "overlap_efficiency", "host_busy_ms", "backpressure_ms",
+            "engine"} <= set(mon)
+    assert set(mon["engine"]) == {"batched_execute_ratio", "submit_us_p50",
+                                  "submit_us_p99", "queue_depth_max"}
+    # decode steps 0, 2, 4, 6 -> 4 snapshots -> 2 executes of 2
+    assert (mon["snapshots"], mon["submits"], mon["files"],
+            mon["snapshot_batch"]) == (4, 2, 2, 2)
+    assert mon["engine"]["batched_execute_ratio"] == 0.5
+    files = sorted((tmp_path / "mon").glob("logit_stats_*.npy"))
+    assert [f.name for f in files] == ["logit_stats_000000.npy",
+                                       "logit_stats_000001.npy"]
+    for f in files:
+        stats = np.load(f)
+        assert stats.shape == (5,) and np.isfinite(stats).all()
+        lo, hi, mean, std, rms = stats
+        assert lo <= mean <= hi and std >= 0 and rms >= abs(mean)
+    rows = json.loads(out.read_text())["rows"]
+    assert set(rows) == {"serve_run_prefill", "serve_run_decode_token",
+                         "serve_run_monitor_submit"}
+    assert rows["serve_run_monitor_submit"]["derived"] == \
+        "submits=2 coalesced=4->2"
+
+
+def test_monitor_chain_matches_reference(tmp_path):
+    """The chain the port's ``_build_monitor`` builds and the chain the
+    reference's builds, fed the same numpy logits batch: the same
+    statistics and band energies (1e-5 of the largest), and the same
+    written file."""
+    import argparse
+
+    from repro.core.insitu.bridge import BridgeData as JaxBridgeData
+    from repro.launch.serve import _build_monitor as jax_build_monitor
+    from repro_torch.core.insitu.bridge import BridgeData
+    jcfg, cfg = (jregistry.get_reduced("qwen3-4b"),
+                 registry.get_reduced("qwen3-4b"))
+    jchain = jax_build_monitor(argparse.Namespace(
+        batch=2, monitor_batch=3, monitor_dir=str(tmp_path / "jax")), jcfg)
+    chain = serve._build_monitor(argparse.Namespace(
+        batch=2, monitor_batch=3, monitor_dir=str(tmp_path / "port")), cfg,
+        torch.device("cpu"))
+    assert chain.mode == "pipelined"
+    assert [ep.name for ep in chain.endpoints] == [
+        ep.name for ep in jchain.endpoints]
+    logits = (np.random.default_rng(4).standard_normal(
+        (3, 2, cfg.vocab_size)) * 3 + 0.5).astype(np.float32)
+    jout = jchain.execute(JaxBridgeData(
+        arrays={"field": jnp.asarray(logits)}, step=7,
+        meta={"primary": "field"}))
+    out = chain.execute(BridgeData(arrays={"field": torch.from_numpy(logits)},
+                                   step=7, meta={"primary": "field"}))
+    jchain.drain()
+    chain.drain(timeout=60)
+    for key in ("insitu_stats", "insitu_kept_energy", "insitu_total_energy"):
+        want = np.asarray(jout.arrays[key], np.float64)
+        got = out.arrays[key].double().numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), key
+    jfiles = jchain.finalize()["writer"]["files"]
+    files = chain.finalize()["writer"]["files"]
+    assert [f.rsplit("/", 1)[1] for f in files] == \
+        [f.rsplit("/", 1)[1] for f in jfiles] == ["logit_stats_000007.npy"]
+    want = np.load(jfiles[0]).astype(np.float64)
+    assert np.abs(np.load(files[0]) - want).max() <= \
+        1e-5 * np.abs(want).max()

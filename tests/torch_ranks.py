@@ -40,6 +40,12 @@ KEEP_FRAC = 0.05
 CYCLIC_CHAINS = {"pencil_tf": ("2d", (16, 8, 8)),
                  "fourstep1d": ("1d", (256,))}
 CYCLIC_KEEP_FRAC = 0.2
+# the pipelined chain across the ranks: the slab chain of CHAINS with a
+# writer, PIPE_FIELDS fields against a queue of PIPE_DEPTH (more fields
+# than the queue holds, so fields overlap), beside the insitu chain
+PIPE_DECOMP = "slab"
+PIPE_FIELDS = 4
+PIPE_DEPTH = 2
 # every (split, concat) pair of the builders' exchanges
 A2A_PAIRS = ((-1, -2), (-2, -1), (-2, -3), (-3, -2), (-3, -4), (-4, -3))
 A2A_LOCAL = (4, 8, 4, 8)
@@ -197,6 +203,7 @@ def job_distributed(inputs, out, workdir):
             float(res.arrays["insitu_kept_energy"]),
             float(res.arrays["insitu_total_energy"]), len(files)))
         out[f"chain_{decomp}_energies"] = np.array(seen)
+    _pipelined_chain(meshes, out, workdir)
     for decomp, (mkey, dims) in CYCLIC_CHAINS.items():
         mesh = meshes[mkey]
         spec = plan_dft(dims, "forward", mesh,
@@ -221,6 +228,57 @@ def job_distributed(inputs, out, workdir):
             float(res.arrays["insitu_kept_energy"]),
             float(res.arrays["insitu_total_energy"])))
         out[f"cychain_{decomp}_energies"] = np.array(seen)
+
+
+def _pipelined_chain(meshes, out, workdir):
+    """The pipelined Fig. 2 chain across the ranks: each field's output
+    against the insitu chain's on the same ranks (bit for bit), the
+    writer's files (rank 0 only, in step order) and the gathered fields
+    for the test to hold against the reference."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft.plan import plan_dft
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    from repro_torch.core.insitu.config import build_chain
+    mkey, dims = CHAINS[PIPE_DECOMP]
+    mesh = meshes[mkey]
+    spec = plan_dft(dims, "forward", mesh,
+                    decomp=PIPE_DECOMP).schedule().in_spec
+    src = RadiatingSourceAdaptor(dims, mesh=mesh, spec=spec)
+    fields = [src.produce(s) for s in range(PIPE_FIELDS)]
+
+    def chain(mode):
+        return build_chain({"mode": mode, "pipeline_depth": PIPE_DEPTH,
+                            "chain": [
+            {"endpoint": "fft", "direction": "forward", "backend": "pallas",
+             "decomp": PIPE_DECOMP},
+            {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
+            {"endpoint": "fft", "direction": "backward", "backend": "pallas",
+             "decomp": PIPE_DECOMP},
+            {"endpoint": "writer", "out_dir": str(workdir / f"pipe_{mode}")},
+        ]}, mesh=mesh, grid=src.grid)
+
+    insitu = chain("insitu")
+    want = [insitu.execute(f) for f in fields]
+    insitu.finalize()
+    piped = chain("pipelined")
+    outs = [piped.execute(f) for f in fields]
+    piped.drain(timeout=TIMEOUT_S / 2)
+    pipe = piped.marshaling_report()["pipeline"]
+    files = piped.finalize()["writer"]["files"]
+    same = all(torch.equal(o.arrays["field"], w.arrays["field"])
+               for o, w in zip(outs, want))
+    seen = [None] * WORLD
+    dist.all_gather_object(seen, (same, [Path(f).name for f in files],
+                                  pipe["completed"], pipe["dropped"],
+                                  pipe["queue_depth_max"]))
+    out["pipe_ranks"] = np.array(seen, dtype=object)
+    for k, o in enumerate(outs):
+        field = D.unshard(o.arrays["field"], mesh, o.spec, dst=0)
+        if field is not None:
+            out[f"pipe_field_{k}"] = field.numpy()
+            out[f"pipe_written_{k}"] = np.load(files[k])
 
 
 def job_schedule(inputs, out, workdir):
