@@ -18,7 +18,11 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
     attends to the KV cache with plain PyTorch, as the reference does;
   * the pipelined in-situ chain (host tail on a worker behind CUDA
     events), the FFT serving engine, and serving with the pipelined
-    logits monitor (phase 7).
+    logits monitor (phase 7);
+  * the M->N in-transit path (phase 8): producer and consumer meshes of
+    ranks sharing the card, brought up by ``runtime.cluster`` from the
+    REPRO_* env contract, the fields moved by ``TransitBridge``, and
+    ``serve --transit-consumers 1``.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -133,6 +137,25 @@ Phases, each printing one JSON line:
      the same tokens as phase 5's run, 36 flash launches, 2 monitor
      executes and files, the written statistics within 1e-5 of float64
      statistics of the captured last-token logits;
+  8. transit — this script started four times (``--job transit``) with
+     the REPRO_* env contract (``init_cluster``: gloo, the ranks share
+     cuda:0), ``make_transit_meshes(2, 2)``: the producers make seeded
+     radiating-source fields at 8192^2 on their (2,) mesh, 2 go by
+     ``TransitBridge.send`` and 4 by ``send_async`` (depth 2), and the
+     consumers run the Fig. 2 chain (keep_frac 0.05, insitu) on their
+     (2,) slab with the writer on the consumer mesh's first rank. Every
+     delivered block bit-identical (sha256) to the producer's block at
+     its position; the first field's denoised field within 1e-4 of
+     float64 and its energies within 1e-5; four-step and bandpass
+     launches on the consumers and none on the producers; the transit
+     report (fields, bytes, wall, the async block), each producer
+     ``send_async``'s ms against the hop's, peak memory by rank. Then
+     twice (``--job transit_serve``): ``serve.main --monitor-every 4
+     --monitor-batch 4 --transit-consumers 1`` on qwen3-4b at full width
+     and depth (rank 0 decodes on phase 5's seeded parameters, rank 1
+     runs the monitor): phase 5's tokens, the monitor's files on rank 1
+     only, prefill and decode ms beside phase 7's in-place monitored
+     serve, the transit block;
 then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
@@ -318,6 +341,19 @@ MONITOR_TOL = 1e-5
 # decode ms/token without and with the monitor, in turns after the checked
 # monitored run (decode is host-paced: compare only within one call)
 MONITOR_TURNS = (False, True, True, False)
+# phase 8, the M->N in-transit path: TRANSIT_WORLD ranks on the card,
+# started by the REPRO_* env contract; make_transit_meshes(*TRANSIT_SPLIT);
+# seeded radiating-source fields at TRANSIT_DIMS, the first
+# TRANSIT_SYNC_FIELDS by send, the next TRANSIT_ASYNC_FIELDS by send_async
+# at depth TRANSIT_DEPTH, the Fig. 2 chain on the consumers' (2,) slab
+TRANSIT_WORLD = 4
+TRANSIT_SPLIT = (2, 2)
+TRANSIT_DIMS = (8192, 8192)
+TRANSIT_SYNC_FIELDS = 2
+TRANSIT_ASYNC_FIELDS = 4
+TRANSIT_DEPTH = 2
+# the transit serve: phase 5's serve on two ranks, rank 1 the consumer
+TRANSIT_SERVE_WORLD = 2
 
 
 def emit(obj) -> None:
@@ -1205,26 +1241,27 @@ def distributed_one_rank(counters, gen, shapes: set):
     return out
 
 
-def distributed_ranks(out_dir):
-    """The distributed path on RANK_WORLD ranks sharing the one card:
-    this script started once per rank (``--rank``), gloo collectives over
-    CUDA tensors on cuda:0 (gloo stages them through host memory, so
-    the times are host-bound). Each rank prints one JSON line; any rank
-    failing fails the phase."""
+def spawn_ranks(job, world, out_dir, env=None, timeout=RANK_TIMEOUT_S):
+    """This script started once per rank (``--job JOB --rank R --world W
+    --store FILE``), every rank on cuda:0; ``env`` (rank -> extra
+    environment) gives each its own. Returns each rank's last JSON line
+    and the wall seconds; a rank that fails, or outlasts ``timeout``,
+    fails the phase (its stderr is printed)."""
     store = out_dir / "store"
     out_dir.mkdir(parents=True, exist_ok=True)
     if store.exists():
         store.unlink()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
-         "--world", str(RANK_WORLD), "--store", str(store)],
+        [sys.executable, str(Path(__file__).resolve()), "--job", job,
+         "--rank", str(r), "--world", str(world), "--store", str(store)],
+        env=dict(os.environ, **(env(r) if env else {})),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(RANK_WORLD)]
+        for r in range(world)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=RANK_TIMEOUT_S))
+            outs.append(p.communicate(timeout=timeout))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1235,9 +1272,18 @@ def distributed_ranks(out_dir):
     for r, (p, (so, se)) in enumerate(zip(procs, outs)):
         lines = [ln for ln in so.splitlines() if ln.startswith("{")]
         if p.returncode or not lines:
-            print(se[-4000:], file=sys.stderr)
-            raise AssertionError(f"rank {r} exited {p.returncode}")
+            print(so[-4000:] + se[-4000:], file=sys.stderr)
+            raise AssertionError(f"{job} rank {r} exited {p.returncode}")
         results.append(json.loads(lines[-1]))
+    return results, wall
+
+
+def distributed_ranks(out_dir):
+    """The distributed path on RANK_WORLD ranks sharing the one card:
+    gloo collectives over CUDA tensors on cuda:0 (gloo stages them
+    through host memory, so the times are host-bound). Each rank prints
+    one JSON line; any rank failing fails the phase."""
+    results, wall = spawn_ranks("ranks", RANK_WORLD, out_dir)
     emit({"phase": "distributed_ranks", "ranks": RANK_WORLD,
           "backend": "gloo (CUDA tensors staged through host memory)",
           "device": "cuda:0, shared by every rank", "wall_s": wall,
@@ -2366,6 +2412,275 @@ def monitored_serve(cfg, params, unmonitored, counters, out_dir):
     return res
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def cluster_env(world):
+    """Rank -> the REPRO_* env contract of a ``world``-rank cluster whose
+    coordinator is a free local port."""
+    coord = f"localhost:{free_port()}"
+    return lambda r: {"REPRO_COORDINATOR": coord,
+                      "REPRO_NUM_PROCESSES": str(world),
+                      "REPRO_PROCESS_ID": str(r)}
+
+
+def transit_worker(rank, world, store):
+    """One rank of phase 8's Fig. 2 in transit: ``init_cluster`` from the
+    env contract (gloo: the ranks share the card), producer and consumer
+    meshes from ``make_transit_meshes``, the producers' seeded fields at
+    TRANSIT_DIMS sent by ``send`` then ``send_async``, the consumers'
+    Fig. 2 chain (writer on the consumer mesh's first rank). Checks: every
+    delivered block bit-identical to the producer's block at the same
+    position (sha256 of the bytes), the first field's denoised field and
+    energies against float64, the launches (none on producers), the
+    transit report's fields and bytes."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft.filters import lowpass_mask
+    from repro_torch.core.fft.plan import FORWARD, plan_dft
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
+    from repro_torch.core.insitu.config import build_chain
+    from repro_torch.core.insitu.transit import TransitBridge
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_transit_meshes
+    from repro_torch.runtime.cluster import cluster_info, init_cluster
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_cluster()                  # the REPRO_* env contract, on the card
+    info = cluster_info()
+    assert info["backend"] == "gloo" and info["process_count"] == world, \
+        info
+    _build.library()                # built by the parent
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    dims = TRANSIT_DIMS
+    pm, cm = make_transit_meshes(*TRANSIT_SPLIT)
+    bridge = TransitBridge(pm, cm)
+    producer, consumer = bridge.is_producer(), bridge.is_consumer()
+    role = "producer" if producer else "consumer"
+    spec = ("data", None)
+    src = RadiatingSourceAdaptor(dims, mesh=pm, spec=spec) \
+        if producer else None
+    out_dir = Path(store).parent / "transit_files"
+    chain = None
+    if consumer:
+        assert tuple(plan_dft(dims, FORWARD, cm, decomp="slab").schedule()
+                     .in_spec) == spec
+        chain = build_chain({"mode": "insitu", "chain": [
+            {"endpoint": "fft", "direction": "forward", "backend": "pallas",
+             "decomp": "slab"},
+            {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
+            {"endpoint": "fft", "direction": "backward", "backend": "pallas",
+             "decomp": "slab"},
+            {"endpoint": "writer", "out_dir": str(out_dir)},
+        ]}, mesh=cm, grid=GridMeta(dims))
+
+    def field(step):
+        if producer:
+            data = src.produce(step)
+            return data.replace(arrays={"field": data.arrays["field"]})
+        return BridgeData(arrays={"field": torch.empty(dims, device="meta")})
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()
+                              ).hexdigest()
+
+    digests, checks = {}, {}
+
+    def consume(got):
+        digests[got.step] = digest(got.arrays["field"])
+        res = chain.execute(got)
+        if got.step:
+            return
+        noisy = D.unshard(got.arrays["field"], cm, got.spec).double()
+        out = D.unshard(res.arrays["field"], cm, res.spec).double()
+        spec64 = torch.fft.fft2(noisy)
+        power = spec64.real ** 2 + spec64.imag ** 2
+        mask = lowpass_mask(dims, KEEP_FRAC).to(noisy.device)
+        kept64, total64 = float((power * mask).sum()), float(power.sum())
+        want = torch.fft.ifft2(spec64 * mask).real
+        kept = float(res.arrays["insitu_kept_energy"])
+        total = float(res.arrays["insitu_total_energy"])
+        checks.update(
+            field_max_abs_err=float((out - want).abs().max()),
+            kept_rel_err=abs(kept - kept64) / kept64,
+            total_rel_err=abs(total - total64) / total64,
+            finite=bool(torch.isfinite(out).all()))
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    dist.barrier()
+    t0 = time.perf_counter()
+    send_ms = []
+    for step in range(TRANSIT_SYNC_FIELDS):
+        data = field(step)
+        if producer:
+            digests[step] = digest(data.arrays["field"])
+        t1 = time.perf_counter()
+        got = bridge.send(data)
+        send_ms.append((time.perf_counter() - t1) * 1e3)
+        if consumer:
+            consume(got)
+    sync_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    submit_ms = []
+    for step in range(TRANSIT_SYNC_FIELDS,
+                      TRANSIT_SYNC_FIELDS + TRANSIT_ASYNC_FIELDS):
+        data = field(step)
+        if producer:
+            digests[step] = digest(data.arrays["field"])
+        t1 = time.perf_counter()
+        bridge.send_async(data, depth=TRANSIT_DEPTH,
+                          on_result=consume if consumer else None)
+        submit_ms.append((time.perf_counter() - t1) * 1e3)
+    bridge.drain_async()
+    torch.cuda.synchronize()
+    async_wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    files = [Path(f).name for f in chain.finalize()["writer"]["files"]] \
+        if consumer else []
+    if files:                       # the consumer mesh's first rank
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rep = bridge.report()
+    every = [None] * world
+    dist.all_gather_object(every, (role, pm.coordinate or cm.coordinate,
+                                   digests))
+    fields = TRANSIT_SYNC_FIELDS + TRANSIT_ASYNC_FIELDS
+    # consumer block i holds the rows producer block i sent
+    by_pos = {(r, c["data"]): d for r, c, d in every}
+    identical = all(by_pos[("consumer", i)][k] == by_pos[("producer", i)][k]
+                    for i in range(TRANSIT_SPLIT[1]) for k in range(fields))
+    a = rep["async"]
+    hop_ms = a["hop_busy_s"] / max(a["completed"], 1) * 1e3
+    res = {"phase": "transit_rank", "rank": rank, "role": role,
+           "cluster": info, "dims": list(dims), "fields": fields,
+           "launches": launches, "send_ms": send_ms, "submit_ms": submit_ms,
+           "hop_ms_mean": hop_ms, "sync_wall_s": sync_wall,
+           "async_wall_s": async_wall, "bit_identical": identical,
+           "files": files, "checks": checks,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "transit": rep}
+    print(json.dumps(res), flush=True)
+    assert identical, res
+    assert rep["fields"] == fields, res
+    assert rep["bytes_moved"] == fields * dims[0] * dims[1] * 4, res
+    assert a["completed"] == TRANSIT_ASYNC_FIELDS and a["error"] is None, res
+    # a send_async returns before its hop ends
+    assert submit_ms[0] < hop_ms, res
+    if producer:
+        assert not any(launches.values()), res
+        assert files == [], res
+    else:
+        assert launches["fft_fourstep"] and launches["bandpass_filter"], res
+        assert checks["finite"] and \
+            checks["field_max_abs_err"] < FIELD_TOL, res
+        assert checks["kept_rel_err"] < ENERGY_TOL, res
+        assert checks["total_rel_err"] < ENERGY_TOL, res
+        want = [f"field_{k:06d}.npy" for k in range(fields)]
+        assert files == (want if rank == cm.first_rank else []), res
+    dist.barrier()
+
+
+def transit_serve_worker(rank, world, store):
+    """One rank of phase 8's ``serve --transit-consumers 1``: phase 5's
+    serve (rank 0 decodes on phase 5's seeded parameters, made on the
+    card the same way), the logits monitor every MONITOR_EVERY steps on
+    rank 1, which the monitor's fields reach over the bridge. Prints the
+    report, the launches, the monitor's files and the peak memory."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    params = None
+    if rank == 0:
+        params = lm.init_params(
+            registry.get_config(SERVE_ARCH),
+            torch.Generator(device="cuda").manual_seed(0), torch.float32)
+    out_dir = Path(store).parent / f"monitor_rank{rank}"
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    report = serve.main([
+        "--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+        str(SERVE_PROMPT), "--tokens", str(SERVE_TOKENS), "--seed", "0",
+        "--bench-out", "", "--monitor-every", str(MONITOR_EVERY),
+        "--monitor-batch", str(MONITOR_BATCH), "--monitor-dir",
+        str(out_dir), "--transit-consumers", "1"], params=params)
+    files = sorted(f.name for f in out_dir.glob("logit_stats_*.npy"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(json.dumps({"phase": "transit_serve_rank", "rank": rank,
+                      "report": report, "launches": launch_counts(counters),
+                      "files": files,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}),
+          flush=True)
+
+
+def transit_phase(out_dir, unmonitored, monitored):
+    """Phase 8: the M->N in-transit path on ranks sharing the card,
+    started by the REPRO_* env contract: Fig. 2 in transit on
+    TRANSIT_WORLD ranks, then ``serve --transit-consumers 1`` on
+    TRANSIT_SERVE_WORLD ranks beside phase 5's serve (the same tokens)
+    and phase 7's in-place monitored serve."""
+    t0 = time.perf_counter()
+    ranks, wall = spawn_ranks("transit", TRANSIT_WORLD, out_dir / "fig2",
+                              env=cluster_env(TRANSIT_WORLD))
+    emit({"phase": "transit_fig2", "ranks": TRANSIT_WORLD,
+          "split": list(TRANSIT_SPLIT), "dims": list(TRANSIT_DIMS),
+          "backend": ranks[0]["cluster"]["backend"], "wall_s": wall,
+          "results": ranks})
+    serve_ranks, serve_wall = spawn_ranks(
+        "transit_serve", TRANSIT_SERVE_WORLD, out_dir / "serve",
+        env=cluster_env(TRANSIT_SERVE_WORLD))
+    decode, consume = serve_ranks
+    rep = decode["report"]
+    snapshots = -(-SERVE_TOKENS // MONITOR_EVERY)
+    executes = -(-snapshots // MONITOR_BATCH)
+    res = {"phase": "transit_serve", "arch": SERVE_ARCH,
+           "wall_s": serve_wall, "sample": rep["sample"],
+           "unmonitored_sample": unmonitored["sample"],
+           "prefill_ms": rep["prefill_ms"],
+           "decode_ms_per_token": rep["decode_ms_per_token"],
+           "in_place_monitored_decode_ms_per_token":
+               monitored["decode_ms_per_token"],
+           "in_place_monitored_prefill_ms": monitored["prefill_ms"],
+           "unmonitored_decode_ms_per_token":
+               unmonitored["decode_ms_per_token"],
+           "transit": rep["transit"],
+           "consumer_transit": consume["report"]["transit"],
+           "consumer_monitor": consume["report"]["monitor"],
+           "files": [decode["files"], consume["files"]],
+           "launches": [decode["launches"], consume["launches"]],
+           "peak_bytes": [decode["peak_bytes"], consume["peak_bytes"]],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    assert rep["sample"] == unmonitored["sample"], res
+    assert decode["files"] == [], res
+    assert consume["files"] == [f"logit_stats_{k:06d}.npy"
+                                for k in range(executes)], res
+    assert decode["launches"]["flash_attention"] == \
+        monitored["launches"]["flash_attention"], res
+    # the warm-up is not counted (reset_stats); every execute is a field
+    assert rep["transit"]["fields"] == executes == \
+        consume["report"]["transit"]["fields"], res
+    return ranks, serve_ranks
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2644,6 +2959,7 @@ def main() -> int:
                                 all_counters,
                                 ROOT / "build" / "chip_smoke_monitor")
     del params
+    torch.cuda.empty_cache()
     rank_pipe = [c for c in ranks[0]["checks"]
                  if c["check"] == "pipelined_chain"]
     emit({"phase": "pipelined_and_engine",
@@ -2668,6 +2984,21 @@ def main() -> int:
           "decode_ms_per_token_in_turns":
               monitored["turns_median_decode_ms_per_token"],
           "monitor": monitored["monitor"]})
+
+    # 8. transit: Fig. 2 in transit on four ranks, the monitored serve
+    # with its monitor on a second rank
+    transit_fig2, transit_serve = transit_phase(
+        ROOT / "build" / "chip_smoke_transit", serve_report, monitored)
+    shutil.rmtree(ROOT / "build" / "chip_smoke_transit", ignore_errors=True)
+
+    def phase8_launches(name):
+        """A kernel's launches on phase 8, by rank: Fig. 2 in transit
+        (producers first) and the transit serve (rank 0 decodes)."""
+        return {"transit_fig2_by_rank": [
+                    {"role": r["role"], "launches": r["launches"][name]}
+                    for r in transit_fig2],
+                "transit_serve_by_rank": [r["launches"][name]
+                                          for r in transit_serve]}
 
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
@@ -2787,6 +3118,7 @@ def main() -> int:
              real_launches=real_path_launches("fft_fourstep"),
              real_shapes=real_shape_checks("fft_fourstep"),
              **phase7_launches("fft_fourstep"),
+             **phase8_launches("fft_fourstep"),
              half_width_columns=[
                  {"shape": r["shape"], "axis": -2,
                   "route": r["column_route"], "lines": r["lines"],
@@ -2808,13 +3140,15 @@ def main() -> int:
              distributed_shapes=shape_checks("fft_stockham"),
              real_launches=real_path_launches("fft_stockham"),
              real_shapes=real_shape_checks("fft_stockham"),
-             **phase7_launches("fft_stockham")),
+             **phase7_launches("fft_stockham"),
+             **phase8_launches("fft_stockham")),
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
              distributed_launches=dist_launches("bandpass_filter"),
              real_launches=real_path_launches("bandpass_filter"),
-             **phase7_launches("bandpass_filter")),
+             **phase7_launches("bandpass_filter"),
+             **phase8_launches("bandpass_filter")),
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",
@@ -2825,6 +3159,7 @@ def main() -> int:
                           f"same serve with the pipelined logits monitor",
          "monitored_serve_launches": monitored["launches"][
              "flash_attention"],
+         **phase8_launches("flash_attention"),
          "shape": flash[0]["shape"], "dtype": flash[0]["dtype"],
          "max_abs_err": flash[0]["max_abs_err"],
          "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
@@ -2847,9 +3182,11 @@ def main() -> int:
 if __name__ == "__main__":
     if "--rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        worker = {"ranks": rank_worker, "transit": transit_worker,
+                  "transit_serve": transit_serve_worker}[args["--job"]]
         try:
-            rank_worker(int(args["--rank"]), int(args["--world"]),
-                        args["--store"])
+            worker(int(args["--rank"]), int(args["--world"]),
+                   args["--store"])
         except BaseException:
             import traceback
             traceback.print_exc()

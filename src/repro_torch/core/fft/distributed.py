@@ -35,8 +35,12 @@ cyclic input), ``fourstep_freq_of_position`` (output position → DFT
 bin for the four-step digit order, also axis 0 of the transpose-free
 pencil output) and ``fourstep_position_of_freq`` (its inverse).
 
-Not here: ``reshard`` (reference ``:253``), the M→N move between
-producer and consumer meshes, is ROADMAP queue 1 item 14.
+Not here: ``reshard`` (reference ``:253``), a move of a field between
+two meshes' shardings inside one program. No endpoint of either package
+calls it (``Endpoint.in_sharding`` is None everywhere); the M→N move
+between producer and consumer meshes is ``core/insitu/transit.py``.
+``reshard`` waits with ROADMAP queue 1 item 17, whose consumer-mesh
+rescale is where a program moves a field between its own meshes.
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ def sum_over_blocks(t: torch.Tensor, mesh: Mesh, spec: Sequence):
     copies = math.prod(mesh.shape[n] for n in mesh.axis_names
                        if n not in used)
     t = t.to(torch.float64, copy=True)   # the all-reduce writes into it
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=mesh.mesh_group)
     return t / copies
 
 
@@ -123,15 +127,17 @@ def shard(x, mesh: Mesh, spec: Sequence) -> torch.Tensor:
 
 def unshard(local: torch.Tensor, mesh: Mesh, spec: Sequence, *,
             dst=None, group=None):
-    """The global array from every rank's block (collective): on every
-    rank, or with ``dst`` only on that rank (None elsewhere). ``group``
-    is a process group over the mesh's ranks in rank order (default: the
-    world's); the pipelined chain's host tail gathers on its own."""
+    """The global array from every rank's block (collective over the
+    mesh's ranks): on every rank, or with ``dst`` (a global rank of the
+    mesh, e.g. ``mesh.first_rank``) only on that rank (None elsewhere).
+    ``group`` is a process group over the mesh's ranks (default: the
+    mesh's own); the pipelined chain's host tail gathers on its own."""
     if mesh.size == 1:
         return local
     local = local.contiguous()
     blocks = [torch.empty_like(local) for _ in range(mesh.size)]
-    dist.all_gather(blocks, local, group=group)
+    dist.all_gather(blocks, local,
+                    group=mesh.mesh_group if group is None else group)
     if dst is not None and dist.get_rank() != dst:
         return None
     lead = local.dim() - len(spec)
@@ -140,9 +146,11 @@ def unshard(local: torch.Tensor, mesh: Mesh, spec: Sequence, *,
         shape[lead + i] *= shard_count(mesh, entry)
     out = local.new_empty(shape)
     extents = tuple(mesh.shape[n] for n in mesh.axis_names)
-    for rank, block in enumerate(blocks):
-        coord = dict(zip(mesh.axis_names, np.unravel_index(rank, extents)))
-        out[_slices(mesh, spec, shape, coord)] = block
+    # a group's ranks ascend; the mesh's positions need not
+    order = sorted(mesh.members)
+    for pos, rank in enumerate(mesh.members):
+        coord = dict(zip(mesh.axis_names, np.unravel_index(pos, extents)))
+        out[_slices(mesh, spec, shape, coord)] = blocks[order.index(rank)]
     return out
 
 

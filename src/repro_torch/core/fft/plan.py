@@ -44,8 +44,12 @@ Across ranks, every rank of a mesh runs the same sweep: each candidate's
 build and timing are agreed by an ``all_reduce(MIN)`` of an ok flag
 (``_sweep_ok``), and the winner is the mesh's first rank's, sent by
 ``broadcast_object_list`` (``_agree_choice``) before anything is cached
-or written, so every rank builds the same collectives. A mesh that spans
-only a subset of the world pins the untimed default (``_subset_span``).
+or written, so every rank builds the same collectives. Agreement runs on
+the mesh's own process group, scoped to the mesh's ranks as the
+reference scopes it to the mesh's process span (reference
+``plan.py:603-612``): a mesh over a subset of the world (a transit
+consumer mesh) sweeps and agrees among its own ranks, and the ranks
+outside it join nothing.
 
 Real plans (``plan_rfft``, or ``real=True``) run the r2c/c2r schedules
 of ``rfft.py``: forward ``execute(x)`` maps a real block to a
@@ -153,9 +157,9 @@ def _mesh_key(mesh: Mesh) -> tuple:
     # own); the hosts make the key topology-aware, as the reference's
     # process indices do: a winner depends on which exchanges cross hosts
     groups = tuple(mesh.group(n).group_name for n in mesh.axis_names) \
-        if mesh.device_mesh is not None else ()
+        if mesh.axis_groups else ()
     return (tuple(mesh.shape.items()), str(mesh.device), groups,
-            tuple(mesh.hosts))
+            tuple(mesh.hosts), mesh.members)
 
 
 def _wire_name(wire_dtype):
@@ -472,19 +476,6 @@ def _pow2(n: int) -> bool:
     return n & (n - 1) == 0
 
 
-def _world() -> int:
-    return dist.get_world_size() \
-        if dist.is_available() and dist.is_initialized() else 1
-
-
-def _subset_span(mesh: Mesh) -> bool:
-    """True for a mesh of more than one rank that spans only a subset of
-    the world. Timing a candidate there runs collectives that the other
-    ranks never join, and no collective is safe afterwards to agree on a
-    winner, so the sweeps pin the untimed default on every rank."""
-    return 1 < mesh.size < _world()
-
-
 def _sweep_ok(ok: bool, mesh: Mesh) -> bool:
     """True only when EVERY rank of the mesh reports ``ok``: an
     ``all_reduce(MIN)`` of an int flag. The sweeps call it around each
@@ -495,7 +486,7 @@ def _sweep_ok(ok: bool, mesh: Mesh) -> bool:
         return ok
     flag = torch.tensor([1 if ok else 0], dtype=torch.int32,
                         device=mesh.device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.mesh_group)
     return bool(flag.item() == 1)
 
 
@@ -505,7 +496,8 @@ def _broadcast(obj, mesh: Mesh):
     if mesh.size <= 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=mesh.first_rank,
+                               group=mesh.mesh_group)
     return box[0]
 
 
@@ -672,7 +664,7 @@ def _max_rel_err(got, want, mesh: Mesh) -> float:
     if mesh.size > 1:
         both = torch.tensor([num, den], dtype=torch.float64,
                             device=mesh.device)
-        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.mesh_group)
         num, den = float(both[0]), float(both[1])
     return num / max(den, 1e-30)
 
@@ -811,8 +803,6 @@ def _autotune_decomp(shape, direction, mesh, *, backend, overlap_chunks,
 
     def _sweep() -> str:
         fallback = _infer(shape, None, None, mesh)[0]
-        if _subset_span(mesh):
-            return fallback
         wkey = wisdom_mod.wisdom_key(
             "decomp", mesh, shape=shape, direction=direction,
             axis_names=axis_names, real=real, batch_ndim=batch_ndim,
@@ -911,8 +901,6 @@ def _autotune(shape, direction, mesh, decomp, axis_names, *, real,
     def _sweep() -> dict:
         fallback = {"backend": "auto", "overlap_chunks": 0,
                     "wire_dtype": None}
-        if _subset_span(mesh):
-            return fallback
         wkey = wisdom_mod.wisdom_key(
             "tune", mesh, shape=shape, direction=direction,
             decomp=decomp, axis_names=axis_names, real=real,

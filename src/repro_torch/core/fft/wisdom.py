@@ -81,7 +81,14 @@ def topology_fingerprint(mesh) -> dict:
     the device type and name, and which axes cross hosts. Hosts are
     numbered in the order the ranks name them, so a restart on other
     nodes of the same layout warm-starts, while moving ranks between
-    nodes (which changes which exchanges cross hosts) misses."""
+    nodes (which changes which exchanges cross hosts) misses.
+
+    ``world_size`` is the world's, not the mesh's span, on a mesh over a
+    subset of the ranks too (a transit consumer mesh): the reference keys
+    by the cluster's process count (``num_processes``), and the ranks
+    outside the mesh run beside it (on the card, the producers share it
+    and its host), so a winner timed among them need not hold for the
+    same mesh alone."""
     from repro_torch.compat import axis_crosses_processes
     shape = tuple(mesh.shape[n] for n in mesh.axis_names)
     hosts = mesh.hosts or (socket.gethostname(),) * mesh.size

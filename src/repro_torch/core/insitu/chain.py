@@ -4,7 +4,7 @@
 Three execution modes of the reference. Across the ranks of a mesh every
 rank runs the same chain on its block of the field; the exchanges
 happen inside the planned FFT endpoints, the bandpass energies are
-all-reduced, and the writer gathers to rank 0.
+all-reduced, and the writer gathers to the mesh's first rank.
 
 * **in-situ** — the device endpoints run back to back on the device
   tensors (the handoff between stages is the tensor itself), then the
@@ -12,8 +12,10 @@ all-reduced, and the writer gathers to rank 0.
   visualization) on the results.
 * **in-transit (staged)** — the chain waits for the device after every
   device stage and keeps a timing per stage. Every stage keeps the
-  layout the previous one left (no M→N move between stage meshes: that
-  is ROADMAP queue 1 item 14), so ``reshard_bytes`` stays 0.
+  layout the previous one left (no move between stage meshes inside
+  the chain: ``distributed.reshard`` waits with ROADMAP queue 1 item 17,
+  and the M→N hop between programs' meshes is
+  ``transit.TransitBridge``), so ``reshard_bytes`` stays 0.
 * **pipelined** — the device stages of a field are launched onto the
   producer's CUDA stream and never waited on: field N+1's kernels queue
   behind field N's while field N's results are still in flight, and the
@@ -29,13 +31,17 @@ all-reduced, and the writer gathers to rank 0.
   correctness oracle.
 
 Across ranks the pipelined host tail needs collectives of its own (the
-writer gathers each field to rank 0) while the producer thread runs the
+writer gathers each field to one rank) while the producer thread runs the
 next field's exchanges. Two threads issuing collectives on the same
 process groups would interleave them in an order that can differ from
 rank to rank, and the ranks would pair one field's gather with
-another's exchange. So ``initialize`` builds the pipeline's own process
-group (``dist.new_group`` over every rank, in rank order, collectively
-on every rank), and each submitted field names it in
+another's exchange. So the pipeline gathers on a process group of its
+own: the mesh's ``host_group``, a gloo group over the mesh's ranks that
+``make_mesh`` builds collectively on every rank of the world (a group
+made later, by the mesh's ranks alone, would leave out the ranks a
+transit consumer mesh excludes, which ``dist.new_group`` needs too).
+``initialize`` claims it (one pipelined chain a mesh at a time:
+``finalize`` releases it), and each submitted field names it in
 ``meta[pipeline.HOST_GROUP]``; host endpoints gather on it. The worker's
 collectives then keep the one order the single ordered worker gives
 them, apart from the producer's. The group is gloo, because the worker
@@ -50,7 +56,6 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
@@ -106,8 +111,7 @@ class InSituChain:
         """(Re-)initialize every endpoint; drains the pipeline and drops
         ALL pipelined state first (fields may still be in flight against
         the old endpoint state). A pipelined chain over a mesh of more
-        than one rank builds its host tail's process group here, once
-        (collective: every rank initializes its chains in one order)."""
+        than one rank claims the mesh's host group here."""
         self._shutdown_pipeline()
         self._timings.clear()
         self._dispatch_s = 0.0
@@ -118,9 +122,10 @@ class InSituChain:
         self._device_probe_s = None
         self._probe_prev = None
         self._pipe_finalized = False
-        if (self.mode == "pipelined" and self._host_group is None
-                and self.mesh is not None and self.mesh.size > 1):
-            self._host_group = dist.new_group(backend="gloo")
+        if (self.mode == "pipelined" and self.mesh is not None
+                and self.mesh.host_group is not None):
+            self.mesh.claim_host_group(self)
+            self._host_group = self.mesh.host_group
         for ep in self.endpoints:
             ep.initialize(self.mesh, grid)
         return self
@@ -135,6 +140,9 @@ class InSituChain:
         ``marshaling_report()``."""
         self._shutdown_pipeline()
         self._pipe_finalized = True
+        if self._host_group is not None:
+            self.mesh.release_host_group(self)
+            self._host_group = None
         out: Dict[str, Any] = {}
         for idx, ep in enumerate(self.endpoints):
             key = ep.name if ep.name not in out else f"{ep.name}#{idx}"

@@ -5,8 +5,9 @@ The small "science product" stages of a chain: summary statistics of a
 field and its radial power spectrum (``spectrum.py``), published back
 onto the bridge under ``insitu_*`` keys. On a mesh of more than one
 rank each rank holds a block of the field (``BridgeData.spec``), so the
-sums are all-reduced in float64 (each replicated block counted once, as
-the bandpass energies are) and every rank publishes the global values.
+sums are all-reduced in float64 over the mesh's ranks (each replicated
+block counted once, as the bandpass energies are) and every rank of the
+mesh publishes the global values.
 """
 from __future__ import annotations
 
@@ -58,8 +59,10 @@ class StatsEndpoint(Endpoint):
             torch.tensor(float(x.numel()), device=x.device,
                          dtype=torch.float64)]), self._mesh, spec)
         lo, hi = x.min().reshape(1), x.max().reshape(1)
-        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN,
+                        group=self._mesh.mesh_group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX,
+                        group=self._mesh.mesh_group)
         mean = sums[0] / sums[2]
         msq = sums[1] / sums[2]
         std = torch.sqrt(torch.clamp(msq - mean * mean, min=0.0))

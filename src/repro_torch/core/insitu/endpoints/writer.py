@@ -6,10 +6,10 @@ These terminate a chain the way the paper's matplotlib endpoint does
 device stages. The visualizer writes portable PGM (and a PNG when
 matplotlib is installed). Both declare ``ordered = True``: in pipelined
 mode their file lists follow submission order, so the chain keeps them
-on one pipeline worker. Across ranks they gather to rank 0 on the
-payload's ``meta[pipeline.HOST_GROUP]`` process group when it names one
-(the pipelined chain's own group, so the worker's gathers never
-interleave with the producer's exchanges), else on the world's.
+on one pipeline worker. Across ranks they gather to the mesh's first rank
+on the payload's ``meta[pipeline.HOST_GROUP]`` process group when it
+names one (the pipelined chain's own group, so the worker's gathers
+never interleave with the producer's exchanges), else on the mesh's.
 """
 from __future__ import annotations
 
@@ -30,20 +30,20 @@ def _host(v) -> np.ndarray:
 
 
 def _gather(v, mesh, data: BridgeData):
-    """The global array from this rank's block, on rank 0 (None on the
-    others); ``v`` itself where nothing is placed."""
+    """The global array from this rank's block, on the mesh's first rank
+    (None on the others); ``v`` itself where nothing is placed."""
     if mesh is None or data.spec is None:
         return v
-    return unshard(v, mesh, data.spec, dst=0,
+    return unshard(v, mesh, data.spec, dst=mesh.first_rank,
                    group=data.meta.get(HOST_GROUP))
 
 
 class WriterEndpoint(Endpoint):
     """Persist one named array per step as an (atomically published)
     ``.npy`` file; ``finalize`` reports the files written, in step
-    order. Across ranks the payload's blocks are gathered to rank 0,
-    which writes the one global array the reference writes; the other
-    ranks write nothing. ``ordered = True``: in pipelined mode the file
+    order. Across ranks the payload's blocks are gathered to the mesh's
+    first rank, which writes the one global array the reference writes;
+    the other ranks write nothing. ``ordered = True``: in pipelined mode the file
     list must follow submission order."""
 
     name = "writer"
@@ -73,7 +73,7 @@ class WriterEndpoint(Endpoint):
         v = data.arrays[self.array]
         v = v[0] if isinstance(v, tuple) else v
         v = _gather(v, self.mesh, data)
-        if v is None:                 # not rank 0
+        if v is None:                 # not the mesh's first rank
             return data
         arr = _host(v)
         path = self.out_dir / f"{self.prefix}_{data.step:06d}.npy"
@@ -91,7 +91,7 @@ class WriterEndpoint(Endpoint):
 class VisualizeEndpoint(Endpoint):
     """Render one named array per step to portable PGM (plus PNG when
     matplotlib is available) — the paper's matplotlib endpoint role.
-    Across ranks rank 0 renders the gathered global array. Ordered for
+    Across ranks the mesh's first rank renders the gathered global array. Ordered for
     the same file-list reason as ``WriterEndpoint``."""
 
     name = "visualize"
@@ -120,7 +120,7 @@ class VisualizeEndpoint(Endpoint):
         v = data.arrays[self.array]
         parts = [_gather(x, self.mesh, data)
                  for x in (v if isinstance(v, tuple) else (v,))]
-        if parts[0] is None:          # not rank 0
+        if parts[0] is None:          # not the mesh's first rank
             return data
         if len(parts) == 2:
             arr = np.abs(_host(parts[0]) + 1j * _host(parts[1]))

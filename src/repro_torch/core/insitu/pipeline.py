@@ -99,6 +99,36 @@ def record_ready(data: BridgeData) -> BridgeData:
     return data.replace(meta={**data.meta, READY_EVENT: ev})
 
 
+def materialize(data: BridgeData, stream_for) -> BridgeData:
+    """The field with its CUDA tensors copied into pinned host memory,
+    once its device stages are done (the reference's ``jax.device_get``);
+    host data as it is. Waits on the field's ``READY_EVENT`` (recorded by
+    :func:`record_ready`), then copies on ``stream_for(device)``, a stream
+    of the calling worker's own, made to wait on the same event."""
+    device = _cuda_device(data)
+    if device is None:
+        return data
+    ready = data.meta[READY_EVENT]
+    with torch.cuda.device(device):
+        ready.synchronize()           # this field's work, nothing else
+        stream = stream_for(device)
+        stream.wait_event(ready)
+
+        def host(t):
+            if not (torch.is_tensor(t) and t.is_cuda):
+                return t
+            t.record_stream(stream)
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return out.copy_(t, non_blocking=True)
+
+        with torch.cuda.stream(stream):
+            arrays = {k: tuple(host(x) for x in v)
+                      if isinstance(v, tuple) else host(v)
+                      for k, v in data.arrays.items()}
+        stream.synchronize()
+    return data.replace(arrays=arrays)
+
+
 class PipelineError(RuntimeError):
     """A host endpoint (or the field's materialization) failed inside the
     pipeline worker.
@@ -251,31 +281,7 @@ class HostPipeline:
         return streams[device]
 
     def _materialize(self, data: BridgeData) -> BridgeData:
-        """The field with its CUDA tensors copied into pinned host
-        memory, once its device stages are done (the reference's
-        ``jax.device_get``); host data as it is."""
-        device = _cuda_device(data)
-        if device is None:
-            return data
-        ready = data.meta[READY_EVENT]
-        with torch.cuda.device(device):
-            ready.synchronize()           # this field's work, nothing else
-            stream = self._stream(device)
-            stream.wait_event(ready)
-
-            def host(t):
-                if not (torch.is_tensor(t) and t.is_cuda):
-                    return t
-                t.record_stream(stream)
-                out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                return out.copy_(t, non_blocking=True)
-
-            with torch.cuda.stream(stream):
-                arrays = {k: tuple(host(x) for x in v)
-                          if isinstance(v, tuple) else host(v)
-                          for k, v in data.arrays.items()}
-            stream.synchronize()
-        return data.replace(arrays=arrays)
+        return materialize(data, self._stream)
 
     def _run_one(self, data: BridgeData) -> None:
         ep_name = "<device_get>"

@@ -1,17 +1,44 @@
-"""Mesh construction (counterpart of ``repro/launch/mesh.py``).
+"""Mesh construction — host, production, multi-host DCN × ICI, and the
+M→N transit split (counterpart of ``repro/launch/mesh.py``).
 
-Only ``make_host_mesh`` is ported: the small mesh the reduced-config
-drivers, the examples and the FFT serving engine's lazy default run on.
-In the port one process drives one device, so a host mesh is a
-one-process mesh over ``compat.make_mesh``: every axis extent 1, on the
-CUDA device unless the caller asks for the CPU. A mesh over several
-ranks is ``compat.make_mesh`` after ``torch.distributed`` is
-initialised. The reference's production, multi-host (DCN × ICI),
-transit and elastic set-ups stay with ROADMAP queue 1 items 14 and 17.
+Everything here is a function, so importing this module touches no
+process group. In the port one process drives one device, so a mesh's
+positions are global ranks (``compat.make_mesh`` / ``make_explicit_mesh``),
+and building a mesh of more than one rank is collective on every rank of
+the world.
+
+* ``make_host_mesh`` — one process's mesh: every axis extent 1, on the
+  CUDA device unless the caller asks for the CPU (the reduced-config
+  entry points, the examples, the FFT serving engine's lazy default).
+* ``make_production_mesh`` — the full-fleet shapes, (16, 16) or
+  (2, 16, 16): it needs a world of that many ranks.
+* ``make_multihost_mesh`` — explicit **DCN axes** (outer, crossing
+  hosts) × **ICI axes** (inner, within one host), over the ranks ordered
+  host-major (hosts in the order of their first rank), so the DCN axes
+  really cross nodes; ``describe_mesh`` shows which axes do.
+* ``make_transit_meshes`` / ``make_transit_setup`` — disjoint producer
+  and consumer meshes (the first m ranks produce, the last n consume)
+  and the ``TransitBridge`` between them (``core/insitu/transit.py``).
+
+``make_elastic_setup`` (a consumer mesh under an elastic controller)
+waits with ROADMAP queue 1 item 17.
 """
 from __future__ import annotations
 
-from repro_torch.compat import Mesh, make_mesh
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch.distributed as dist
+
+from repro_torch.compat import (Mesh, make_explicit_mesh, make_mesh,
+                                mesh_process_span, mesh_process_topology,
+                                world_hosts)
+
+
+def _world() -> int:
+    return dist.get_world_size() \
+        if dist.is_available() and dist.is_initialized() else 1
 
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"), *,
@@ -29,3 +56,140 @@ def make_host_mesh(shape=(2, 2), axes=("data", "model"), *,
         raise ValueError(f"{len(shape)} axis extents for {len(axes)} axis "
                          f"names")
     return make_mesh((1,) * len(axes), axes, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The full-fleet shapes the reference's dry-run compiles the big
+    configs against: (data, model) = (16, 16), with a leading pod axis
+    when ``multi_pod``. Needs a world of exactly that many ranks (one
+    device each)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need, world = math.prod(shape), _world()
+    if world != need:
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} needs {need} "
+            f"ranks, one device each; the world has {world}")
+    return make_mesh(shape, axes, device=device)
+
+
+def _host_major_ranks() -> Tuple[list, int]:
+    """Every global rank ordered host-major (hosts in the order of their
+    first rank, ranks ascending within a host), and the host count
+    (collective)."""
+    hosts = world_hosts()
+    order: Dict[str, list] = {}
+    for rank, host in enumerate(hosts):
+        order.setdefault(host, []).append(rank)
+    return [r for ranks in order.values() for r in ranks], len(order)
+
+
+def make_multihost_mesh(dcn_axes: Optional[Dict[str, int]] = None,
+                        ici_axes: Optional[Dict[str, int]] = None, *,
+                        device=None) -> Mesh:
+    """A mesh with explicit DCN × ICI axis splits over the world's ranks.
+
+    ``dcn_axes``/``ici_axes`` are ordered ``{axis_name: size}`` dicts;
+    the mesh's axis order is DCN axes first (outermost, cross-host),
+    then ICI axes. Defaults: one DCN axis ``"dcn"`` over the hosts and
+    one ICI axis ``"data"`` over the ranks a host — the natural (hosts ×
+    local ranks) grid. The product of the sizes must equal the world
+    size. One process works too (a one-rank mesh)."""
+    order, nhosts = _host_major_ranks()
+    world = len(order)
+    if dcn_axes is None:
+        dcn_axes = {"dcn": nhosts}
+    if ici_axes is None:
+        ici_axes = {"data": world // max(1, math.prod(dcn_axes.values()))}
+    names = tuple(dcn_axes) + tuple(ici_axes)
+    shape = tuple(dcn_axes.values()) + tuple(ici_axes.values())
+    total = math.prod(shape)
+    if total != world:
+        raise ValueError(
+            f"mesh shape {dict(zip(names, shape))} needs {total} ranks, "
+            f"cluster has {world} ({nhosts} host(s) × "
+            f"{world // max(nhosts, 1)} local)")
+    return make_explicit_mesh(np.asarray(order).reshape(shape), names,
+                              device=device)
+
+
+def make_transit_meshes(m: int, n: int, *,
+                        producer_axes: Sequence[str] = ("data",),
+                        consumer_axes: Sequence[str] = ("data",),
+                        exclude_ids: Optional[Sequence[int]] = None,
+                        device=None) -> Tuple[Mesh, Mesh]:
+    """Disjoint producer/consumer meshes for the M→N in-transit path:
+    the first ``m`` ranks produce, the last ``n`` consume, each a mesh
+    with its first axis over them (the others of extent 1). Requires
+    ``m + n <=`` the ranks available: producer and consumer must not
+    share ranks, that is the whole point.
+
+    ``exclude_ids`` (global ranks) removes ranks from the pool before
+    the split — the elastic rescale (ROADMAP item 17) rebuilds the
+    consumer mesh over the survivors of a failure with it, while the
+    producer prefix stays as it was. Collective on every rank."""
+    ranks = list(range(_world()))
+    if exclude_ids:
+        dead = {int(i) for i in exclude_ids}
+        ranks = [r for r in ranks if r not in dead]
+    if m + n > len(ranks):
+        raise ValueError(f"transit split {m}+{n} exceeds "
+                         f"{len(ranks)} available ranks")
+    if m < 1 or n < 1:
+        raise ValueError("both meshes need at least one rank")
+    pshape = (m,) + (1,) * (len(producer_axes) - 1)
+    cshape = (n,) + (1,) * (len(consumer_axes) - 1)
+    prod = make_explicit_mesh(np.asarray(ranks[:m]).reshape(pshape),
+                              tuple(producer_axes), device=device)
+    cons = make_explicit_mesh(np.asarray(ranks[-n:]).reshape(cshape),
+                              tuple(consumer_axes), device=device)
+    return prod, cons
+
+
+def make_transit_setup(n_consumers: int, *,
+                       producer_axes: Sequence[str] = ("data", "model"),
+                       consumer_axes: Sequence[str] = ("data",),
+                       noun: str = "producer",
+                       flag: str = "--transit-consumers", device=None):
+    """The entry points' shared ``--transit-consumers`` bring-up: split the
+    world into a (world - N)-rank producer mesh and an N-rank consumer
+    mesh, check that every rank has a role
+    (``transit.require_producer_spans_cluster``), and build the bridge.
+    Returns ``(producer_mesh, TransitBridge)``; invalid splits raise
+    ``SystemExit`` with an operator-facing message naming ``flag``
+    (``noun`` is the entry point's word for producer ranks, e.g.
+    "decode"). Collective on every rank."""
+    from repro_torch.core.insitu.transit import (
+        TransitBridge, require_producer_spans_cluster)
+    world = _world()
+    if n_consumers >= world:
+        raise SystemExit(
+            f"{flag} {n_consumers} leaves no {noun} ranks (have {world})")
+    producer_mesh, consumer_mesh = make_transit_meshes(
+        world - n_consumers, n_consumers, producer_axes=producer_axes,
+        consumer_axes=consumer_axes, device=device)
+    try:
+        require_producer_spans_cluster(producer_mesh, flag,
+                                       consumer_mesh=consumer_mesh)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    return producer_mesh, TransitBridge(producer_mesh, consumer_mesh)
+
+
+def make_elastic_setup(n_consumers: int, **kwargs):
+    """The reference's ``--elastic`` bring-up (a consumer mesh under an
+    elastic controller that rescales it at run time): not ported yet."""
+    raise NotImplementedError(
+        "make_elastic_setup needs runtime/elastic.py's controller (ROADMAP "
+        "queue 1 item 17), not ported yet")
+
+
+def describe_mesh(mesh: Mesh) -> Dict[str, object]:
+    """Operator-facing mesh summary: shape, axis → crosses-hosts, and
+    the global ranks it spans."""
+    return {
+        "shape": dict(mesh.shape),
+        "axis_crosses_hosts": mesh_process_topology(mesh),
+        "processes": mesh_process_span(mesh),
+        "devices": int(mesh.size),
+    }

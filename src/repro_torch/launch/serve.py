@@ -32,9 +32,23 @@ behind. The trailing partial batch goes through the same
 coalescing and queue accounting) and ``--bench-out`` a
 ``serve_run_monitor_submit`` row.
 
-The reference's M→N transit, elastic consumer mesh and multi-process
-cluster flags are accepted and raise ``NotImplementedError`` naming
-their ROADMAP items.
+Multi-process runs come up through ``runtime.cluster`` (``--coordinator
+--num-processes --process-id``, or the ``REPRO_*`` env contract; flags
+win). ``--transit-consumers N`` is the M→N in-transit split: the world's
+last N ranks form the consumer mesh, the rest the producer mesh
+(``launch/mesh.make_transit_setup``), and the monitor's warm-up and
+every engine execute ride ``TransitBridge.send`` to the consumers, which
+run the monitor chain and write its files. Decoding stays on one rank:
+a producer mesh of more than one rank would need sharded serving
+(ROADMAP queue 1 item 18 part 5) and is refused. Consumer ranks do not
+decode, yet each ``send`` is collective, so they call it exactly as
+often, and in the same order, as the producer's monitor executes: the
+warm-up, one per ``--monitor-batch`` snapshots, and the trailing flush,
+counted from the flags (``_monitor_fields``); the bridge checks every
+send's shapes and sequence number on every rank, and a rank missing a
+send fails at the bridge's timeout, never hangs silently. The report
+gains a ``transit`` block. ``--elastic`` raises ``NotImplementedError``
+naming ROADMAP item 17.
 """
 from __future__ import annotations
 
@@ -48,16 +62,13 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.fft import plan as plan_mod
 from repro_torch.models import lm
+from repro_torch.runtime.cluster import (add_cluster_args, config_from_args,
+                                         init_cluster)
 
 # flag -> (its "off" value, what it needs that the port does not have)
-_CLUSTER = "multi-process clusters (ROADMAP queue 1 item 14)"
 NOT_PORTED = {
-    "transit_consumers": (0, "M→N transit (ROADMAP queue 1 item 14)"),
     "elastic": (False, "the elastic consumer mesh (ROADMAP queue 1 "
                        "item 17)"),
-    "coordinator": (None, _CLUSTER),
-    "num_processes": (None, _CLUSTER),
-    "process_id": (None, _CLUSTER),
 }
 
 
@@ -66,15 +77,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _build_monitor(args, cfg, device: torch.device):
+def _monitor_fields(args) -> list:
+    """The leading extent of every field the monitor executes after its
+    warm-up, in order: one per ``--monitor-batch`` snapshots, then the
+    trailing flush's partial batch. The decode loop snapshots at steps
+    0, K, 2K, ... below ``--tokens``."""
+    snapshots = -(-args.tokens // args.monitor_every)
+    full, rest = divmod(snapshots, args.monitor_batch)
+    return [args.monitor_batch] * full + ([rest] if rest else [])
+
+
+def _field(lead: int, args, cfg, device) -> "BridgeData":
+    from repro_torch.core.insitu.bridge import BridgeData
+    return BridgeData(
+        arrays={"field": torch.zeros((lead, args.batch, cfg.vocab_size),
+                                     dtype=torch.float32, device=device)},
+        step=0, meta={"primary": "field"})
+
+
+def _build_monitor(args, cfg, device: torch.device, bridge=None):
     """The pipelined in-situ chain the decode loop feeds: one batched
     field of ``--monitor-batch`` stacked last-token logits per submit.
     Warmed on zeros before returning — plan/allocator warm-up and the
     chain's device-probe calibration must not land inside the timed
-    decode loop."""
-    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
+    decode loop. With ``bridge`` (the M→N split) the warm-up rides the
+    bridge too: every rank sends it (``send`` is collective), only the
+    consumers build and warm the chain, and producers get None."""
+    from repro_torch.core.insitu.bridge import GridMeta
     from repro_torch.core.insitu.config import build_chain
 
+    warm = _field(args.monitor_batch, args, cfg,
+                  "meta" if bridge is not None and not bridge.is_producer()
+                  else device)
+    if bridge is not None:
+        warm = bridge.send(warm)
+        if not bridge.is_consumer():
+            bridge.reset_stats()  # warm-up must not skew the report
+            return None
     chain = build_chain({
         "mode": "pipelined",
         "chain": [
@@ -86,15 +125,12 @@ def _build_monitor(args, cfg, device: torch.device):
              "out_dir": args.monitor_dir, "prefix": "logit_stats"},
         ],
     }, mesh=None, grid=GridMeta((args.batch, cfg.vocab_size)))
-    warm = BridgeData(
-        arrays={"field": torch.zeros(
-            (args.monitor_batch, args.batch, cfg.vocab_size),
-            dtype=torch.float32, device=device)},
-        step=0, meta={"primary": "field"})
     chain.execute(warm)           # first field: masks and allocations
     chain.execute(warm)           # consume the device-probe wait
     chain.drain()
     chain.reset_stats()
+    if bridge is not None:
+        bridge.reset_stats()      # warm-up must not skew the report
     writer = chain.endpoints[-1]  # drop the warm-up artifacts
     for f in writer.written:
         Path(f).unlink(missing_ok=True)
@@ -102,20 +138,25 @@ def _build_monitor(args, cfg, device: torch.device):
     return chain
 
 
-def _attach_monitor_engine(args, chain):
+def _attach_monitor_engine(args, chain, bridge=None):
     """Wire the chain behind an :class:`FFTServeEngine` ``monitor``
     bucket: the decode loop submits last-token logits; the engine
     coalesces ``--monitor-batch`` of them into one stacked ``BridgeData``
-    per chain execute. Returns the engine in manual tick mode (the
-    decode thread steps it, so ``chain.execute`` queues its kernels on
-    the decode thread's stream)."""
+    per chain execute (on the producer with ``bridge``: one ``send`` to
+    the consumers). Returns the engine in manual tick mode (the decode
+    thread steps it, so ``chain.execute`` queues its kernels on the
+    decode thread's stream)."""
     from repro_torch.core.insitu.bridge import BridgeData
     from repro_torch.serve.fft_engine import FFTServeEngine
 
     def execute_batch(payloads, step_idx):
-        field = torch.stack(list(payloads))
-        chain.execute(BridgeData(arrays={"field": field}, step=step_idx,
-                                 meta={"primary": "field"}))
+        payload = BridgeData(arrays={"field": torch.stack(list(payloads))},
+                             step=step_idx, meta={"primary": "field"})
+        if bridge is not None:
+            payload = bridge.send(payload)
+            if not bridge.is_consumer():
+                return None       # producers hold None leaves, no chain
+        chain.execute(payload)
         return None
 
     engine = FFTServeEngine(max_pending=4 * args.monitor_batch,
@@ -123,6 +164,51 @@ def _attach_monitor_engine(args, chain):
     engine.register_bucket("monitor", execute_batch,
                            flush_at=args.monitor_batch)
     return engine
+
+
+def _monitor_report(args, chain, engine, snapshots) -> dict:
+    """The report's ``monitor`` block: the engine's coalescing on the
+    rank that decodes, the chain's files and overlap on the rank that
+    runs it (one rank does both without transit)."""
+    rep = {"snapshots": snapshots, "snapshot_batch": args.monitor_batch,
+           "files": 0}
+    if engine is not None:
+        erep = engine.report()
+        engine.stop()
+        rep["submits"] = erep["batching"]["executes"]
+        rep["engine"] = {
+            "batched_execute_ratio":
+                erep["batching"]["batched_execute_ratio"],
+            "submit_us_p50": erep["latency_ms"]["p50"] * 1e3,
+            "submit_us_p99": erep["latency_ms"]["p99"] * 1e3,
+            "queue_depth_max": erep["queue"]["depth_max"],
+        }
+    if chain is not None:
+        chain.drain()
+        pipe = chain.marshaling_report().get("pipeline", {})
+        rep["files"] = len(chain.finalize()["writer"]["files"])
+        rep.update({
+            "overlap_efficiency": pipe.get("overlap_efficiency", 0.0),
+            "host_busy_ms": pipe.get("host_busy_s", 0.0) * 1e3,
+            "backpressure_ms": pipe.get("backpressure_s", 0.0) * 1e3,
+            "wait_ms": pipe.get("wait_s", 0.0) * 1e3,
+            "dispatch_ms": pipe.get("dispatch_s", 0.0) * 1e3})
+    return rep
+
+
+def _consume(args, cfg, bridge, device) -> dict:
+    """A consumer rank's serve: no decode; the monitor chain on every
+    field the producer's monitor sends, as many as it sends."""
+    chain = _build_monitor(args, cfg, device, bridge)
+    fields = _monitor_fields(args)
+    for lead in fields:
+        chain.execute(bridge.send(_field(lead, args, cfg, "meta")))
+    report = {"arch": cfg.name, "role": "consumer",
+              "device": (torch.cuda.get_device_name(device)
+                         if device.type == "cuda" else "cpu"),
+              "monitor": _monitor_report(args, chain, None, sum(fields))}
+    report["monitor"]["submits"] = len(fields)
+    return report
 
 
 def _emit_report_rows(report: dict, path: str) -> None:
@@ -174,7 +260,11 @@ def main(argv=None, *, params=None):
     ap.add_argument("--monitor-batch", type=int, default=4,
                     help="snapshots batched into one chain execute")
     ap.add_argument("--monitor-dir", default="results/serve_monitor")
-    ap.add_argument("--transit-consumers", type=int, default=0)
+    ap.add_argument("--transit-consumers", type=int, default=0,
+                    metavar="N",
+                    help="in-transit M→N split: decode on the first rank "
+                         "and run the logits monitor on the last N ranks "
+                         "(0 = analyse in place)")
     ap.add_argument("--elastic", action="store_true")
     ap.add_argument("--wisdom", default=None, metavar="FILE",
                     help="persistent FFT autotune wisdom: measured sweep "
@@ -184,14 +274,24 @@ def main(argv=None, *, params=None):
     ap.add_argument("--wisdom-mode", default="readwrite",
                     choices=("off", "read", "readwrite"),
                     help="read = consult wisdom but never write it")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+    add_cluster_args(ap)
     args = ap.parse_args(argv)
     for flag, (off, needs) in NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} needs {needs}, not ported yet")
+    cluster = config_from_args(args)
+    if args.transit_consumers:
+        n, world = args.transit_consumers, cluster.num_processes
+        if n >= world:
+            raise SystemExit(f"--transit-consumers {n} leaves no decode "
+                             f"ranks (have {world})")
+        if world - n > 1:
+            raise SystemExit(
+                f"--transit-consumers {n} of {world} ranks leaves "
+                f"{world - n} decode ranks: decoding across ranks needs "
+                f"sharded serving (ROADMAP queue 1 item 18 part 5); use "
+                f"{world - 1} consumers")
     if args.wisdom:
         # before any measured planning, so a restart warm-starts from it
         plan_mod.set_wisdom(args.wisdom, args.wisdom_mode)
@@ -200,18 +300,32 @@ def main(argv=None, *, params=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to serve on "
                            "the CPU")
+    # multi-process bring-up (flags over env; one process: a no-op)
+    init_cluster(cluster, device=device)
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    bridge = None
+    if args.transit_consumers:
+        from repro_torch.launch.mesh import make_transit_setup
+        _, bridge = make_transit_setup(args.transit_consumers,
+                                       noun="decode", device=device)
+        if not bridge.is_producer():
+            report = _consume(args, cfg, bridge, device) \
+                if args.monitor_every else {"arch": cfg.name,
+                                            "role": "consumer"}
+            report["transit"] = bridge.report()
+            print(json.dumps(report))
+            return report
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if params is None:
         params = lm.init_params(cfg, gen, torch.float32)
     cache_len = args.prompt_len + args.tokens
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device)
-    monitor = (_build_monitor(args, cfg, device)
-               if args.monitor_every else None)
-    engine = (_attach_monitor_engine(args, monitor)
-              if monitor is not None else None)
+    monitor = engine = None
+    if args.monitor_every:
+        monitor = _build_monitor(args, cfg, device, bridge)
+        engine = _attach_monitor_engine(args, monitor, bridge)
     snapshots = 0
 
     _sync(device)
@@ -257,31 +371,11 @@ def main(argv=None, *, params=None):
         "tokens_per_s": args.batch * args.tokens / t_decode,
         "sample": gen_tokens[0, :8].tolist(),
     }
-    if monitor is not None:
-        monitor.drain()
-        erep = engine.report()
-        engine.stop()
-        mrep = monitor.marshaling_report()
-        files = monitor.finalize()["writer"]["files"]
-        pipe = mrep.get("pipeline", {})
-        report["monitor"] = {
-            "submits": erep["batching"]["executes"],
-            "snapshots": snapshots,
-            "snapshot_batch": args.monitor_batch,
-            "files": len(files),
-            "overlap_efficiency": pipe.get("overlap_efficiency", 0.0),
-            "host_busy_ms": pipe.get("host_busy_s", 0.0) * 1e3,
-            "backpressure_ms": pipe.get("backpressure_s", 0.0) * 1e3,
-            "wait_ms": pipe.get("wait_s", 0.0) * 1e3,
-            "dispatch_ms": pipe.get("dispatch_s", 0.0) * 1e3,
-            "engine": {
-                "batched_execute_ratio":
-                    erep["batching"]["batched_execute_ratio"],
-                "submit_us_p50": erep["latency_ms"]["p50"] * 1e3,
-                "submit_us_p99": erep["latency_ms"]["p99"] * 1e3,
-                "queue_depth_max": erep["queue"]["depth_max"],
-            },
-        }
+    if engine is not None:
+        report["monitor"] = _monitor_report(args, monitor, engine,
+                                            snapshots)
+    if bridge is not None:
+        report["transit"] = bridge.report()
     if args.bench_out:
         _emit_report_rows(report, args.bench_out)
         print(f"serve: decode {report['decode_ms_per_token']} ms/token, "

@@ -56,7 +56,8 @@ breakdowns, and the planner's shared-cache counters.
 Plan ops run on a one-rank mesh. Serving one request stream from
 several ranks would need every rank to form the same batches in the
 same order, which a linger window does not give; that stays with
-ROADMAP queue 1 item 14 (cluster), and a larger mesh is refused.
+ROADMAP queue 1 item 17 (whose ``rescale_mesh`` onto a consumer mesh
+of several ranks is where it is needed), and a larger mesh is refused.
 """
 from __future__ import annotations
 
@@ -216,8 +217,9 @@ def _one_rank(mesh) -> None:
     if mesh.size > 1:
         raise ValueError(
             f"the FFT serving engine runs plan ops on a one-rank mesh, got "
-            f"{dict(mesh.shape)}: serving across ranks is ROADMAP queue 1 "
-            f"item 14")
+            f"{dict(mesh.shape)}: serving across ranks (every rank forming "
+            f"the same batches, as a rescale onto a consumer mesh needs) is "
+            f"ROADMAP queue 1 item 17")
 
 
 class FFTServeEngine:

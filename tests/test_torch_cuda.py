@@ -606,3 +606,71 @@ def test_fft_engine_on_the_card(gen):
         assert np.abs(got - want).max() <= 5e-5 * np.abs(want).max()
     assert eng.report()["batching"]["executes"] == 1
     eng.stop()
+
+
+TRANSIT_RANK = '''
+import json, os
+import torch
+from repro_torch.core.insitu.bridge import BridgeData
+from repro_torch.core.insitu.transit import TransitBridge
+from repro_torch.launch.mesh import make_transit_meshes
+from repro_torch.runtime.cluster import cluster_info, init_cluster
+init_cluster()                   # REPRO_* env; the ranks share the card
+pm, cm = make_transit_meshes(1, 1)
+bridge = TransitBridge(pm, cm)
+gen = torch.Generator(device="cuda").manual_seed(5)
+fields = [torch.randn((256, 384), generator=gen, device="cuda")
+          for _ in range(3)]
+out = {"backend": cluster_info()["backend"], "same": [], "devices": []}
+for k, f in enumerate(fields):
+    data = BridgeData(arrays={"f": f if bridge.is_producer() else
+                              torch.empty(f.shape, device="meta")}, step=k)
+    if k == 0:
+        got = [bridge.send(data)]
+    else:
+        bridge.send_async(data, depth=1)
+        got = bridge.drain_async()
+    if bridge.is_consumer():
+        out["same"] += [torch.equal(g.arrays["f"], fields[g.step])
+                        for g in got]
+        out["devices"] += [str(g.arrays["f"].device) for g in got]
+print(json.dumps(out), flush=True)
+torch.distributed.barrier()
+os._exit(0)
+'''
+
+
+def test_transit_host_hop_between_ranks_sharing_the_card(gen):
+    """Two ranks on the card, started by the REPRO_* env contract (gloo:
+    they share it): CUDA blocks sent by ``send`` and ``send_async`` (the
+    worker's event wait and pinned copy) arrive bit-identical on the
+    consumer's device."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        coord = f"localhost:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TRANSIT_RANK],
+        env=dict(os.environ, PYTHONPATH=src, REPRO_COORDINATOR=coord,
+                 REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    producer, consumer = (json.loads(log.strip().splitlines()[-1])
+                          for log in logs)
+    assert producer["backend"] == consumer["backend"] == "gloo"
+    assert producer["same"] == [] and consumer["same"] == [True] * 3
+    assert consumer["devices"] == ["cuda:0"] * 3

@@ -481,7 +481,7 @@ def test_engine_runs_plan_ops_on_one_rank_only(mesh):
     with pytest.raises(ValueError, match="one-rank mesh"):
         FFTServeEngine(wide)
     eng = FFTServeEngine(mesh)
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(ValueError, match="item 17"):
         eng.rescale_mesh(wide)
     eng.stop()
 

@@ -49,11 +49,14 @@ def test_port_sources_import_neither_jax_nor_reference():
     assert not offenders, offenders
     assert len(list(_modules())) >= 19
     # the planner's modules, the analysis endpoints, the pipeline, the
-    # FFT serving engine and the host mesh are among those imported above
+    # FFT serving engine and the meshes are among those imported above
     assert {"repro_torch.core.fft.rfft", "repro_torch.core.fft.wire",
             "repro_torch.core.fft.wisdom", "repro_torch.core.fft.spectrum",
             "repro_torch.core.insitu.endpoints.stats",
             "repro_torch.core.insitu.endpoints.spectral_monitor",
             "repro_torch.core.insitu.pipeline",
             "repro_torch.serve.fft_engine",
-            "repro_torch.launch.mesh"} <= set(_modules())
+            "repro_torch.launch.mesh",
+            # the cluster bring-up and the M→N transit path
+            "repro_torch.runtime.cluster",
+            "repro_torch.core.insitu.transit"} <= set(_modules())

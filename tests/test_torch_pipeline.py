@@ -419,3 +419,22 @@ def test_report_wall_freezes_at_drain(tmp_path):
         "idle time between batches leaked into wall_s"
     chain.finalize()
 
+
+
+def test_one_pipelined_chain_a_mesh_holds_its_host_group(tmp_path):
+    """The host tail gathers on the mesh's own gloo group: a second live
+    pipelined chain on the same mesh would pair its gathers with the
+    first's, so it is refused until the first is finalized."""
+    from repro_torch.compat import Mesh
+    mesh = Mesh(("data",), {"data": 2}, torch.device("cpu"), {"data": 0},
+                host_group=object())
+    cfg = {"mode": "pipelined", "chain": [
+        {"endpoint": "writer", "out_dir": str(tmp_path)}]}
+    first = build_chain(cfg, mesh=mesh)
+    assert first._host_group is mesh.host_group
+    with pytest.raises(ValueError, match="already runs a pipelined chain"):
+        build_chain(cfg, mesh=mesh)
+    first.finalize()
+    second = build_chain(cfg, mesh=mesh)
+    assert second._host_group is mesh.host_group
+    second.finalize()

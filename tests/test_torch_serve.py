@@ -3,9 +3,17 @@ engine's tokens against the reference engine's on the same weights and
 prompts (those of ``tests/test_engine.py``), and against the port's own
 serial greedy decoding; slot reuse; the entry point's report; the pipelined
 logits monitor (``--monitor-every``) against the run without it and its
-chain against the reference's; the flags that need modules not ported
-yet."""
+chain against the reference's; the cluster and ``--transit-consumers``
+flags (two gloo CPU ranks for the M→N monitor); the flags that need
+modules not ported yet."""
+import argparse
 import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +29,8 @@ from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import ContinuousBatcher, Request
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
 
 
 def serial_greedy(cfg, params, prompt, max_new):
@@ -110,22 +120,142 @@ def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
 
 
 # explicit ids: the ones these cases had while the list still held the
-# monitor flag (flags0) and the wisdom flag (flags3), both now ported and
-# tested below
+# monitor flag (flags0), the transit and cluster flags (flags1, flags4-6)
+# and the wisdom flag (flags3), all now ported and tested below
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--transit-consumers", "1"], "item 14",
-                 id="flags1-item 14"),
     pytest.param(["--elastic"], "item 17", id="flags2-item 17"),
-    pytest.param(["--coordinator", "localhost:1234"], "item 14",
-                 id="flags4-item 14"),
-    pytest.param(["--num-processes", "2"], "item 14", id="flags5-item 14"),
-    pytest.param(["--process-id", "0"], "item 14", id="flags6-item 14"),
     pytest.param(["--arch", "dbrx-132b"], "item 18", id="flags7-item 18"),
 ])
 def test_serve_flags_not_ported_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
                     *flags])
+
+
+CPU = ["--reduced", "--device", "cpu", "--bench-out", ""]
+
+
+class _BroughtUp(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--process-id", "1"], ("h:1", 2, 1)),
+    (["--coordinator", "f:2", "--num-processes", "3", "--process-id", "2"],
+     ("f:2", 3, 2))])
+def test_serve_brings_the_cluster_up_from_flags_over_env(monkeypatch, flags,
+                                                         want):
+    monkeypatch.setenv("REPRO_COORDINATOR", "h:1")
+    monkeypatch.setenv("REPRO_NUM_PROCESSES", "2")
+    seen = []
+
+    def fake(cfg, device=None):
+        seen.append(((cfg.coordinator, cfg.num_processes, cfg.process_id),
+                     device))
+        raise _BroughtUp
+    monkeypatch.setattr(serve, "init_cluster", fake)
+    with pytest.raises(_BroughtUp):
+        serve.main(CPU + flags)
+    assert seen == [(want, torch.device("cpu"))]
+
+
+def test_serve_refuses_a_producer_mesh_of_several_ranks():
+    with pytest.raises(SystemExit, match="item 18 part 5"):
+        serve.main(CPU + ["--coordinator", "localhost:1", "--num-processes",
+                          "3", "--process-id", "0", "--transit-consumers",
+                          "1"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--transit-consumers", "1"],
+    ["--coordinator", "localhost:1", "--num-processes", "2", "--process-id",
+     "0", "--transit-consumers", "2"]], ids=["one-process", "all-ranks"])
+def test_serve_refuses_transit_consumers_leaving_no_decode_rank(flags):
+    with pytest.raises(SystemExit, match="--transit-consumers .* leaves no "
+                                         "decode ranks"):
+        serve.main(CPU + flags)
+
+
+@pytest.mark.parametrize("tokens,every,batch,want", [
+    (8, 2, 2, [2, 2]), (5, 2, 2, [2, 1]), (7, 3, 4, [3])])
+def test_consumers_send_as_often_as_the_monitor_executes(
+        tmp_path, tokens, every, batch, want):
+    """A consumer rank calls ``send`` once per monitor execute, counted
+    from the flags: the same count, and the same batch extents, as the
+    engine's executes in place."""
+    args = argparse.Namespace(tokens=tokens, monitor_every=every,
+                              monitor_batch=batch)
+    assert serve._monitor_fields(args) == want
+    report = serve.main(CPU + [
+        "--batch", "2", "--prompt-len", "8", "--tokens", str(tokens),
+        "--monitor-every", str(every), "--monitor-batch", str(batch),
+        "--monitor-dir", str(tmp_path)])
+    assert report["monitor"]["submits"] == len(want)
+    assert report["monitor"]["snapshots"] == sum(want)
+
+
+TRANSIT_RANK = textwrap.dedent("""
+    import json, os, sys
+    from repro_torch.launch import serve
+    report = serve.main(json.loads(sys.argv[1]))
+    print(json.dumps(report), flush=True)
+    os._exit(0)
+""")
+
+
+def test_serve_transit_consumers_on_two_ranks(tmp_path):
+    """``--transit-consumers 1`` on two gloo CPU ranks started by the
+    ``REPRO_*`` env contract: rank 0 decodes the tokens of the run
+    without transit, rank 1 runs the monitor chain on the logits it is
+    sent and writes the files (the same bytes as the monitor in place),
+    rank 0 writes none, and both reports carry the ``transit`` block."""
+    base = CPU + ["--batch", "2", "--prompt-len", "8", "--tokens", "8",
+                  "--monitor-every", "2", "--monitor-batch", "2"]
+    inplace = serve.main(base + ["--monitor-dir", str(tmp_path / "inplace")])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        coord = f"localhost:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TRANSIT_RANK, json.dumps(
+            base + ["--monitor-dir", str(tmp_path / f"rank{r}"),
+                    "--transit-consumers", "1"])],
+        env=dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+                 REPRO_COORDINATOR=coord, REPRO_NUM_PROCESSES="2",
+                 REPRO_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+        log[-3000:] for log in logs)
+    decode, consume = (json.loads(log.strip().splitlines()[-1])
+                       for log in logs)
+    assert decode["sample"] == inplace["sample"]
+    assert consume["role"] == "consumer" and "sample" not in consume
+    assert (decode["monitor"]["submits"], decode["monitor"]["files"]) == \
+        (2, 0)
+    assert (consume["monitor"]["submits"], consume["monitor"]["files"]) == \
+        (2, 2)
+    cfg = registry.get_reduced("qwen3-4b")
+    for rep in (decode["transit"], consume["transit"]):
+        assert rep["via"] == "host" and rep["fields"] == 2
+        assert rep["bytes_moved"] == 2 * 2 * 2 * cfg.vocab_size * 4
+        assert rep["producer"]["processes"] == [0]
+        assert rep["consumer"]["processes"] == [1]
+    assert not list((tmp_path / "rank0").glob("*.npy"))
+    got = sorted((tmp_path / "rank1").glob("logit_stats_*.npy"))
+    want = sorted((tmp_path / "inplace").glob("logit_stats_*.npy"))
+    assert [f.name for f in got] == [f.name for f in want] == [
+        "logit_stats_000000.npy", "logit_stats_000001.npy"]
+    for g, w in zip(got, want):
+        assert np.array_equal(np.load(g), np.load(w))
 
 
 @pytest.mark.parametrize("mode", ["read", "readwrite", "off"])

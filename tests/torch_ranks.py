@@ -82,6 +82,17 @@ MEASURE_SLAB = (16, 64)
 MEASURE_3D = (8, 8, 8)
 MEASURE_HOSTED = (16, 256)
 MEASURE_HOSTS = ("a", "a", "b", "b")
+# transit: the reference's (16, 8) case (tests/test_multihost.py:137-166)
+# on a 2 -> 2 split, a (12, 8) field on 3 -> 1, five async fields; the
+# Fig. 2 chain (with the stats endpoint) on the 2-rank consumer mesh; the
+# ranks' fake hostnames for the multi-host mesh (host-major order 0, 2,
+# 1, 3)
+TRANSIT_FIELD = (16, 8)
+TRANSIT_3TO1 = (12, 8)
+TRANSIT_ASYNC = 5
+TRANSIT_CHAIN = (64, 96)
+TRANSIT_HOSTS = ("a", "b", "a", "b")
+TRANSIT_MEASURE = (16, 64)
 
 
 def case_id(decomp, direction, batched):
@@ -536,6 +547,254 @@ def _mini_schedule(key, mesh):
                                          sign),), tuple(spec), tuple(spec))
 
 
+def transit_chain(mode, decomp, out_dir=None):
+    """The Fig. 2 chain the transit consumers run, with the stats
+    endpoint; ``out_dir`` adds the writer."""
+    eps = [{"endpoint": "fft", "direction": "forward", "backend": "pallas",
+            "decomp": decomp},
+           {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
+           {"endpoint": "fft", "direction": "backward", "backend": "pallas",
+            "decomp": decomp},
+           {"endpoint": "stats", "array": "field"}]
+    if out_dir is not None:
+        eps.append({"endpoint": "writer", "out_dir": str(out_dir)})
+    return {"mode": mode, "pipeline_depth": PIPE_DEPTH, "chain": eps}
+
+
+def job_transit(inputs, out, workdir):
+    """The M→N bridge on four ranks: 2 -> 2 and 3 -> 1 bit identity and
+    accounting, the guards, the async hop's three behaviours, the Fig. 2
+    chain on the consumer mesh (insitu and pipelined, measured planning
+    agreed among the consumers only), the multi-host mesh on fake
+    hostnames, and a send the ranks disagree on or one rank skips."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import compat
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft import plan as P
+    from repro_torch.core.insitu.bridge import BridgeData
+    from repro_torch.core.insitu.config import build_chain
+    from repro_torch.core.insitu.pipeline import PipelineError
+    from repro_torch.core.insitu.transit import (
+        TransitBridge, require_producer_spans_cluster)
+    from repro_torch.launch.mesh import (describe_mesh, make_multihost_mesh,
+                                         make_transit_meshes,
+                                         make_transit_setup)
+    rank = dist.get_rank()
+    mine = {}
+
+    def gather(key, value):
+        seen = [None] * WORLD
+        dist.all_gather_object(seen, value)
+        out[key] = np.array(seen, dtype=object)
+
+    def placeholder(shape):
+        return torch.empty(shape, device="meta")
+
+    # 2 -> 2: the reference's (16, 8) case, a field and an (re, im) pair
+    pm, cm = make_transit_meshes(2, 2, device="cpu")
+    f = inputs["transit_f"]
+    spec = ("data", None)
+    bridge = TransitBridge(pm, cm)
+    if bridge.is_producer():
+        data = BridgeData(arrays={
+            "f": D.shard(f, pm, spec),
+            "s": (D.shard(f + 1, pm, spec), D.shard(f - 1, pm, spec))},
+            step=3, spec=spec)
+    else:
+        data = BridgeData(arrays={"f": placeholder(f.shape),
+                                  "s": (placeholder(f.shape),) * 2})
+    got = bridge.send(data)
+    rep = bridge.report()
+    if bridge.is_consumer():
+        whole = [D.unshard(x, cm, got.spec) for x in
+                 (got.arrays["f"], *got.arrays["s"])]
+        mine["2to2"] = (bool(np.array_equal(whole[0].numpy(), f)
+                             and np.array_equal(whole[1].numpy(), f + 1)
+                             and np.array_equal(whole[2].numpy(), f - 1)),
+                        got.arrays["f"].device.type, list(got.spec),
+                        got.step, tuple(got.arrays["f"].shape))
+    else:
+        mine["2to2"] = (got.arrays["f"] is None
+                        and got.arrays["s"] == (None, None), got.step)
+    mine["2to2_report"] = (rep["via"], rep["fields"], rep["bytes_moved"],
+                           rep["producer"], rep["consumer"])
+    # the same field whole on both producers: the lower rank's copy wins
+    both = BridgeData(arrays={"f": torch.from_numpy(f.copy())
+                              if bridge.is_producer()
+                              else placeholder(f.shape)})
+    got = bridge.send(both)
+    if bridge.is_consumer():
+        mine["replicated"] = bool(np.array_equal(
+            D.unshard(got.arrays["f"], cm, got.spec).numpy(), f))
+    # 3 -> 1
+    pm3, cm3 = make_transit_meshes(3, 1, device="cpu")
+    g = inputs["transit_g"]
+    b3 = TransitBridge(pm3, cm3)
+    got = b3.send(BridgeData(
+        arrays={"g": D.shard(g, pm3, spec) if b3.is_producer()
+                else placeholder(g.shape)}, spec=spec))
+    mine["3to1"] = (bool(np.array_equal(got.arrays["g"].numpy(), g))
+                    if b3.is_consumer() else got.arrays["g"] is None,
+                    got.spec, b3.report()["bytes_moved"])
+    # guards: overlap, device_put, a coverage gap, the role check
+    refused = []
+    for bad in ((pm, pm), (pm, cm)):
+        try:
+            TransitBridge(*bad, via="device_put" if bad[1] is cm else "auto")
+            refused.append(None)
+        except ValueError as err:
+            refused.append(str(err))
+    try:      # the second producer sends a placeholder: rows 8..15 miss
+        bridge.send(BridgeData(arrays={
+            "f": D.shard(f, pm, spec) if rank == pm.first_rank
+            else placeholder(f.shape)}, spec=spec))
+        refused.append(None)
+    except ValueError as err:
+        refused.append(str(err))
+    require_producer_spans_cluster(pm, "--transit-consumers",
+                                   consumer_mesh=cm)
+    pm21, cm21 = make_transit_meshes(2, 1, device="cpu")
+    try:
+        require_producer_spans_cluster(pm21, "--transit-consumers",
+                                       consumer_mesh=cm21)
+        refused.append(None)
+    except ValueError as err:
+        refused.append(str(err))
+    try:
+        make_transit_setup(WORLD, device="cpu")
+        refused.append(None)
+    except SystemExit as err:
+        refused.append(str(err))
+    mine["refused"] = refused
+    # async: in-order and bit-identical, drain mode
+    fields = [inputs[f"transit_async_{k}"] for k in range(TRANSIT_ASYNC)]
+
+    def field(k, arr):
+        return BridgeData(arrays={"f": D.shard(arr, pm, spec)
+                                  if bridge.is_producer()
+                                  else placeholder(arr.shape)},
+                          step=k, spec=spec)
+    ab = TransitBridge(pm, cm)
+    for k, arr in enumerate(fields):
+        ab.send_async(field(k, arr), depth=2)
+    delivered = ab.drain_async()
+    arep = ab.report()["async"]
+    mine["async"] = (
+        [d.step for d in delivered],
+        all(np.array_equal(D.unshard(d.arrays["f"], cm, d.spec).numpy(), a)
+            for d, a in zip(delivered, fields))
+        if ab.is_consumer() else all(d.arrays["f"] is None
+                                     for d in delivered),
+        sorted(arep), arep["completed"],
+        0.0 <= arep["overlap_efficiency"] <= 1.0, ab.drain_async() == [])
+    # backpressure: a slow hook bounds the queue at depth 1
+    inflight = {"now": 0, "max": 0}
+
+    def slow(data):
+        inflight["now"] += 1
+        inflight["max"] = max(inflight["max"], inflight["now"])
+        time.sleep(0.05)
+        inflight["now"] -= 1
+    bb = TransitBridge(pm, cm)
+    t0 = time.perf_counter()
+    for k in range(6):
+        bb.send_async(field(k, fields[0]), on_result=slow, depth=1)
+    submit_wall = time.perf_counter() - t0
+    bb.drain_async()
+    brep = bb.report()["async"]
+    mine["backpressure"] = (brep["completed"], brep["backpressure_s"] > 0.0,
+                            submit_wall > 0.15, inflight["max"])
+    # containment: a failed hop surfaces on the next send_async
+
+    def dying(data):
+        if data.step == 1:
+            raise RuntimeError("consumer died")
+    cb = TransitBridge(pm, cm)
+    err = None
+    try:
+        for k in range(3):
+            cb.send_async(field(k, fields[0]), on_result=dying, depth=2)
+        cb.drain_async(raise_error=False)
+        cb.send_async(field(9, fields[0]))
+    except PipelineError as e:
+        err = (e.step, e.endpoint, str(e.cause))
+    crep = cb.report()["async"]
+    mine["contained"] = (err, crep["dropped"], crep["error"] is not None)
+    # the Fig. 2 chain on the consumer mesh, from the producers' field
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    src = RadiatingSourceAdaptor(TRANSIT_CHAIN, mesh=pm, spec=spec)
+    sent = []
+    for step in range(2):
+        data = src.produce(step) if bridge.is_producer() else BridgeData(
+            arrays={"field": placeholder(TRANSIT_CHAIN),
+                    "clean_reference": placeholder(TRANSIT_CHAIN)})
+        sent.append(bridge.send(data))
+    if bridge.is_consumer():
+        runs = {}
+        for mode in ("insitu", "pipelined"):
+            chain = build_chain(transit_chain(
+                mode, "slab", workdir / f"transit_{mode}"), mesh=cm,
+                grid=sent[0].grid)
+            res = [chain.execute(d) for d in sent]
+            chain.drain()
+            files = chain.finalize()["writer"]["files"]
+            runs[mode] = (res, [Path(x).name for x in files])
+        res = runs["insitu"][0][0]
+        field_ = D.unshard(res.arrays["field"], cm, res.spec)
+        mine["chain"] = (
+            field_.numpy(),
+            [float(res.arrays["insitu_kept_energy"]),
+             float(res.arrays["insitu_total_energy"])],
+            res.arrays["insitu_stats"].numpy(),
+            D.unshard(sent[0].arrays["field"], cm, sent[0].spec).numpy(),
+            runs["insitu"][1], runs["pipelined"][1],
+            all(torch.equal(a.arrays["field"], b.arrays["field"])
+                for a, b in zip(runs["insitu"][0], runs["pipelined"][0])))
+        tuned = P.plan_dft(TRANSIT_MEASURE, "forward", cm,
+                           backend="measure")
+        mine["measured"] = (tuned.backend, tuned.overlap_chunks,
+                            str(tuned.wire_dtype))
+    # the multi-host mesh on fake hostnames: host-major ranks 0, 2, 1, 3
+    compat._hostname = lambda: TRANSIT_HOSTS[rank]
+    mh = make_multihost_mesh(device="cpu")
+    x = inputs["transit_mh"]
+    back = D.unshard(D.shard(x, mh, ("dcn", "data")), mh, ("dcn", "data"))
+    y = P.plan_dft(x.shape, "forward", mh, decomp="pencil2d",
+                   axis_names=("dcn", "data"), backend="pallas")
+    fx = y.unplace(*y.execute(*y.place(x.astype(np.complex64))))
+    try:
+        make_multihost_mesh(ici_axes={"data": 4}, device="cpu")
+        wrong = None
+    except ValueError as e:
+        wrong = str(e)
+    mine["multihost"] = (describe_mesh(mh), mh.ranks,
+                         bool(np.array_equal(back.numpy(), x)),
+                         (fx[0] + 1j * fx[1]).numpy(), wrong)
+    # a send the ranks disagree on, then one the consumers skip
+    try:
+        bridge.send(BridgeData(arrays={"f": D.shard(f, pm, spec)
+                                       if bridge.is_producer()
+                                       else placeholder((16, 9))},
+                               spec=spec))
+        disagree = None
+    except ValueError as e:
+        disagree = str(e)
+    short = TransitBridge(pm, cm, timeout_s=3)
+    missed = None
+    if short.is_producer():
+        t0 = time.perf_counter()
+        try:
+            short.send(BridgeData(arrays={"f": D.shard(f, pm, spec)},
+                                  spec=spec))
+        except RuntimeError as e:
+            missed = (str(e), time.perf_counter() - t0)
+    mine["mismatch"] = (disagree, missed)
+    gather("transit", mine)
+
+
 def main():
     job, rank, world, workdir = sys.argv[1:5]
     rank, world, workdir = int(rank), int(world), Path(workdir)
@@ -550,7 +809,8 @@ def main():
     out = {}
     try:
         {"distributed": job_distributed, "schedule": job_schedule,
-         "rfft": job_rfft, "wire": job_wire}[job](inputs, out, workdir)
+         "rfft": job_rfft, "wire": job_wire,
+         "transit": job_transit}[job](inputs, out, workdir)
         dist.barrier()
         if rank == 0:
             tmp = workdir / "outputs.tmp.npz"
