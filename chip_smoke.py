@@ -22,7 +22,11 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
   * the M->N in-transit path (phase 8): producer and consumer meshes of
     ranks sharing the card, brought up by ``runtime.cluster`` from the
     REPRO_* env contract, the fields moved by ``TransitBridge``, and
-    ``serve --transit-consumers 1``.
+    ``serve --transit-consumers 1``;
+  * the pseudo-spectral solvers (phase 9): NS2D at 8192^2 and Boussinesq
+    at 512^3 stepped on the card through the r2c/c2r plans, checkpoint
+    and restart, four ranks on the card, and ``launch/solver.py`` in
+    transit on three.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -156,6 +160,34 @@ Phases, each printing one JSON line:
      runs the monitor): phase 5's tokens, the monitor's files on rank 1
      only, prefill and decode ms beside phase 7's in-place monitored
      serve, the transit block;
+  9. solver — ``core/solver`` on one card at full size: NS2D 8192^2
+     (r2c slab, if_rk4) Taylor-Green (nu 0.1, dt 0.01, 20 steps) within
+     1e-5 of E0 e^{-4 nu t}; a random field (seed 3), inviscid rk4, dt
+     2e-3, 20 steps conserving energy and enstrophy within 1e-5 with sum
+     E(k) = E within 1e-5, its first 5 steps through torch.fft
+     (``backend="jnp"``, no kernel launched) within 1e-4 of max |w| of
+     the kernels' steps; restart (4 steps, ``save``, ``restore`` into a
+     fresh solver, 4 more) bit-identical to 8 straight steps; Boussinesq
+     512^3 (r2c slab3d, if_rk4) Beltrami (nu 0.05, dt 0.01, 15 steps)
+     within 1e-5 of E0 e^{-2 nu t}, and buoyancy from rest (gravity 1,
+     5 steps) making kinetic energy. Per solver: ms a step (host clock to
+     ``synchronize()``), device busy ms a step (steps queued behind a
+     spin kernel, CUDA events), the idle share, launches a step by
+     wrapper and by kernel symbol (profiler), device ms by kernel, peak
+     ``max_memory_allocated``. Four ranks on the card over gloo
+     (``--job solver_ranks``): NS2D 2048^2 on (4,) slab and (2, 2)
+     pencil2d, Boussinesq 128^3 on (2, 2) pencil and pencil_tf, r2c and
+     c2c, 3 steps each, each within 1e-4 of max |one-rank| of the same
+     case run here. ``launch/solver.py`` on three ranks by the REPRO_*
+     env contract (``--job solver_launch``, then ``solver_restore``):
+     NS2D 2048^2, 10 steps, a report every 5, ``--transit-consumers 1
+     --transit-async``, spectra on the consumer only, the final energy
+     within 1e-5 of a one-rank run here, checkpoints every 5 steps on
+     each producer; then ``--restore`` continues from step 10 to 20
+     (Taylor-Green's closed form within 1e-5). Every FFT shape the
+     solvers gave the kernels (recorded at ``kernels.ops``; the batched
+     (4, 8192, 4097) columns and (9, 512, 512, 257) along axes 0 and 1
+     among them) against the plain versions, torch.fft and float64;
 then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
@@ -164,6 +196,7 @@ anything.
 Run from the repository root:  python3 chip_smoke.py
 """
 import contextlib
+import functools
 import json
 import math
 import os
@@ -354,6 +387,50 @@ TRANSIT_ASYNC_FIELDS = 4
 TRANSIT_DEPTH = 2
 # the transit serve: phase 5's serve on two ranks, rank 1 the consumer
 TRANSIT_SERVE_WORLD = 2
+# phase 9, the spectral solvers on the card. One card, full size: NS2D at
+# 8192^2 (r2c slab, 268 MB a spectral field) and Boussinesq at 512^3 (r2c
+# slab3d, 1 GB of spectral state), each on the if_rk4 main path. The
+# closed forms: Taylor-Green E0 e^{-4 nu t}, Beltrami E0 e^{-2 nu t}
+# (tests/test_solver.py:142-196), at the reference's 1e-5 (:202)
+SOLVER_NS2D = (8192, 8192)
+SOLVER_BQ3D = (512, 512, 512)
+SOLVER_TG = {"nu": 0.1, "dt": 0.01, "steps": 20}
+SOLVER_INVISCID = {"dt": 2e-3, "steps": 20, "seed": 3, "bins": 32}
+SOLVER_BELTRAMI = {"nu": 0.05, "dt": 0.01, "steps": 15}
+SOLVER_BUOYANCY_STEPS = 5
+SOLVER_ORACLE_TOL = 1e-5
+# the kernels against torch.fft (backend "jnp", the reference's jnp.fft
+# backend) over the same steps from the same state, relative to max |w|
+SOLVER_JNP_STEPS = 5
+SOLVER_JNP_TOL = 1e-4
+SOLVER_RESTART_STEPS = 4
+# steps a metric is taken over (host ms, queued device busy ms), and the
+# spin the queued steps wait behind (it must outlast their enqueueing).
+# Steps queue behind the spin only as far as the launches pending on the
+# device fit the CUDA launch queue (~1024 entries; past it a launch waits
+# for the device): SOLVER_LAUNCH_QUEUE launches at most
+SOLVER_METRIC_REPS = {"ns2d": 3, "bq3d": 2}
+SOLVER_QUEUE_SPIN_S = {"ns2d": QUEUE_SPIN_S, "bq3d": 1.0}
+SOLVER_LAUNCH_QUEUE = 900
+# four ranks on the card over gloo: (solver, decomposition, mesh, grid,
+# real), 3 steps each from init_random, each held to a one-rank run of
+# the same case on the card within RANK_TOL of max |one-rank|
+SOLVER_RANK_CASES = (("ns2d", "slab", "(4,)", (2048, 2048), True),
+                     ("ns2d", "pencil2d", "(2, 2)", (2048, 2048), True),
+                     ("bq3d", "pencil", "(2, 2)", (128, 128, 128), True),
+                     ("bq3d", "pencil", "(2, 2)", (128, 128, 128), False),
+                     ("bq3d", "pencil_tf", "(2, 2)", (128, 128, 128), True),
+                     ("bq3d", "pencil_tf", "(2, 2)", (128, 128, 128), False))
+SOLVER_RANK_STEPS = 3
+SOLVER_RANK_KW = {"ns2d": {"nu": 5e-3, "dt": 5e-3},
+                  "bq3d": {"nu": 0.02, "kappa": 0.02, "gravity": 1.0,
+                           "dt": 5e-3}}
+SOLVER_RANK_SEED = {"ns2d": 3, "bq3d": 5}
+# launch/solver.py on three ranks by the REPRO_* env contract (2 producers,
+# 1 consumer), then --restore on the same ranks
+SOLVER_LAUNCH_WORLD = 3
+SOLVER_LAUNCH_ARGS = ("--solver", "ns2d", "--grid", "2048", "2048",
+                      "--steps", "10", "--monitor-every", "5")
 
 
 def emit(obj) -> None:
@@ -765,18 +842,18 @@ def device_profile(fn, reps: int = 1):
     return wall_ms, rows
 
 
-def queued_device_ms(fn, reps: int) -> float:
+def queued_device_ms(fn, reps: int, spin_s: float = QUEUE_SPIN_S) -> float:
     """Device time of one run of ``fn`` with no host gaps: ``reps`` runs
-    queued behind a spin kernel that outlasts the host's enqueueing (the
-    event after the spin must still be pending when the last run is
-    queued), timed by CUDA events between the spin's end and the last
-    kernel's. Needs no trace, so it loses no kernel."""
+    queued behind a spin kernel of ``spin_s`` that outlasts the host's
+    enqueueing (the event after the spin must still be pending when the
+    last run is queued), timed by CUDA events between the spin's end and
+    the last kernel's. Needs no trace, so it loses no kernel."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * QUEUE_SPIN_S))
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * spin_s))
     start.record()
     for _ in range(reps):
         fn()
@@ -784,7 +861,7 @@ def queued_device_ms(fn, reps: int) -> float:
     queued = not start.query()
     stop.synchronize()
     if not queued:
-        raise AssertionError(f"the host took longer than the {QUEUE_SPIN_S}"
+        raise AssertionError(f"the host took longer than the {spin_s}"
                              f" s spin to queue {reps} runs (or waited "
                              f"for the device)")
     return start.elapsed_time(stop) / reps
@@ -2681,6 +2758,459 @@ def transit_phase(out_dir, unmonitored, monitored):
     return ranks, serve_ranks
 
 
+def solver_metrics(s, counters, reps, spin_s):
+    """One solver's step on the card: ms a step (host clock around
+    ``reps`` steps ended by ``synchronize()``), the host's ms to enqueue
+    one step, device time by kernel and launches a step (profiler; by
+    kernel symbol for FFT_KERNELS, and by wrapper as counted), device
+    busy ms a step (as many of ``reps`` steps as fit SOLVER_LAUNCH_QUEUE
+    queued behind a spin kernel of ``spin_s``, CUDA events; else the
+    profiler's sum alone), the idle share, and the caching allocator's
+    retries (each a cudaFree of cached blocks, which waits for the
+    device)."""
+    import torch
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.step(reps)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    s.step(1)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    counted = launch_counts(counters)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
+        - retries0
+    wall_ms, rows = device_profile(lambda: s.step(1))
+    launches = sum(c for _, _, c in rows)
+    queued = min(reps, int(SOLVER_LAUNCH_QUEUE // launches))
+    busy = queued_device_ms(lambda: s.step(1), queued, spin_s) \
+        if queued else None
+    profiled = sum(t for _, t, _ in rows)
+    return {"ms_per_step": host_ms, "enqueue_ms_per_step": enqueue_ms,
+            "alloc_retries": retries,
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "device_busy_ms_per_step": busy, "queued_steps": queued,
+            "profiled_device_ms_per_step": profiled,
+            "traced_launches_total_per_step": launches,
+            "device_idle_share": 1.0 - (profiled if busy is None
+                                        else busy) / host_ms,
+            "launches_per_step": counted,
+            "traced_launches_per_step": {
+                k: round(sum(c for n, _, c in rows if k in n))
+                for k in FFT_KERNELS},
+            "profiled_wall_ms": wall_ms,
+            "device_ms_by_kind": kernel_kinds(rows),
+            "by_kernel_ms": [{"name": n[:80], "ms": t, "launches": c}
+                             for n, t, c in rows[:12]]}
+
+
+def kernel_kinds(rows):
+    """Profiler rows (name, ms, launches) summed by kind: the port's FFT
+    kernels, cuFFT (the r2c/c2r endcaps), copies (stack, contiguous,
+    memcpy) and the rest (elementwise arithmetic)."""
+    out = dict.fromkeys(("fft_kernels", "cufft", "copies", "elementwise"),
+                        0.0)
+    for n, t, _ in rows:
+        low = n.lower()
+        kind = ("fft_kernels" if any(k in n for k in FFT_KERNELS)
+                else "cufft" if "fft" in low
+                else "copies" if "copy" in low or "memcpy" in low
+                else "elementwise")
+        out[kind] += t
+    return out
+
+
+def fresh_peak() -> int:
+    """Free what earlier runs cached (cuFFT keeps a workspace with each
+    cached plan), restart the peak count, and return the bytes still
+    allocated: a solver's ``peak_bytes`` counts them too."""
+    import torch
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def ns2d_one_card(mesh, counters):
+    """NS2D at SOLVER_NS2D on one card (r2c slab): Taylor-Green against
+    its closed form, with the step's metrics and peak memory; a random
+    field, inviscid rk4, conserving energy and enstrophy with sum E(k) =
+    E; its first SOLVER_JNP_STEPS steps through torch.fft (backend
+    "jnp") against the kernels; restart bit-identical."""
+    import numpy as np
+    import torch
+    from repro_torch.core.solver import NS2DSolver
+    out = {"solver": "ns2d", "grid": list(SOLVER_NS2D), "decomp": "slab",
+           "real": True, "stepper": "if_rk4"}
+    out["allocated_before_bytes"] = fresh_peak()
+    t0 = time.perf_counter()
+    tg = NS2DSolver(SOLVER_NS2D, mesh, nu=SOLVER_TG["nu"],
+                    dt=SOLVER_TG["dt"])
+    tg.init_taylor_green()
+    out["bring_up_s"] = time.perf_counter() - t0
+    e0 = tg.energy()
+    zero_counts(counters)
+    tg.step(SOLVER_TG["steps"])
+    torch.cuda.synchronize()
+    out["taylor_green_launches"] = launch_counts(counters)
+    want = e0 * math.exp(-4.0 * SOLVER_TG["nu"] * tg.t)
+    out["taylor_green"] = {"e0": e0, "energy": tg.energy(), "want": want,
+                           "rel_err": abs(tg.energy() - want) / want,
+                           "steps": SOLVER_TG["steps"]}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(solver_metrics(tg, counters, SOLVER_METRIC_REPS["ns2d"],
+                              SOLVER_QUEUE_SPIN_S["ns2d"]))
+    del tg
+    # inviscid rk4 from a random field; its first steps also through
+    # torch.fft from the same state
+    inv = NS2DSolver(SOLVER_NS2D, mesh, nu=0.0, dt=SOLVER_INVISCID["dt"],
+                     stepper="rk4")
+    inv.init_random(seed=SOLVER_INVISCID["seed"])
+    start = tuple(t.clone() for t in inv.state)
+    e0, z0 = inv.energy(), inv.enstrophy()
+    inv.step(SOLVER_JNP_STEPS)
+    w_kernels = inv.vorticity()
+    inv.step(SOLVER_INVISCID["steps"] - SOLVER_JNP_STEPS)
+    e1, z1 = inv.energy(), inv.enstrophy()
+    _, ek = inv.spectrum(SOLVER_INVISCID["bins"])
+    out["inviscid"] = {"energy_rel_err": abs(e1 - e0) / e0,
+                       "enstrophy_rel_err": abs(z1 - z0) / z0,
+                       "spectrum_sum_rel_err":
+                           abs(float(np.sum(ek, dtype=np.float64)) - e1) / e1,
+                       "steps": SOLVER_INVISCID["steps"]}
+    del inv
+    ref = NS2DSolver(SOLVER_NS2D, mesh, nu=0.0, dt=SOLVER_INVISCID["dt"],
+                     stepper="rk4", backend="jnp")
+    ref.state = tuple(t.clone() for t in start)
+    zero_counts(counters)
+    ref.step(SOLVER_JNP_STEPS)
+    w_ref = ref.vorticity()
+    out["jnp_backend"] = {
+        "steps": SOLVER_JNP_STEPS, "kernel_launches": launch_counts(counters),
+        "rel_err": float(np.max(np.abs(w_kernels - w_ref))
+                         / np.max(np.abs(w_ref)))}
+    del ref, w_ref, w_kernels
+    # restart: 8 steps straight against 4, save, restore into a fresh
+    # solver started from another state, 4 more
+    ckpt_dir = ROOT / "build" / "chip_smoke_solver_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = {"nu": 1e-3, "dt": SOLVER_INVISCID["dt"]}
+    a, b, c = (NS2DSolver(SOLVER_NS2D, mesh, **kw) for _ in range(3))
+    a.state = tuple(t.clone() for t in start)
+    b.state = tuple(t.clone() for t in start)
+    del start
+    a.step(2 * SOLVER_RESTART_STEPS)
+    b.step(SOLVER_RESTART_STEPS)
+    t0 = time.perf_counter()
+    b.save(ckpt_dir)
+    save_s = time.perf_counter() - t0
+    del b
+    c.init_taylor_green()
+    t0 = time.perf_counter()
+    restored = c.restore(ckpt_dir)
+    restore_s = time.perf_counter() - t0
+    c.step(SOLVER_RESTART_STEPS)
+    same = all(torch.equal(x, y) for x, y in zip(a.state, c.state))
+    out["restart"] = {"restored_step": restored, "bit_identical": same,
+                      "step_count": [a.step_count, c.step_count],
+                      "t_equal": a.t == c.t, "save_s": save_s,
+                      "restore_s": restore_s}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del a, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def bq3d_one_card(mesh, counters):
+    """Boussinesq at SOLVER_BQ3D on one card (r2c slab3d): Beltrami
+    against its closed form, with the step's metrics and peak memory;
+    buoyancy from rest (gravity 1, a buoyancy field sin y + cos z, zero
+    velocity) must make kinetic energy."""
+    import numpy as np
+    import torch
+    from repro_torch.core.solver import Boussinesq3DSolver
+    out = {"solver": "bq3d", "grid": list(SOLVER_BQ3D), "decomp": "slab3d",
+           "real": True, "stepper": "if_rk4"}
+    out["allocated_before_bytes"] = fresh_peak()
+    t0 = time.perf_counter()
+    bel = Boussinesq3DSolver(SOLVER_BQ3D, mesh, nu=SOLVER_BELTRAMI["nu"],
+                             dt=SOLVER_BELTRAMI["dt"], decomp="slab3d")
+    bel.init_beltrami()
+    out["bring_up_s"] = time.perf_counter() - t0
+    e0 = bel.energy()
+    zero_counts(counters)
+    bel.step(SOLVER_BELTRAMI["steps"])
+    torch.cuda.synchronize()
+    out["beltrami_launches"] = launch_counts(counters)
+    want = e0 * math.exp(-2.0 * SOLVER_BELTRAMI["nu"] * bel.t)
+    out["beltrami"] = {"e0": e0, "energy": bel.energy(), "want": want,
+                       "rel_err": abs(bel.energy() - want) / want,
+                       "steps": SOLVER_BELTRAMI["steps"]}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(solver_metrics(bel, counters, SOLVER_METRIC_REPS["bq3d"],
+                              SOLVER_QUEUE_SPIN_S["bq3d"]))
+    del bel
+    torch.cuda.empty_cache()
+    g = Boussinesq3DSolver(SOLVER_BQ3D, mesh, gravity=1.0, dt=0.01,
+                           decomp="slab3d")
+    n0, n1, n2 = SOLVER_BQ3D
+    y = (2.0 * np.pi * np.arange(n1) / n1)[None, :, None]
+    z = (2.0 * np.pi * np.arange(n2) / n2)[None, None, :]
+    zero = np.zeros(SOLVER_BQ3D, np.float32)
+    g.init_fields((zero, zero, zero),
+                  np.broadcast_to(np.sin(y) + np.cos(z), SOLVER_BQ3D))
+    ke0 = g.energy()
+    g.step(SOLVER_BUOYANCY_STEPS)
+    out["buoyancy"] = {"ke0": ke0, "ke": g.energy(),
+                       "scalar_variance": g.scalar_variance(),
+                       "steps": SOLVER_BUOYANCY_STEPS}
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def solver_rank_case(solver, decomp, grid, real, mesh):
+    """One four-rank case's solver, from init_random (not stepped)."""
+    from repro_torch.core.solver import Boussinesq3DSolver, NS2DSolver
+    cls = NS2DSolver if solver == "ns2d" else Boussinesq3DSolver
+    s = cls(grid, mesh, decomp=decomp, real=real, **SOLVER_RANK_KW[solver])
+    s.init_random(seed=SOLVER_RANK_SEED[solver])
+    return s
+
+
+def solver_case_id(solver, decomp, mkey, real):
+    return (f"{solver}_{decomp}_"
+            f"{mkey.strip('()').strip(',').replace(', ', 'x')}"
+            f"_{'r2c' if real else 'c2c'}")
+
+
+def solver_rank_worker(rank, world, store):
+    """One rank of phase 9's four-rank runs: every SOLVER_RANK_CASES case
+    on its mesh over gloo (the ranks share cuda:0), SOLVER_RANK_STEPS
+    steps; rank 0 saves each gathered field for the parent to hold
+    against its one-rank run. Its JSON line lists the launches, the wall
+    time and the FFT shapes its runs gave the kernels."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compat import make_mesh
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    _build.library()                # built by the parent
+    dev = "cuda:0"
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    meshes = {"(4,)": make_mesh((4,), ("data",), device=dev),
+              "(2, 2)": make_mesh((2, 2), ("data", "model"), device=dev)}
+    out_dir = Path(store).parent
+    cases, shapes = [], set()
+    with recording_fft_shapes(shapes):
+        for solver, decomp, mkey, grid, real in SOLVER_RANK_CASES:
+            cid = solver_case_id(solver, decomp, mkey, real)
+            s = solver_rank_case(solver, decomp, grid, real, meshes[mkey])
+            zero_counts(counters)
+            dist.barrier()
+            t0 = time.perf_counter()
+            s.step(SOLVER_RANK_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(counters)
+            field = s.vorticity() if solver == "ns2d" else s.field("u0")
+            energy = s.energy()
+            if rank == 0:
+                np.save(out_dir / f"{cid}.npy", field)
+            cases.append({"case": cid, "wall_s_per_step":
+                          wall / SOLVER_RANK_STEPS, "launches": launches,
+                          "energy": energy,
+                          "finite": bool(np.isfinite(field).all())})
+            del s
+    print(json.dumps({"rank": rank, "ok": True, "cases": cases,
+                      "fft_shapes": sorted(shapes)}), flush=True)
+    dist.barrier()
+
+
+def solver_launch_worker(rank, world, store, restore=False):
+    """One rank of phase 9's ``launch/solver.py`` in transit (the REPRO_*
+    env contract; gloo, the ranks share the card): SOLVER_LAUNCH_ARGS
+    with ``--transit-consumers 1 --transit-async``, spectra to a
+    directory of this rank's own, checkpoints every 5 steps; with
+    ``restore``, ``--restore`` from those checkpoints."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import solver
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()                # built by the parent
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    base = Path(store).parent
+    spectra = base / f"spectra{'_restored' if restore else ''}_rank{rank}"
+    argv = list(SOLVER_LAUNCH_ARGS) + [
+        "--spectra-dir", str(spectra), "--transit-consumers", "1",
+        "--transit-async", "--ckpt-dir", str(base / "ckpt"),
+        "--ckpt-every", "5"] + (["--restore"] if restore else [])
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):
+        summary = solver.main(argv)
+    print(json.dumps({"rank": rank, "summary": summary,
+                      "launches": launch_counts(counters),
+                      "files": sorted(f.name for f in spectra.glob("*.npy")),
+                      "peak_bytes": torch.cuda.max_memory_allocated()},
+                     default=str), flush=True)
+
+
+def solver_phase(counters, gen):
+    """Phase 9: the spectral solvers. One card at full size (NS2D 8192^2,
+    Boussinesq 512^3), launches counted over the whole one-card path;
+    four ranks on the card against one-rank runs; ``launch/solver.py``
+    on three ranks in transit, then restored; every FFT shape the solvers
+    gave the kernels against the plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.compat import make_mesh
+    from repro_torch.launch import solver as solver_launch
+    t_phase = time.perf_counter()
+    mesh = make_mesh((1,), ("data",))
+    shapes = set()
+    t0 = time.perf_counter()
+    with recording_fft_shapes(shapes):
+        ns2d = ns2d_one_card(mesh, counters)
+        emit({"phase": "solver_ns2d", **ns2d})
+        bq3d = bq3d_one_card(mesh, counters)
+        emit({"phase": "solver_bq3d", **bq3d})
+    one_card_s = time.perf_counter() - t0
+    for res, run in ((ns2d, "taylor_green_launches"),
+                     (bq3d, "beltrami_launches")):
+        assert res[run]["fft_fourstep"] > 0, res
+        counted = res["launches_per_step"]
+        assert counted["fft_fourstep"] > 0, res
+        # the profiler kept every FFT launch of the step it traced
+        assert sum(res["traced_launches_per_step"].values()) == \
+            counted["fft_fourstep"] + counted["fft_stockham"], res
+    assert ns2d["taylor_green"]["rel_err"] < SOLVER_ORACLE_TOL, ns2d
+    inv = ns2d["inviscid"]
+    assert inv["energy_rel_err"] < SOLVER_ORACLE_TOL, ns2d
+    assert inv["enstrophy_rel_err"] < SOLVER_ORACLE_TOL, ns2d
+    assert inv["spectrum_sum_rel_err"] < SOLVER_ORACLE_TOL, ns2d
+    assert ns2d["jnp_backend"]["rel_err"] < SOLVER_JNP_TOL, ns2d
+    assert ns2d["jnp_backend"]["kernel_launches"]["fft_fourstep"] == 0, ns2d
+    rs = ns2d["restart"]
+    assert rs["bit_identical"] and rs["t_equal"], ns2d
+    assert rs["restored_step"] == SOLVER_RESTART_STEPS, ns2d
+    assert bq3d["beltrami"]["rel_err"] < SOLVER_ORACLE_TOL, bq3d
+    assert bq3d["buoyancy"]["ke0"] == 0.0, bq3d
+    assert bq3d["buoyancy"]["ke"] > 0.0, bq3d
+
+    # four ranks on the card, each case against its one-rank run here
+    out_dir = ROOT / "build" / "chip_smoke_solver"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks, wall = spawn_ranks("solver_ranks", RANK_WORLD, out_dir / "ranks")
+    rank_s = time.perf_counter() - t0
+    rows = []
+    with recording_fft_shapes(shapes):
+        for (solver, decomp, mkey, grid, real), four in zip(
+                SOLVER_RANK_CASES, ranks[0]["cases"]):
+            cid = solver_case_id(solver, decomp, mkey, real)
+            axes = 2 if mkey == "(2, 2)" else 1
+            one = solver_rank_case(solver, decomp, grid, real,
+                                   make_mesh((1,) * axes,
+                                             ("data", "model")[:axes]))
+            one.step(SOLVER_RANK_STEPS)
+            want = one.vorticity() if solver == "ns2d" else one.field("u0")
+            got = np.load(out_dir / "ranks" / f"{cid}.npy")
+            rows.append({
+                "case": cid, "grid": list(grid),
+                "rel_err": float(np.max(np.abs(got - want))
+                                 / np.max(np.abs(want))),
+                "energy_rel_err": abs(four["energy"] - one.energy())
+                / one.energy(),
+                "wall_s_per_step_rank0": four["wall_s_per_step"],
+                "launches_rank0": four["launches"]})
+            del one
+    for r in ranks:
+        shapes.update(tuple(v) for v in r.pop("fft_shapes"))
+    emit({"phase": "solver_ranks", "ranks": RANK_WORLD, "wall_s": wall,
+          "steps": SOLVER_RANK_STEPS, "tol": RANK_TOL, "cases": rows})
+    for row, case in zip(rows, SOLVER_RANK_CASES):
+        assert row["rel_err"] < RANK_TOL, row
+        assert row["energy_rel_err"] < RANK_TOL, row
+        small = min(case[3]) < 256
+        kernel = "fft_stockham" if small else "fft_fourstep"
+        assert row["launches_rank0"][kernel] > 0, row
+
+    # launch/solver.py: one rank here, then three ranks in transit, then
+    # restored on the same three
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        one_rank = solver_launch.main(list(SOLVER_LAUNCH_ARGS) + [
+            "--spectra-dir", str(out_dir / "one_rank_spectra")])
+    env = cluster_env(SOLVER_LAUNCH_WORLD)
+    first, _ = spawn_ranks("solver_launch", SOLVER_LAUNCH_WORLD,
+                           out_dir / "launch", env=env)
+    second, _ = spawn_ranks("solver_restore", SOLVER_LAUNCH_WORLD,
+                            out_dir / "launch",
+                            env=cluster_env(SOLVER_LAUNCH_WORLD))
+    launch_s = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+    nu, dt = 1e-3, 5e-3            # the launcher's defaults
+    closed = 0.25 * math.exp(-4.0 * nu * 20 * dt)   # Taylor-Green, t(20)
+    p0 = first[0]["summary"]
+    res = {"phase": "solver_launch", "world": SOLVER_LAUNCH_WORLD,
+           "argv": list(SOLVER_LAUNCH_ARGS),
+           "one_rank_final": one_rank["final"],
+           "one_rank_wall_s": one_rank["wall_s"],
+           "transit_final": p0["final"],
+           "energy_rel_err_vs_one_rank":
+               abs(p0["final"]["energy"] - one_rank["final"]["energy"])
+               / one_rank["final"]["energy"],
+           "files_by_rank": [r["files"] for r in first],
+           "launches_by_rank": [r["launches"] for r in first],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in first],
+           "wall_s_by_rank": [r["summary"].get("wall_s") for r in first],
+           "transit": p0["transit"],
+           "restored_final": second[0]["summary"]["final"],
+           "restored_files_by_rank": [r["files"] for r in second],
+           "restored_energy_rel_err_vs_closed_form":
+               abs(second[0]["summary"]["final"]["energy"] - closed)
+               / closed,
+           "seconds": launch_s}
+    emit(res)
+    names = ["ns2d_spectrum_000005.npy", "ns2d_spectrum_000010.npy"]
+    assert res["files_by_rank"] == [[], [], names], res
+    assert res["energy_rel_err_vs_one_rank"] < SOLVER_ORACLE_TOL, res
+    assert res["restored_final"]["step"] == 20, res
+    assert res["restored_files_by_rank"] == [[], [], [
+        "ns2d_spectrum_000015.npy", "ns2d_spectrum_000020.npy"]], res
+    assert res["restored_energy_rel_err_vs_closed_form"] \
+        < SOLVER_ORACLE_TOL, res
+    assert all(r["launches"]["fft_fourstep"] > 0 for r in first[:2]), res
+    assert not any(first[2]["launches"].values()), res
+
+    # every FFT shape the solvers gave the kernels, against the plain
+    # versions
+    t0 = time.perf_counter()
+    checks = check_path_shapes(shapes, gen)
+    emit({"phase": "solver_shape_checks", "shapes": len(checks),
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "solver_seconds", "one_card_s": one_card_s,
+          "four_ranks_s": rank_s, "launch_s": launch_s,
+          "seconds": time.perf_counter() - t_phase})
+    return {"ns2d": ns2d, "bq3d": bq3d, "ranks": rows, "launch": res,
+            "shape_checks": checks}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2991,6 +3521,10 @@ def main() -> int:
         ROOT / "build" / "chip_smoke_transit", serve_report, monitored)
     shutil.rmtree(ROOT / "build" / "chip_smoke_transit", ignore_errors=True)
 
+    # 9. the spectral solvers: NS2D 8192^2 and Boussinesq 512^3 on one
+    # card, four ranks on the card, launch/solver.py in transit
+    solvers = solver_phase(all_counters, gen)
+
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
         (producers first) and the transit serve (rank 0 decodes)."""
@@ -2999,6 +3533,34 @@ def main() -> int:
                     for r in transit_fig2],
                 "transit_serve_by_rank": [r["launches"][name]
                                           for r in transit_serve]}
+
+    def phase9_launches(name):
+        """A kernel's launches on phase 9: each one-card solver's checked
+        run and one step of it, rank 0's four-rank cases a run, and each
+        rank of launch/solver.py in transit; and the solvers' FFT shapes
+        held on it."""
+        return {"solver_launches": {
+                    "ns2d_taylor_green_run":
+                        solvers["ns2d"]["taylor_green_launches"][name],
+                    "ns2d_per_step":
+                        solvers["ns2d"]["launches_per_step"][name],
+                    "bq3d_beltrami_run":
+                        solvers["bq3d"]["beltrami_launches"][name],
+                    "bq3d_per_step":
+                        solvers["bq3d"]["launches_per_step"][name],
+                    "four_ranks_rank0": {r["case"]: r["launches_rank0"][name]
+                                         for r in solvers["ranks"]},
+                    "launch_transit_by_rank": [
+                        r[name] for r in
+                        solvers["launch"]["launches_by_rank"]]},
+                "solver_shapes": [
+                    {"shape": r["shape"], "axis": r.get("axis", -1),
+                     "max_rel_err": max(r["max_rel_err"] or 0.0,
+                                        r["inverse_max_rel_err"] or 0.0)
+                     if r["plain_held"] else None,
+                     "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
+                                               r["inverse_rel_err_vs_f64"])}
+                    for r in solvers["shape_checks"] if r["kernel"] == name]}
 
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
@@ -3119,6 +3681,7 @@ def main() -> int:
              real_shapes=real_shape_checks("fft_fourstep"),
              **phase7_launches("fft_fourstep"),
              **phase8_launches("fft_fourstep"),
+             **phase9_launches("fft_fourstep"),
              half_width_columns=[
                  {"shape": r["shape"], "axis": -2,
                   "route": r["column_route"], "lines": r["lines"],
@@ -3141,14 +3704,16 @@ def main() -> int:
              real_launches=real_path_launches("fft_stockham"),
              real_shapes=real_shape_checks("fft_stockham"),
              **phase7_launches("fft_stockham"),
-             **phase8_launches("fft_stockham")),
+             **phase8_launches("fft_stockham"),
+             **phase9_launches("fft_stockham")),
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
              distributed_launches=dist_launches("bandpass_filter"),
              real_launches=real_path_launches("bandpass_filter"),
              **phase7_launches("bandpass_filter"),
-             **phase8_launches("bandpass_filter")),
+             **phase8_launches("bandpass_filter"),
+             **phase9_launches("bandpass_filter")),
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",
@@ -3160,6 +3725,7 @@ def main() -> int:
          "monitored_serve_launches": monitored["launches"][
              "flash_attention"],
          **phase8_launches("flash_attention"),
+         **phase9_launches("flash_attention"),
          "shape": flash[0]["shape"], "dtype": flash[0]["dtype"],
          "max_abs_err": flash[0]["max_abs_err"],
          "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
@@ -3183,7 +3749,12 @@ if __name__ == "__main__":
     if "--rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         worker = {"ranks": rank_worker, "transit": transit_worker,
-                  "transit_serve": transit_serve_worker}[args["--job"]]
+                  "transit_serve": transit_serve_worker,
+                  "solver_ranks": solver_rank_worker,
+                  "solver_launch": solver_launch_worker,
+                  "solver_restore": functools.partial(solver_launch_worker,
+                                                      restore=True),
+                  }[args["--job"]]
         try:
             worker(int(args["--rank"]), int(args["--world"]),
                    args["--store"])

@@ -10,27 +10,12 @@ diagnostic.
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
-
 import torch
 
 from repro_torch.core.fft.spectrum import tensor_spectrum_summary
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
-
-
-def tree_leaves_with_path(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) of every leaf of nested dicts, lists and tuples, in
-    ``jax.tree_util`` order (dict keys sorted), with its ``keystr``
-    paths (``['a'][0]``)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree)
-                for leaf in tree_leaves_with_path(tree[k],
-                                                  f"{path}[{k!r}]")]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for i, v in enumerate(tree)
-                for leaf in tree_leaves_with_path(v, f"{path}[{i}]")]
-    return [(path, tree)]
+from repro_torch.tree_util import tree_leaves_with_path
 
 
 class SpectralMonitorEndpoint(Endpoint):

@@ -674,3 +674,43 @@ def test_transit_host_hop_between_ranks_sharing_the_card(gen):
     assert producer["backend"] == consumer["backend"] == "gloo"
     assert producer["same"] == [] and consumer["same"] == [True] * 3
     assert consumer["devices"] == ["cuda:0"] * 3
+
+
+# ---------------------------------------------------------------------------
+# The spectral solvers: steps on the kernels against the same steps on the
+# plain versions (the plan's "fourstep"/"stockham" backend, plain PyTorch)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("solver,grid,decomp,real,stepper", [
+    ("ns2d", (256, 256), "slab", True, "if_rk4"),
+    ("ns2d", (200, 256), "slab", False, "rk4"),
+    ("bq3d", (32, 32, 64), "pencil", True, "if_rk4"),
+    ("bq3d", (32, 32, 32), "pencil_tf", False, "rk4")])
+def test_solver_steps_on_the_kernels_match_plain(gen, solver, grid, decomp,
+                                                 real, stepper):
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.solver import Boussinesq3DSolver, NS2DSolver
+    axes = 2 if decomp in ("pencil", "pencil_tf") else 1
+    mesh = make_mesh((1,) * axes, ("data", "model")[:axes])
+    out = {}
+    for backend in ("auto", "fourstep"):
+        if solver == "ns2d":
+            s = NS2DSolver(grid, mesh, nu=5e-3, dt=5e-3, decomp=decomp,
+                           real=real, stepper=stepper, backend=backend)
+        else:
+            s = Boussinesq3DSolver(grid, mesh, nu=0.02, kappa=0.02,
+                                   gravity=1.0, dt=5e-3, decomp=decomp,
+                                   real=real, stepper=stepper,
+                                   backend=backend)
+        s.init_random(seed=3)
+        before = ops.fft_fourstep.launches + ops.fft_stockham.launches
+        s.step(3)
+        torch.cuda.synchronize()
+        launched = ops.fft_fourstep.launches + ops.fft_stockham.launches \
+            - before
+        assert (launched > 0) == (backend == "auto"), (backend, launched)
+        out[backend] = (s.vorticity() if solver == "ns2d"
+                        else s.field("u0"), s.energy())
+    (got, e_got), (want, e_want) = out["auto"], out["fourstep"]
+    assert float(abs(got - want).max() / abs(want).max()) < 1e-4
+    assert abs(e_got - e_want) / e_want < 1e-5

@@ -59,4 +59,12 @@ def test_port_sources_import_neither_jax_nor_reference():
             "repro_torch.launch.mesh",
             # the cluster bring-up and the M→N transit path
             "repro_torch.runtime.cluster",
-            "repro_torch.core.insitu.transit"} <= set(_modules())
+            "repro_torch.core.insitu.transit",
+            # the spectral solvers, checkpoints and their entry point
+            "repro_torch.tree_util", "repro_torch.ckpt",
+            "repro_torch.ckpt.checkpoint", "repro_torch.core.solver",
+            "repro_torch.core.solver.spectral",
+            "repro_torch.core.solver.stepper",
+            "repro_torch.core.solver.base", "repro_torch.core.solver.ns2d",
+            "repro_torch.core.solver.bq3d",
+            "repro_torch.launch.solver"} <= set(_modules())

@@ -94,6 +94,23 @@ TRANSIT_CHAIN = (64, 96)
 TRANSIT_HOSTS = ("a", "b", "a", "b")
 TRANSIT_MEASURE = (16, 64)
 
+# the spectral solvers: (solver, decomposition, mesh, real) on four ranks,
+# each held to the reference's run of the same decomposition on four host
+# devices (fields, energies, and the basis tables each rank cut)
+SOLVER_GRIDS = {"ns2d": (64, 64), "bq3d": (16, 16, 16)}
+SOLVER_KW = {"ns2d": dict(nu=5e-3, dt=5e-3),
+             "bq3d": dict(nu=0.02, kappa=0.02, gravity=1.0, dt=5e-3)}
+SOLVER_STEPS = {"ns2d": 5, "bq3d": 3}
+SOLVER_SEED = {"ns2d": 3, "bq3d": 5}
+SOLVER_CASES = ([("ns2d", d, m, real)
+                 for d, m in (("slab", "1d"), ("pencil2d", "2d"))
+                 for real in (True, False)]
+                + [("bq3d", d, m, real)
+                   for d, m in (("slab3d", "1d"), ("pencil", "2d"),
+                                ("pencil_tf", "2d"))
+                   for real in (True, False)])
+SOLVER_TABLES = ("k2", "inv_k2", "dealias", "weights")
+
 
 def case_id(decomp, direction, batched):
     return f"{decomp}-{direction}-{'batched' if batched else 'single'}"
@@ -101,6 +118,29 @@ def case_id(decomp, direction, batched):
 
 def wire_id(wire, split, concat):
     return f"{wire}_{split}_{concat}"
+
+
+def solver_id(solver, decomp, real):
+    return f"{solver}_{decomp}_{'r2c' if real else 'c2c'}"
+
+
+def solver_case(ns2d_cls, bq3d_cls, case, mesh):
+    """One case's solver (the reference's classes or the port's),
+    initialized from the seed and stepped."""
+    solver, decomp, _, real = case
+    cls = ns2d_cls if solver == "ns2d" else bq3d_cls
+    s = cls(SOLVER_GRIDS[solver], mesh, decomp=decomp, real=real,
+            **SOLVER_KW[solver])
+    s.init_random(seed=SOLVER_SEED[solver])
+    s.step(SOLVER_STEPS[solver])
+    return s
+
+
+def solver_fields(s, solver):
+    """The natural-layout real fields a case is held to (collective)."""
+    if solver == "ns2d":
+        return {"w": s.vorticity()}
+    return {"u0": s.field("u0"), "b": s.field("b")}
 
 
 def a2a_input(rank):
@@ -795,6 +835,34 @@ def job_transit(inputs, out, workdir):
     gather("transit", mine)
 
 
+def job_solver(inputs, out, workdir):
+    """The spectral solvers on every decomposition of SOLVER_CASES:
+    every rank steps its blocks and gathers the fields and the basis
+    tables (each rank's block broadcast to its block of the spectral
+    grid, gathered under the forward plan's output spec)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.solver import Boussinesq3DSolver, NS2DSolver
+    meshes = _meshes()
+    for case in SOLVER_CASES:
+        solver, decomp, mkey, real = case
+        cid = solver_id(solver, decomp, real)
+        s = solver_case(NS2DSolver, Boussinesq3DSolver, case, meshes[mkey])
+        got = solver_fields(s, solver)
+        got["energy"] = np.array(s.energy())
+        b = s.basis
+        block = tuple(s.state[0].shape if solver == "ns2d"
+                      else s.state["u0"][0].shape)
+        tables = {f"k{ax}": k for ax, k in enumerate(b.k)}
+        tables.update({name: getattr(b, name) for name in SOLVER_TABLES})
+        for name, t in tables.items():
+            full = torch.broadcast_to(t, block).contiguous()
+            got["table_" + name] = b.fwd.unplace(full).numpy()
+        if dist.get_rank() == 0:
+            for k, v in got.items():
+                out[f"solver_{cid}_{k}"] = v
+
+
 def main():
     job, rank, world, workdir = sys.argv[1:5]
     rank, world, workdir = int(rank), int(world), Path(workdir)
@@ -810,7 +878,8 @@ def main():
     try:
         {"distributed": job_distributed, "schedule": job_schedule,
          "rfft": job_rfft, "wire": job_wire,
-         "transit": job_transit}[job](inputs, out, workdir)
+         "transit": job_transit,
+         "solver": job_solver}[job](inputs, out, workdir)
         dist.barrier()
         if rank == 0:
             tmp = workdir / "outputs.tmp.npz"
