@@ -26,7 +26,11 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
   * the pseudo-spectral solvers (phase 9): NS2D at 8192^2 and Boussinesq
     at 512^3 stepped on the card through the r2c/c2r plans, checkpoint
     and restart, four ranks on the card, and ``launch/solver.py`` in
-    transit on three.
+    transit on three;
+  * the elastic consumer mesh (phase 10): an ``ElasticController`` over
+    four ranks on the card shrinks its consumer mesh on a dropped
+    heartbeat and grows it back, and ``launch/solver.py --elastic`` runs
+    on three.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -188,6 +192,26 @@ Phases, each printing one JSON line:
      solvers gave the kernels (recorded at ``kernels.ops``; the batched
      (4, 8192, 4097) columns and (9, 512, 512, 257) along axes 0 and 1
      among them) against the plain versions, torch.fft and float64;
+  10. elastic — this script started four times (``--job elastic``) by
+     the REPRO_* env contract, ``make_elastic_setup(2)`` (2 producers, a
+     pool of 2 consumers) and the reference's chaos scenario
+     (tests/test_elastic.py:497-600) at 8192^2 complex on a fresh wisdom
+     file: a measured slab plan on the (2,) consumer mesh (cold: its
+     seconds, candidates timed), 3 pending 2048^2 c2c engine requests,
+     pool rank 0's heartbeats dropped from step 2, detected at step 3, a
+     shrink to (1,) failing the 3 with MeshRescaled, a resubmit and the
+     (1,) mesh's measured plan, a grow back to (2,) planned from wisdom
+     (no candidate timed) with output bit-identical to generation 0's;
+     every transform's block within 1e-4 of max |X| of float64 and its
+     ms a call (host clock to ``synchronize()``); then one radiating-source
+     field sent through the controller to the Fig. 2 chain on the grown
+     mesh (against float64) and two engine requests batched across its
+     two ranks; each rescale's ``wall_s``, launches and peak memory by
+     rank. Then ``launch/solver.py --elastic --transit-consumers 2`` on
+     three ranks (``--job elastic_solver``; phase 9's NS2D 2048^2, slab)
+     against one rank here: the same final report and bit-identical
+     spectra, on the first consumer only. Every FFT shape of the
+     scenario against the plain versions, torch.fft and float64;
 then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
@@ -431,6 +455,24 @@ SOLVER_RANK_SEED = {"ns2d": 3, "bq3d": 5}
 SOLVER_LAUNCH_WORLD = 3
 SOLVER_LAUNCH_ARGS = ("--solver", "ns2d", "--grid", "2048", "2048",
                       "--steps", "10", "--monitor-every", "5")
+# phase 10, the elastic consumer mesh: ELASTIC_WORLD ranks on the card by
+# the REPRO_* env contract (2 producers, a pool of 2 consumers), the
+# reference's chaos scenario (tests/test_elastic.py:497-600) at
+# ELASTIC_DIMS complex on a fresh wisdom file: a measured slab plan, a
+# heartbeat drop of pool rank 0 from step 2 (detected at step 3, the lease
+# 1 step, 2 misses), the engine's ELASTIC_PENDING pending requests at
+# ELASTIC_ENGINE_SHAPE c2c failed by the shrink, a resubmit, the grow
+# planned from wisdom; each transform within ELASTIC_TOL of max |X| of
+# the float64 oracle. Then launch/solver.py --elastic on three ranks
+# (phase 9's size, one solver rank, two consumers) against one rank here
+ELASTIC_WORLD = 4
+ELASTIC_DIMS = (8192, 8192)
+ELASTIC_PENDING = 3
+ELASTIC_ENGINE_SHAPE = (2048, 2048)
+ELASTIC_TOL = 1e-4
+ELASTIC_CHAOS_STEPS = 8
+ELASTIC_FFT_CALLS = 3
+ELASTIC_SOLVER_WORLD = 3
 
 
 def emit(obj) -> None:
@@ -2505,6 +2547,29 @@ def cluster_env(world):
                       "REPRO_PROCESS_ID": str(r)}
 
 
+def fig2_checks(got, res, mesh, dims):
+    """A delivered field (``got``) and the consumers' Fig. 2 chain output
+    (``res``) against float64 (collective over ``mesh``): the denoised
+    field's max abs error, the kept and total energies' relative
+    errors, finiteness."""
+    import torch
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft.filters import lowpass_mask
+    noisy = D.unshard(got.arrays["field"], mesh, got.spec).double()
+    out = D.unshard(res.arrays["field"], mesh, res.spec).double()
+    spec64 = torch.fft.fft2(noisy)
+    power = spec64.real ** 2 + spec64.imag ** 2
+    mask = lowpass_mask(dims, KEEP_FRAC).to(noisy.device)
+    kept64, total64 = float((power * mask).sum()), float(power.sum())
+    want = torch.fft.ifft2(spec64 * mask).real
+    kept = float(res.arrays["insitu_kept_energy"])
+    total = float(res.arrays["insitu_total_energy"])
+    return {"field_max_abs_err": float((out - want).abs().max()),
+            "kept_rel_err": abs(kept - kept64) / kept64,
+            "total_rel_err": abs(total - total64) / total64,
+            "finite": bool(torch.isfinite(out).all())}
+
+
 def transit_worker(rank, world, store):
     """One rank of phase 8's Fig. 2 in transit: ``init_cluster`` from the
     env contract (gloo: the ranks share the card), producer and consumer
@@ -2518,8 +2583,6 @@ def transit_worker(rank, world, store):
     import hashlib
     import torch
     import torch.distributed as dist
-    from repro_torch.core.fft import distributed as D
-    from repro_torch.core.fft.filters import lowpass_mask
     from repro_torch.core.fft.plan import FORWARD, plan_dft
     from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
     from repro_torch.core.insitu.bridge import BridgeData, GridMeta
@@ -2578,20 +2641,7 @@ def transit_worker(rank, world, store):
         res = chain.execute(got)
         if got.step:
             return
-        noisy = D.unshard(got.arrays["field"], cm, got.spec).double()
-        out = D.unshard(res.arrays["field"], cm, res.spec).double()
-        spec64 = torch.fft.fft2(noisy)
-        power = spec64.real ** 2 + spec64.imag ** 2
-        mask = lowpass_mask(dims, KEEP_FRAC).to(noisy.device)
-        kept64, total64 = float((power * mask).sum()), float(power.sum())
-        want = torch.fft.ifft2(spec64 * mask).real
-        kept = float(res.arrays["insitu_kept_energy"])
-        total = float(res.arrays["insitu_total_energy"])
-        checks.update(
-            field_max_abs_err=float((out - want).abs().max()),
-            kept_rel_err=abs(kept - kept64) / kept64,
-            total_rel_err=abs(total - total64) / total64,
-            finite=bool(torch.isfinite(out).all()))
+        checks.update(fig2_checks(got, res, cm, dims))
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
@@ -3070,6 +3120,325 @@ def solver_launch_worker(rank, world, store, restore=False):
                      default=str), flush=True)
 
 
+def elastic_worker(rank, world, store):
+    """One rank of phase 10: the chaos scenario on the card (module
+    docstring; ELASTIC_* constants). Prints each rescale event, the cold
+    and warm plan seconds, the consumers' transform ms a call on the (2,)
+    and (1,) meshes, every error against float64, the launches, the FFT
+    shapes given to the kernels and the peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft import plan as P
+    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
+    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
+    from repro_torch.core.insitu.config import build_chain
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_elastic_setup
+    from repro_torch.runtime.cluster import cluster_info, init_cluster
+    from repro_torch.runtime.fault import (HEARTBEAT_DROP, SLOW_RANK,
+                                           FaultSchedule, InjectedFault,
+                                           StragglerMonitor)
+    from repro_torch.serve.fft_engine import FFTServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_cluster()                  # the REPRO_* env contract, on the card
+    info = cluster_info()
+    assert info["backend"] == "gloo" and info["process_count"] == world, \
+        info
+    _build.library()                # built by the parent
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    base = Path(store).parent
+    P.set_wisdom(base / "wisdom.json", "readwrite")   # fresh: see the phase
+    dims = ELASTIC_DIMS
+    shapes, res, events = set(), {"phase": "elastic_rank", "rank": rank}, []
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    recording = contextlib.ExitStack()
+    recording.enter_context(recording_fft_shapes(shapes))
+    step_box = [0]
+    pm, ctl = make_elastic_setup(
+        2, lease=1.0, max_misses=2, clock=lambda: float(step_box[0]),
+        plan_kwargs={"decomp": "slab", "backend": "measure",
+                     "allow_reduced_wire": False})
+    res["pool"] = {str(r): v["rank"] for r, v in ctl.consumer_ranks().items()}
+    field = oracle = None
+    if ctl.is_consumer():   # the same seeded field on every consumer
+        g = torch.Generator(device="cuda").manual_seed(11)
+        field = torch.randn(dims, generator=g, device="cuda",
+                            dtype=torch.complex64)
+        oracle = torch.fft.fft2(field.to(torch.complex128))
+        xmax = float(oracle.abs().max())
+
+    def transform(tag):
+        """Plan on the current consumer mesh (timed: cold or warm), run
+        ELASTIC_FFT_CALLS calls (host clock to synchronize), and hold
+        this rank's output block against the oracle's."""
+        mesh = ctl.consumer_mesh
+        t0 = time.perf_counter()
+        plan = ctl.plan(dims)
+        plan_s = time.perf_counter() - t0
+        stats = ctl.plan_stats()
+        args = plan.place(field)
+        ms = []
+        for _ in range(ELASTIC_FFT_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plan.execute(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        want = D.shard(oracle, mesh, plan.schedule().out_spec)
+        got = torch.complex(out[0].double(), out[1].double())
+        res[tag] = {"mesh": list(mesh.members), "plan_s": plan_s,
+                    "backend": plan.backend,
+                    "overlap_chunks": plan.overlap_chunks,
+                    "sweep_candidates_timed":
+                        stats["sweep_candidates_timed"],
+                    "wisdom_hits": stats["wisdom_hits"],
+                    "ms_per_call": statistics.median(ms), "ms": ms,
+                    "rel_err": float((got - want).abs().max()) / xmax}
+        return out
+
+    def engine_err(fut, payload):
+        want = np.fft.fft2(payload.astype(np.complex128))
+        got = np.asarray(fut.result(timeout=ENGINE_TIMEOUT_S))
+        return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+    rng = np.random.default_rng(5)
+    payloads = [(rng.standard_normal(ELASTIC_ENGINE_SHAPE)
+                 + 1j * rng.standard_normal(ELASTIC_ENGINE_SHAPE))
+                .astype(np.complex64) for _ in range(ELASTIC_PENDING)]
+    dist.barrier()
+    t_start = time.perf_counter()
+    # generation 0: cold measured bring-up, the winner recorded to wisdom
+    out0 = transform("gen0") if ctl.is_consumer() else None
+    eng = FFTServeEngine(ctl.consumer_mesh, max_batch=4, linger_s=10.0,
+                         plan_kwargs={"decomp": "slab"})
+    ctl.attach_engine(eng)
+    pend = [eng.submit(x) for x in payloads] if ctl.is_consumer() else []
+    sched = FaultSchedule([
+        InjectedFault(mode=HEARTBEAT_DROP, step=2, rank=0),
+        InjectedFault(mode=SLOW_RANK, step=1, rank=1, duration=2,
+                      slow_factor=1.5)])
+    mon = StragglerMonitor()
+    ev = None
+    for step in range(1, ELASTIC_CHAOS_STEPS):
+        step_box[0] = step
+        for r in ctl.active_ranks():
+            mon.observe(step, 0.1 * sched.slow_factor(step, r), rank=r)
+        ctl.heartbeat_all(drop=[r for r in ctl.active_ranks()
+                                if sched.drops_heartbeat(step, r)])
+        ev = ctl.tick(straggler_report=mon.rank_report())
+        if ev is not None:
+            break
+    res["detected_at_step"] = step_box[0]
+    assert ev is not None, res
+    events.append(ev)
+    res["pending_errors"] = sorted({type(f.exception(60)).__name__
+                                    for f in pend})
+    # the resubmit and the shrunk (1,) mesh's plan, on the survivor
+    if ctl.is_consumer():
+        fut = eng.submit(payloads[0])
+    eng.step(force=True)
+    eng.drain(timeout=ENGINE_TIMEOUT_S)
+    if ctl.is_consumer():
+        res["resubmit_rel_err"] = engine_err(fut, payloads[0])
+        transform("gen1")
+    # grow back onto generation 0's topology: planning from wisdom alone
+    events.append(ctl.rescale(n=2, rejoin_ranks=[0], drain=True,
+                              reason="capacity rejoined"))
+    if ctl.is_consumer():
+        out2 = transform("gen2")
+        res["bit_identical"] = bool(torch.equal(out0[0], out2[0])
+                                    and torch.equal(out0[1], out2[1]))
+        del out0, out2
+    # the Fig. 2 chain on the grown mesh, fed through the controller
+    src = RadiatingSourceAdaptor(dims, mesh=pm, spec=("data", None)) \
+        if ctl.is_producer() else None
+    if src is not None:
+        data = src.produce(0)
+        data = data.replace(arrays={"field": data.arrays["field"]})
+    else:
+        data = BridgeData(arrays={"field": torch.empty(dims,
+                                                       device="meta")})
+    t0 = time.perf_counter()
+    got = ctl.send(data)
+    res["hop_s"] = time.perf_counter() - t0
+    if ctl.is_consumer():
+        chain = build_chain({"mode": "insitu", "chain": [
+            {"endpoint": "fft", "direction": "forward", "backend": "pallas",
+             "decomp": "slab"},
+            {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
+            {"endpoint": "fft", "direction": "backward", "backend": "pallas",
+             "decomp": "slab"}]}, mesh=ctl.consumer_mesh, grid=GridMeta(dims))
+        res["chain"] = fig2_checks(got, chain.execute(got),
+                                   ctl.consumer_mesh, dims)
+        chain.finalize()
+        # the engine across the grown mesh: one agreed batch of two
+        futs = [eng.submit(x) for x in payloads[1:]]
+        eng.step(force=True)
+        eng.drain(timeout=ENGINE_TIMEOUT_S)
+        res["engine_across_rel_err"] = max(
+            engine_err(f, x) for f, x in zip(futs, payloads[1:]))
+    eng.stop()
+    torch.cuda.synchronize()
+    recording.close()
+    res.update(
+        seconds=time.perf_counter() - t_start, cluster=info,
+        role=("producer" if ctl.is_producer() else "consumer"),
+        events=[{k: e[k] for k in (
+            "generation", "reason", "drain", "from_devices", "to_devices",
+            "excluded_ids", "consumer_span", "plans_evicted", "engine",
+            "wall_s")} for e in events],
+        state=ctl.state, generation=ctl.generation,
+        launches=launch_counts(counters),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        fft_shapes=sorted(shapes))
+    print(json.dumps(res), flush=True)
+    dist.barrier()
+
+
+def elastic_solver_worker(rank, world, store):
+    """One rank of phase 10's ``launch/solver.py --elastic``
+    (SOLVER_LAUNCH_ARGS with ``--decomp slab --transit-consumers 2
+    --elastic``; the REPRO_* env contract, gloo, the ranks share the
+    card)."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import solver
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()                # built by the parent
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    spectra = Path(store).parent / f"spectra_rank{rank}"
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):
+        summary = solver.main(list(SOLVER_LAUNCH_ARGS) + [
+            "--decomp", "slab", "--spectra-dir", str(spectra),
+            "--transit-consumers", "2", "--elastic"])
+    print(json.dumps({"rank": rank, "summary": summary,
+                      "launches": launch_counts(counters),
+                      "files": sorted(f.name for f in spectra.glob("*.npy")),
+                      "peak_bytes": torch.cuda.max_memory_allocated()},
+                     default=str), flush=True)
+
+
+def elastic_phase(gen):
+    """Phase 10: the elastic consumer mesh on ranks sharing the card (the
+    chaos scenario at ELASTIC_DIMS), then ``launch/solver.py --elastic``
+    on three ranks against one rank here, then every FFT shape the
+    phase gave the kernels against the plain versions."""
+    import numpy as np
+    from repro_torch.launch import solver as solver_launch
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(out_dir, ignore_errors=True)     # a fresh wisdom file
+    ranks, wall = spawn_ranks("elastic", ELASTIC_WORLD, out_dir / "chaos",
+                              env=cluster_env(ELASTIC_WORLD))
+    shapes = set()
+    for r in ranks:
+        shapes.update(tuple(v) for v in r.pop("fft_shapes"))
+    pool = ranks[2:]
+    res = {"phase": "elastic", "ranks": ELASTIC_WORLD,
+           "dims": list(ELASTIC_DIMS), "wall_s": wall,
+           "backend": ranks[0]["cluster"]["backend"],
+           "rescale_wall_s": {"shrink": [r["events"][0]["wall_s"]
+                                         for r in ranks],
+                              "grow": [r["events"][1]["wall_s"]
+                                       for r in ranks]},
+           "plan_s": {g: [r[g]["plan_s"] for r in pool if g in r]
+                      for g in ("gen0", "gen1", "gen2")},
+           "fft_ms_per_call": {g: [r[g]["ms_per_call"] for r in pool
+                                   if g in r]
+                               for g in ("gen0", "gen1", "gen2")},
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+           "results": ranks}
+    emit(res)
+    for r in ranks:
+        assert r["detected_at_step"] == 3, r
+        shrink, grow = r["events"]
+        assert (shrink["generation"], shrink["to_devices"],
+                shrink["drain"]) == (1, 1, False), r
+        assert shrink["excluded_ids"] == [2] and \
+            shrink["consumer_span"] == [3], r
+        assert (grow["generation"], grow["to_devices"],
+                grow["consumer_span"]) == (2, 2, [2, 3]), r
+        assert r["state"] == "serving" and r["generation"] == 2, r
+    for r in pool:
+        assert r["events"][0]["engine"]["failed_pending"] == \
+            ELASTIC_PENDING, r
+        assert r["events"][0]["plans_evicted"] > 0, r
+        assert r["pending_errors"] == ["MeshRescaled"], r
+        assert r["gen0"]["sweep_candidates_timed"] > 0, r
+        assert r["gen2"]["sweep_candidates_timed"] == 0, r
+        assert r["gen2"]["wisdom_hits"] > 0, r
+        assert r["bit_identical"], r
+        for g in ("gen0", "gen2"):
+            assert r[g]["rel_err"] < ELASTIC_TOL, r
+        assert r["chain"]["finite"] and \
+            r["chain"]["field_max_abs_err"] < FIELD_TOL, r
+        assert r["chain"]["kept_rel_err"] < ENERGY_TOL, r
+        assert r["chain"]["total_rel_err"] < ENERGY_TOL, r
+        assert r["engine_across_rel_err"] < ELASTIC_TOL, r
+        assert r["launches"]["fft_fourstep"] > 0, r
+        assert r["launches"]["bandpass_filter"] > 0, r
+    survivor = ranks[3]
+    assert survivor["gen1"]["rel_err"] < ELASTIC_TOL, survivor
+    assert survivor["resubmit_rel_err"] < ELASTIC_TOL, survivor
+    for r in ranks[:2]:             # producers run no transform
+        assert not any(r["launches"].values()), r
+
+    # launch/solver.py --elastic on three ranks, against one rank here
+    t0 = time.perf_counter()
+    flags = list(SOLVER_LAUNCH_ARGS) + ["--decomp", "slab"]
+    one_dir = out_dir / "one_rank_spectra"
+    with contextlib.redirect_stdout(sys.stderr):
+        one_rank = solver_launch.main(flags + ["--spectra-dir",
+                                               str(one_dir)])
+    launch, _ = spawn_ranks("elastic_solver", ELASTIC_SOLVER_WORLD,
+                            out_dir / "solver",
+                            env=cluster_env(ELASTIC_SOLVER_WORLD))
+    names = ["ns2d_spectrum_000005.npy", "ns2d_spectrum_000010.npy"]
+    first = out_dir / "solver" / "spectra_rank1"
+    same = [bool(np.array_equal(np.load(first / n), np.load(one_dir / n)))
+            for n in names] if (first / names[0]).exists() else []
+    p0 = launch[0]["summary"]
+    sres = {"phase": "elastic_solver", "world": ELASTIC_SOLVER_WORLD,
+            "argv": flags + ["--transit-consumers", "2", "--elastic"],
+            "one_rank_final": one_rank["final"], "final": p0["final"],
+            "spectra_bit_identical": same,
+            "files_by_rank": [r["files"] for r in launch],
+            "launches_by_rank": [r["launches"] for r in launch],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in launch],
+            "wall_s_by_rank": [r["summary"].get("wall_s") for r in launch],
+            "elastic": p0["elastic"], "seconds": time.perf_counter() - t0}
+    emit(sres)
+    assert sres["final"] == sres["one_rank_final"], sres
+    assert same == [True, True], sres
+    assert sres["files_by_rank"] == [[], names, []], sres
+    assert p0["elastic"]["generation"] == 0, sres
+    assert launch[0]["launches"]["fft_fourstep"] > 0, sres
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # every FFT shape the chaos scenario gave the kernels
+    t0 = time.perf_counter()
+    checks = check_path_shapes(shapes, gen)
+    emit({"phase": "elastic_shape_checks", "shapes": len(checks),
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "elastic_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return {"ranks": ranks, "solver": sres, "shape_checks": checks}
+
+
 def solver_phase(counters, gen):
     """Phase 9: the spectral solvers. One card at full size (NS2D 8192^2,
     Boussinesq 512^3), launches counted over the whole one-card path;
@@ -3525,6 +3894,10 @@ def main() -> int:
     # card, four ranks on the card, launch/solver.py in transit
     solvers = solver_phase(all_counters, gen)
 
+    # 10. the elastic consumer mesh: shrink and grow at 8192^2 on four
+    # ranks, launch/solver.py --elastic on three
+    elastic = elastic_phase(gen)
+
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
         (producers first) and the transit serve (rank 0 decodes)."""
@@ -3561,6 +3934,22 @@ def main() -> int:
                      "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
                                                r["inverse_rel_err_vs_f64"])}
                     for r in solvers["shape_checks"] if r["kernel"] == name]}
+
+    def phase10_launches(name):
+        """A kernel's launches on phase 10, by rank: the chaos scenario
+        (producers first) and launch/solver.py --elastic; and the
+        phase's FFT shapes held on it."""
+        return {"elastic_launches": {
+                    "chaos_by_rank": [r["launches"][name]
+                                      for r in elastic["ranks"]],
+                    "solver_by_rank": [r[name] for r in
+                                       elastic["solver"]["launches_by_rank"]]},
+                "elastic_shapes": [
+                    {"shape": r["shape"], "axis": r.get("axis", -1),
+                     "max_rel_err_vs_f64": max(r["rel_err_vs_f64"],
+                                               r["inverse_rel_err_vs_f64"])}
+                    for r in elastic["shape_checks"]
+                    if r["kernel"] == name]}
 
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
@@ -3682,6 +4071,7 @@ def main() -> int:
              **phase7_launches("fft_fourstep"),
              **phase8_launches("fft_fourstep"),
              **phase9_launches("fft_fourstep"),
+             **phase10_launches("fft_fourstep"),
              half_width_columns=[
                  {"shape": r["shape"], "axis": -2,
                   "route": r["column_route"], "lines": r["lines"],
@@ -3705,7 +4095,8 @@ def main() -> int:
              real_shapes=real_shape_checks("fft_stockham"),
              **phase7_launches("fft_stockham"),
              **phase8_launches("fft_stockham"),
-             **phase9_launches("fft_stockham")),
+             **phase9_launches("fft_stockham"),
+             **phase10_launches("fft_stockham")),
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
@@ -3713,7 +4104,8 @@ def main() -> int:
              real_launches=real_path_launches("bandpass_filter"),
              **phase7_launches("bandpass_filter"),
              **phase8_launches("bandpass_filter"),
-             **phase9_launches("bandpass_filter")),
+             **phase9_launches("bandpass_filter"),
+             **phase10_launches("bandpass_filter")),
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:95",
@@ -3726,6 +4118,7 @@ def main() -> int:
              "flash_attention"],
          **phase8_launches("flash_attention"),
          **phase9_launches("flash_attention"),
+         **phase10_launches("flash_attention"),
          "shape": flash[0]["shape"], "dtype": flash[0]["dtype"],
          "max_abs_err": flash[0]["max_abs_err"],
          "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
@@ -3754,6 +4147,8 @@ if __name__ == "__main__":
                   "solver_launch": solver_launch_worker,
                   "solver_restore": functools.partial(solver_launch_worker,
                                                       restore=True),
+                  "elastic": elastic_worker,
+                  "elastic_solver": elastic_solver_worker,
                   }[args["--job"]]
         try:
             worker(int(args["--rank"]), int(args["--world"]),

@@ -35,12 +35,12 @@ cyclic input), ``fourstep_freq_of_position`` (output position → DFT
 bin for the four-step digit order, also axis 0 of the transpose-free
 pencil output) and ``fourstep_position_of_freq`` (its inverse).
 
-Not here: ``reshard`` (reference ``:253``), a move of a field between
-two meshes' shardings inside one program. No endpoint of either package
-calls it (``Endpoint.in_sharding`` is None everywhere); the M→N move
-between producer and consumer meshes is ``core/insitu/transit.py``.
-``reshard`` waits with ROADMAP queue 1 item 17, whose consumer-mesh
-rescale is where a program moves a field between its own meshes.
+``reshard`` (reference ``:253``, a ``device_put`` to another
+``NamedSharding``) moves a field from one mesh's blocks under one spec
+to another mesh's blocks under another: the meshes may be the same, or
+overlap, or not. No endpoint of either package calls it
+(``Endpoint.in_sharding`` is None everywhere); the producers' hop onto a
+consumer mesh is ``core/insitu/transit.py``.
 """
 from __future__ import annotations
 
@@ -152,6 +152,68 @@ def unshard(local: torch.Tensor, mesh: Mesh, spec: Sequence, *,
         coord = dict(zip(mesh.axis_names, np.unravel_index(pos, extents)))
         out[_slices(mesh, spec, shape, coord)] = blocks[order.index(rank)]
     return out
+
+
+def reshard(x, src: Mesh, src_spec: Sequence, dst: Mesh,
+            dst_spec: Sequence, *, group=None):
+    """Move a field from ``src``'s blocks under ``src_spec`` to ``dst``'s
+    blocks under ``dst_spec`` (the reference's ``reshard``, a
+    ``device_put`` to the target sharding).
+
+    ``x`` is this rank's block on a rank of ``src``; every other rank
+    passes a placeholder of the global shape and dtype (a ``"meta"``
+    tensor or a numpy array: only ``shape`` and ``dtype`` are read).
+    Returns this rank's block under ``dst_spec``, on ``dst.device``, on a
+    rank of ``dst``, and None elsewhere. Collective over ``group``
+    (default: the world), which must hold every rank of both meshes and
+    carry CPU tensors: each rank's header and block go through one
+    ``all_gather_object``, every rank checks that the headers agree on
+    the global shape and dtype and that the blocks cover the field, and
+    the lowest rank's copy wins where blocks overlap (ranks along an axis
+    ``src_spec`` does not name hold copies)."""
+    placeholder = not torch.is_tensor(x) or x.device.type == "meta"
+    mine = (tuple(x.shape), str(np.dtype(_numpy_dtype(x.dtype))), None,
+            None)
+    if src.is_member and not placeholder:
+        shape = list(x.shape)
+        lead = len(shape) - len(src_spec)
+        for i, entry in enumerate(src_spec):
+            shape[lead + i] *= shard_count(src, entry)
+        cut = _slices(src, src_spec, tuple(shape), src.coordinate)
+        mine = (tuple(shape), mine[1],
+                tuple((sl.start or 0, n if sl.stop is None else sl.stop)
+                      for sl, n in zip(cut, shape)),
+                x.detach().cpu().numpy())
+    heads = [mine]
+    if dist.is_available() and dist.is_initialized():
+        heads = [None] * dist.get_world_size(group)
+        dist.all_gather_object(heads, mine, group=group)
+    if any(h[:2] != heads[0][:2] for h in heads):
+        raise ValueError("reshard: the ranks disagree on the field's "
+                         "global (shape, dtype): "
+                         + "; ".join(f"rank {r}: {h[:2]}"
+                                     for r, h in enumerate(heads)))
+    shape, dtype = heads[0][:2]
+    full = np.zeros(shape, dtype) if dst.is_member else None
+    filled = np.zeros(shape, bool)
+    for _, _, bounds, block in heads:        # lowest rank first
+        if bounds is None:
+            continue
+        idx = tuple(slice(lo, hi) for lo, hi in bounds)
+        if full is not None:
+            full[idx] = np.where(filled[idx], full[idx], block)
+        filled[idx] = True
+    if not filled.all():
+        raise ValueError(f"reshard: no rank of the source mesh holds "
+                         f"{int((~filled).sum())} of {filled.size} elements")
+    return None if full is None else shard(full, dst, dst_spec)
+
+
+def _numpy_dtype(dtype):
+    """``dtype`` (torch or numpy) as a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,10 @@ all-reduced, and the writer gathers to the mesh's first rank.
   visualization) on the results.
 * **in-transit (staged)** — the chain waits for the device after every
   device stage and keeps a timing per stage. Every stage keeps the
-  layout the previous one left (no move between stage meshes inside
-  the chain: ``distributed.reshard`` waits with ROADMAP queue 1 item 17,
-  and the M→N hop between programs' meshes is
-  ``transit.TransitBridge``), so ``reshard_bytes`` stays 0.
+  layout the previous one left (no endpoint names another sharding, as
+  in the reference, so no stage calls ``distributed.reshard``; the M→N
+  hop between programs' meshes is ``transit.TransitBridge``), so
+  ``reshard_bytes`` stays 0.
 * **pipelined** — the device stages of a field are launched onto the
   producer's CUDA stream and never waited on: field N+1's kernels queue
   behind field N's while field N's results are still in flight, and the

@@ -19,9 +19,10 @@ the world.
 * ``make_transit_meshes`` / ``make_transit_setup`` — disjoint producer
   and consumer meshes (the first m ranks produce, the last n consume)
   and the ``TransitBridge`` between them (``core/insitu/transit.py``).
-
-``make_elastic_setup`` (a consumer mesh under an elastic controller)
-waits with ROADMAP queue 1 item 17.
+* ``make_elastic_setup`` — the same split with the consumer side owned
+  by a ``runtime.elastic.ElasticController``, which rebuilds the
+  consumer mesh (``make_consumer_mesh``) when a consumer rank dies or
+  rejoins.
 """
 from __future__ import annotations
 
@@ -113,6 +114,30 @@ def make_multihost_mesh(dcn_axes: Optional[Dict[str, int]] = None,
                               device=device)
 
 
+def _transit_ranks(m: int, n: int, exclude_ids) -> Tuple[list, list]:
+    """The producer ranks (the first ``m`` of the pool) and the consumer
+    ranks (its last ``n``), the pool being the world's ranks less
+    ``exclude_ids``."""
+    ranks = list(range(_world()))
+    if exclude_ids:
+        dead = {int(i) for i in exclude_ids}
+        ranks = [r for r in ranks if r not in dead]
+    if m + n > len(ranks):
+        raise ValueError(f"transit split {m}+{n} exceeds "
+                         f"{len(ranks)} available ranks")
+    if m < 1 or n < 1:
+        raise ValueError("both meshes need at least one rank")
+    return ranks[:m], ranks[-n:]
+
+
+def _line_mesh(ranks, axes, device) -> Mesh:
+    """A mesh whose first axis runs over ``ranks`` (the others of extent
+    1)."""
+    shape = (len(ranks),) + (1,) * (len(axes) - 1)
+    return make_explicit_mesh(np.asarray(ranks).reshape(shape), tuple(axes),
+                              device=device)
+
+
 def make_transit_meshes(m: int, n: int, *,
                         producer_axes: Sequence[str] = ("data",),
                         consumer_axes: Sequence[str] = ("data",),
@@ -125,25 +150,24 @@ def make_transit_meshes(m: int, n: int, *,
     share ranks, that is the whole point.
 
     ``exclude_ids`` (global ranks) removes ranks from the pool before
-    the split — the elastic rescale (ROADMAP item 17) rebuilds the
-    consumer mesh over the survivors of a failure with it, while the
+    the split — the elastic rescale rebuilds the consumer mesh over the
+    survivors of a failure with it (``make_consumer_mesh``), while the
     producer prefix stays as it was. Collective on every rank."""
-    ranks = list(range(_world()))
-    if exclude_ids:
-        dead = {int(i) for i in exclude_ids}
-        ranks = [r for r in ranks if r not in dead]
-    if m + n > len(ranks):
-        raise ValueError(f"transit split {m}+{n} exceeds "
-                         f"{len(ranks)} available ranks")
-    if m < 1 or n < 1:
-        raise ValueError("both meshes need at least one rank")
-    pshape = (m,) + (1,) * (len(producer_axes) - 1)
-    cshape = (n,) + (1,) * (len(consumer_axes) - 1)
-    prod = make_explicit_mesh(np.asarray(ranks[:m]).reshape(pshape),
-                              tuple(producer_axes), device=device)
-    cons = make_explicit_mesh(np.asarray(ranks[-n:]).reshape(cshape),
-                              tuple(consumer_axes), device=device)
-    return prod, cons
+    pranks, cranks = _transit_ranks(m, n, exclude_ids)
+    return (_line_mesh(pranks, producer_axes, device),
+            _line_mesh(cranks, consumer_axes, device))
+
+
+def make_consumer_mesh(m: int, n: int, *,
+                       consumer_axes: Sequence[str] = ("data",),
+                       exclude_ids: Optional[Sequence[int]] = None,
+                       device=None) -> Mesh:
+    """The consumer mesh of ``make_transit_meshes(m, n, ...)`` alone: an
+    elastic rescale keeps its producer mesh and rebuilds only this one
+    (a producer mesh built again would make process groups nobody uses).
+    Collective on every rank."""
+    _, cranks = _transit_ranks(m, n, exclude_ids)
+    return _line_mesh(cranks, consumer_axes, device)
 
 
 def make_transit_setup(n_consumers: int, *,
@@ -176,12 +200,37 @@ def make_transit_setup(n_consumers: int, *,
     return producer_mesh, TransitBridge(producer_mesh, consumer_mesh)
 
 
-def make_elastic_setup(n_consumers: int, **kwargs):
-    """The reference's ``--elastic`` bring-up (a consumer mesh under an
-    elastic controller that rescales it at run time): not ported yet."""
-    raise NotImplementedError(
-        "make_elastic_setup needs runtime/elastic.py's controller (ROADMAP "
-        "queue 1 item 17), not ported yet")
+def make_elastic_setup(n_consumers: int, *,
+                       producer_axes: Sequence[str] = ("data", "model"),
+                       consumer_axes: Sequence[str] = ("data",),
+                       noun: str = "producer",
+                       flag: str = "--elastic", device=None,
+                       **controller_kwargs):
+    """The entry points' ``--elastic`` bring-up: like ``make_transit_setup``
+    but the consumer side is owned by a
+    ``runtime.elastic.ElasticController`` that can rescale it at run
+    time (failure-driven shrink, operator grow) while the producer mesh
+    stays untouched. Returns ``(producer_mesh, controller)``; the
+    controller duck-types the bridge (``send``/``is_consumer``/...), so
+    entry points pass it anywhere a ``TransitBridge`` goes and sends
+    route to the newest bridge. Invalid splits raise ``SystemExit``
+    naming ``flag``. ``controller_kwargs`` go to ``ElasticController``
+    (``lease=``, ``max_misses=``, ``clock=``, ``plan_kwargs=``, ...).
+    Collective on every rank."""
+    from repro_torch.runtime.elastic import ElasticController
+    world = _world()
+    if n_consumers >= world:
+        raise SystemExit(
+            f"{flag} with {n_consumers} consumers leaves no {noun} "
+            f"ranks (have {world})")
+    try:
+        controller = ElasticController(
+            n_consumers, producer_axes=producer_axes,
+            consumer_axes=consumer_axes, flag=flag, device=device,
+            **controller_kwargs)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    return controller.producer_mesh, controller
 
 
 def describe_mesh(mesh: Mesh) -> Dict[str, object]:

@@ -47,8 +47,17 @@ warm-up, one per ``--monitor-batch`` snapshots, and the trailing flush,
 counted from the flags (``_monitor_fields``); the bridge checks every
 send's shapes and sequence number on every rank, and a rank missing a
 send fails at the bridge's timeout, never hangs silently. The report
-gains a ``transit`` block. ``--elastic`` raises ``NotImplementedError``
-naming ROADMAP item 17.
+gains a ``transit`` block.
+
+``--elastic`` (with ``--transit-consumers``) puts the consumer mesh under
+a ``runtime.elastic.ElasticController`` (``make_elastic_setup``), which
+stands in for the bridge. At every monitor snapshot each rank renews the
+consumers' leases and calls the collective ``tick()``: the decode rank
+after its engine tick, the consumers at the same snapshot, counted from
+the flags as their sends are. As in the reference, each rank renews
+every lease just before it ticks, so these ticks expire none. The
+report's ``elastic`` block (``ElasticController.report()``) replaces
+``transit``.
 """
 from __future__ import annotations
 
@@ -64,12 +73,6 @@ from repro_torch.core.fft import plan as plan_mod
 from repro_torch.models import lm
 from repro_torch.runtime.cluster import (add_cluster_args, config_from_args,
                                          init_cluster)
-
-# flag -> (its "off" value, what it needs that the port does not have)
-NOT_PORTED = {
-    "elastic": (False, "the elastic consumer mesh (ROADMAP queue 1 "
-                       "item 17)"),
-}
 
 
 def _sync(device: torch.device) -> None:
@@ -196,17 +199,30 @@ def _monitor_report(args, chain, engine, snapshots) -> dict:
     return rep
 
 
-def _consume(args, cfg, bridge, device) -> dict:
+def _consume(args, cfg, bridge, device, elastic=None) -> dict:
     """A consumer rank's serve: no decode; the monitor chain on every
-    field the producer's monitor sends, as many as it sends."""
+    field the producer's monitor sends, as many as it sends, and with
+    ``elastic`` one tick a snapshot, as the decode rank ticks."""
     chain = _build_monitor(args, cfg, device, bridge)
     fields = _monitor_fields(args)
-    for lead in fields:
+
+    def deliver(lead):
         chain.execute(bridge.send(_field(lead, args, cfg, "meta")))
+
+    snapshots = sum(fields)
+    for k in range(1, snapshots + 1):
+        # the decode rank's engine sends when a batch fills, then ticks
+        if k % args.monitor_batch == 0:
+            deliver(args.monitor_batch)
+        if elastic is not None:
+            elastic.heartbeat_all()
+            elastic.tick()
+    if snapshots % args.monitor_batch:
+        deliver(snapshots % args.monitor_batch)     # the trailing flush
     report = {"arch": cfg.name, "role": "consumer",
               "device": (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu"),
-              "monitor": _monitor_report(args, chain, None, sum(fields))}
+              "monitor": _monitor_report(args, chain, None, snapshots)}
     report["monitor"]["submits"] = len(fields)
     return report
 
@@ -265,7 +281,16 @@ def main(argv=None, *, params=None):
                     help="in-transit M→N split: decode on the first rank "
                          "and run the logits monitor on the last N ranks "
                          "(0 = analyse in place)")
-    ap.add_argument("--elastic", action="store_true")
+    ap.add_argument("--elastic", action="store_true",
+                    help="put the monitor's consumer mesh under an "
+                         "ElasticController: leases renewed and failures "
+                         "polled at every snapshot, a missed lease "
+                         "rescales the consumer mesh without a restart "
+                         "(requires --transit-consumers)")
+    ap.add_argument("--elastic-lease", type=float, default=30.0,
+                    metavar="SECONDS",
+                    help="heartbeat lease; a consumer rank missing 3 "
+                         "leases is declared dead")
     ap.add_argument("--wisdom", default=None, metavar="FILE",
                     help="persistent FFT autotune wisdom: measured sweep "
                          "winners are read at bring-up and new ones "
@@ -276,10 +301,9 @@ def main(argv=None, *, params=None):
                     help="read = consult wisdom but never write it")
     add_cluster_args(ap)
     args = ap.parse_args(argv)
-    for flag, (off, needs) in NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs {needs}, not ported yet")
+    if args.elastic and not args.transit_consumers:
+        raise SystemExit("--elastic requires --transit-consumers N "
+                         "(there is no consumer mesh to rescale)")
     cluster = config_from_args(args)
     if args.transit_consumers:
         n, world = args.transit_consumers, cluster.num_processes
@@ -304,16 +328,26 @@ def main(argv=None, *, params=None):
     init_cluster(cluster, device=device)
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
-    bridge = None
+    bridge = elastic = None
     if args.transit_consumers:
-        from repro_torch.launch.mesh import make_transit_setup
-        _, bridge = make_transit_setup(args.transit_consumers,
-                                       noun="decode", device=device)
+        from repro_torch.launch.mesh import (make_elastic_setup,
+                                             make_transit_setup)
+        if args.elastic:
+            # the controller duck-types the bridge: the monitor's warm-up
+            # and every engine execute route to the newest consumer mesh
+            _, elastic = make_elastic_setup(
+                args.transit_consumers, noun="decode",
+                lease=args.elastic_lease, device=device)
+            bridge = elastic
+        else:
+            _, bridge = make_transit_setup(args.transit_consumers,
+                                           noun="decode", device=device)
         if not bridge.is_producer():
-            report = _consume(args, cfg, bridge, device) \
+            report = _consume(args, cfg, bridge, device, elastic) \
                 if args.monitor_every else {"arch": cfg.name,
                                             "role": "consumer"}
-            report["transit"] = bridge.report()
+            report["elastic" if elastic is not None else "transit"] = \
+                bridge.report()
             print(json.dumps(report))
             return report
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -350,6 +384,12 @@ def main(argv=None, *, params=None):
             engine.submit(logits[:, -1], bucket="monitor")
             snapshots += 1
             engine.step()
+            if elastic is not None:
+                # lease renewal and the failure poll at monitor cadence;
+                # tick() is collective, and every rank reaches it at the
+                # same snapshot
+                elastic.heartbeat_all()
+                elastic.tick()
     _sync(device)
     t_decode = time.perf_counter() - t0
     if engine is not None:
@@ -375,7 +415,8 @@ def main(argv=None, *, params=None):
         report["monitor"] = _monitor_report(args, monitor, engine,
                                             snapshots)
     if bridge is not None:
-        report["transit"] = bridge.report()
+        report["elastic" if elastic is not None else "transit"] = \
+            bridge.report()
     if args.bench_out:
         _emit_report_rows(report, args.bench_out)
         print(f"serve: decode {report['decode_ms_per_token']} ms/token, "

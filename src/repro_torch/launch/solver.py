@@ -29,10 +29,20 @@ the producer mesh cannot execute its plans, so a consumer builds no
 solver and calls ``send`` (or ``send_async``) once per report,
 collectively, the count taken from ``--steps`` and ``--monitor-every``
 — as ``serve --transit-consumers`` counts its monitor's fields.
+``--elastic`` (with ``--transit-consumers``) puts the consumer mesh
+under a ``runtime.elastic.ElasticController`` (``make_elastic_setup``),
+which stands in for the bridge: every rank, consumers included, renews
+the consumers' leases and calls the collective ``tick()`` once per
+report, after draining pending ``--transit-async`` sends so that the
+transit worker's hop never runs beside it. As in the reference, each
+rank renews every lease just before it ticks, so the entry point's own
+ticks expire none: a rescale comes from code that drives the controller
+(the chaos scenario of ``tests/torch_ranks.py``). The summary's
+``elastic`` block (``ElasticController.report()``) replaces
+``transit``.
 Checkpoints go to ``<ckpt-dir>/proc<rank>`` across ranks (each producer
 rank writes the same gathered bytes to its own directory). Only rank 0
-prints. ``--elastic`` raises ``NotImplementedError`` naming ROADMAP item
-17.
+prints.
 """
 from __future__ import annotations
 
@@ -49,16 +59,10 @@ from repro_torch.core.insitu.bridge import BridgeData, GridMeta
 from repro_torch.core.insitu.chain import InSituChain
 from repro_torch.core.insitu.endpoints.writer import WriterEndpoint
 from repro_torch.core.solver import Boussinesq3DSolver, NS2DSolver
-from repro_torch.launch.mesh import (make_host_mesh, make_multihost_mesh,
-                                     make_transit_setup)
+from repro_torch.launch.mesh import (make_elastic_setup, make_host_mesh,
+                                     make_multihost_mesh, make_transit_setup)
 from repro_torch.runtime.cluster import (add_cluster_args, config_from_args,
                                          init_cluster)
-
-# flag -> (its "off" value, what it needs that the port does not have)
-NOT_PORTED = {
-    "elastic": (False, "the elastic consumer mesh (ROADMAP queue 1 "
-                       "item 17)"),
-}
 
 
 def _discard(_data):
@@ -103,14 +107,26 @@ def _spectra_chain(args, mesh) -> InSituChain:
             grid=GridMeta(dims=tuple(args.grid)))
 
 
-def _consume(args, bridge) -> dict:
+def _elastic_tick(args, bridge, elastic) -> None:
+    """Lease renewal and the failure poll, once per report (collective
+    on every rank): pending async sends drain first, so the transit
+    worker's hop never runs beside the tick's collectives."""
+    if args.transit_async:
+        bridge.drain_async()
+    elastic.heartbeat_all()
+    elastic.tick()
+
+
+def _consume(args, bridge, elastic=None) -> dict:
     """A consumer rank's run: no solver; the writer chain on each E(k)
-    report the producers send, one ``send`` per report."""
+    report the producers send, one ``send`` per report (and one elastic
+    tick per report, as the producers tick)."""
     files = []
-    if args.spectra_dir:
-        chain = _spectra_chain(args, bridge.consumer_mesh)
-        reports = -(-args.steps // args.monitor_every)
-        for _ in range(reports):
+    chain = _spectra_chain(args, bridge.consumer_mesh) \
+        if args.spectra_dir else None
+    reports = -(-args.steps // args.monitor_every)
+    for _ in range(reports):
+        if chain is not None:
             placeholder = BridgeData(
                 arrays={"spectrum": torch.empty(
                     (args.spectrum_bins,), dtype=torch.float32,
@@ -120,12 +136,17 @@ def _consume(args, bridge) -> dict:
                 bridge.send_async(placeholder, on_result=chain.execute)
             else:
                 chain.execute(bridge.send(placeholder))
+        if elastic is not None:
+            _elastic_tick(args, bridge, elastic)
+    if chain is not None:
         if args.transit_async:
             bridge.drain_async()
         files = chain.finalize().get("writer", {}).get("files", [])
     return {"solver": args.solver, "grid": list(args.grid),
             "role": "consumer", "steps": args.steps,
-            "spectra_files": len(files), "transit": bridge.report()}
+            "spectra_files": len(files),
+            "elastic" if elastic is not None else "transit":
+                bridge.report()}
 
 
 def main(argv=None):
@@ -174,8 +195,11 @@ def main(argv=None):
                          "a failed hop surfaces on the next send or "
                          "drain (requires --transit-consumers)")
     ap.add_argument("--elastic", action="store_true",
-                    help="put the transit consumer mesh under an elastic "
-                         "controller (not ported: ROADMAP item 17)")
+                    help="put the transit consumer mesh under an "
+                         "ElasticController: every rank renews the "
+                         "consumers' leases every report, missed leases "
+                         "trigger a restart-free rescale (requires "
+                         "--transit-consumers)")
     ap.add_argument("--elastic-lease", type=float, default=30.0,
                     metavar="SECONDS",
                     help="heartbeat lease; a consumer rank missing 3 "
@@ -195,16 +219,15 @@ def main(argv=None):
                     help="torch device to solve on (default cuda)")
     add_cluster_args(ap)
     args = ap.parse_args(argv)
-    for flag, (off, needs) in NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs {needs}, not ported yet")
     if args.monitor_every < 1:
         ap.error("--monitor-every must be at least 1")
     if args.restore and not args.ckpt_dir:
         ap.error("--restore needs --ckpt-dir")
     if args.init == "auto":
         args.init = "taylor-green" if args.solver == "ns2d" else "beltrami"
+    if args.elastic and not args.transit_consumers:
+        raise SystemExit("--elastic requires --transit-consumers N "
+                         "(there is no consumer mesh to rescale)")
     if args.transit_async and not args.transit_consumers:
         raise SystemExit("--transit-async requires --transit-consumers "
                          "N (there is no transit hop to overlap)")
@@ -217,13 +240,22 @@ def main(argv=None):
     cluster = init_cluster(config_from_args(args), device=device)
 
     transit_bridge = None
+    elastic = None
     if args.transit_consumers:
         # M→N in-transit: solve on a producer mesh excluding the last N
         # ranks; E(k) reports hop to the consumer mesh
-        mesh, transit_bridge = make_transit_setup(
-            args.transit_consumers, noun="solver", device=device)
+        if args.elastic:
+            # the controller duck-types the bridge: every send routes to
+            # the newest generation's consumer mesh
+            mesh, elastic = make_elastic_setup(
+                args.transit_consumers, noun="solver",
+                lease=args.elastic_lease, device=device)
+            transit_bridge = elastic
+        else:
+            mesh, transit_bridge = make_transit_setup(
+                args.transit_consumers, noun="solver", device=device)
         if not transit_bridge.is_producer():
-            summary = _consume(args, transit_bridge)
+            summary = _consume(args, transit_bridge, elastic)
             if _rank() == 0:
                 print(json.dumps(summary, default=str))
             return summary
@@ -285,6 +317,9 @@ def main(argv=None):
                 # collective hop onto the consumer mesh; producers get
                 # None leaves back
                 transit_bridge.send(payload)
+        if elastic is not None:
+            # once per report, at the point every rank reaches
+            _elastic_tick(args, transit_bridge, elastic)
         if (args.ckpt_every and args.ckpt_dir
                 and solver.step_count % args.ckpt_every == 0):
             solver.save(args.ckpt_dir)
@@ -313,7 +348,8 @@ def main(argv=None):
                        "bringup_misses": stats0["misses"]},
     }
     if transit_bridge is not None:
-        summary["transit"] = transit_bridge.report()
+        summary["elastic" if elastic is not None else "transit"] = \
+            transit_bridge.report()
     if _rank() == 0:
         print(json.dumps(summary, default=str))
     return summary

@@ -53,11 +53,39 @@ throughput, queue-depth and backpressure accounting, batched-execute
 ratio (executes / requests — the continuous-batching win), per-bucket
 breakdowns, and the planner's shared-cache counters.
 
-Plan ops run on a one-rank mesh. Serving one request stream from
-several ranks would need every rank to form the same batches in the
-same order, which a linger window does not give; that stays with
-ROADMAP queue 1 item 17 (whose ``rescale_mesh`` onto a consumer mesh
-of several ranks is where it is needed), and a larger mesh is refused.
+**Across ranks.** A mesh of more than one rank (an elastic
+controller's consumer mesh, say) runs every batched plan collectively,
+so every member rank must form the same batches in the same order, and
+a linger window read on each rank's own clock cannot promise that. So:
+
+* callers submit the same requests in the same order on every member
+  rank (SPMD), and each request takes the next number of a sequence the
+  engine restarts at every mesh swap;
+* ``step()`` is collective over the mesh's ranks: the mesh's first rank
+  decides the tick (which buckets run, with which requests, whether a
+  linger or ``force`` fired) and broadcasts that decision on the mesh's
+  group (``broadcast_object_list``, as the planner agrees a measured
+  winner); the others take the same requests by number, and a rank
+  missing one fails them on every rank (an agreed ``all_reduce``) with
+  a ``RuntimeError`` instead of hanging the mesh;
+* each batch's output blocks are gathered to the global result on the
+  stepping thread (``FFTPlan.unplace``) before the completion worker
+  copies them to the host, so no collective runs off that thread;
+* ``drain()`` (hence ``flush``, ``stop``, ``prewarm`` and
+  ``rescale_mesh(drain=True)``) is collective too: one forced step
+  launches everything pending, then each rank waits for its own
+  completions;
+* there is no scheduler thread: ``start()`` raises ``ValueError`` on
+  such a mesh, because the thread's collectives would interleave with
+  the caller's own on the same process groups. Drive the engine by
+  collective ``step()`` calls.
+
+A rank outside the engine's current mesh (a rank that a shrink
+excluded, or a producer) neither plans nor executes: a plan-op
+``submit`` there raises ``ValueError`` at once, and ``step``/``drain``
+there only run its custom buckets. ``rescale_mesh(drain=False)`` fails
+the same pending requests with :class:`MeshRescaled` on every member
+rank, since every member holds the same pending requests.
 """
 from __future__ import annotations
 
@@ -69,11 +97,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.fft import distributed
 from repro_torch.core.fft import rfft as rfft_mod
 from repro_torch.core.fft.filters import (lowpass_mask, mask_pencil_tf_3d,
                                           mask_pencil_tf_3d_r2c, mask_r2c)
-from repro_torch.core.fft.plan import (BACKWARD, FORWARD, plan_cache_stats,
+# the planner's agreement helpers: the mesh's first rank's object on every
+# rank, and an ok flag every rank of the mesh must share
+from repro_torch.core.fft.plan import (BACKWARD, FORWARD, _broadcast,
+                                       _sweep_ok, plan_cache_stats,
                                        plan_dft, plan_rfft)
 from repro_torch.core.insitu.bridge import BridgeData
 from repro_torch.core.insitu.endpoint import Endpoint
@@ -144,6 +177,7 @@ class _Request:
     payload: Any
     future: FFTFuture
     t_admit: float
+    seq: int = 0            # number since the last mesh swap (SPMD agreement)
 
 
 @dataclasses.dataclass
@@ -180,6 +214,12 @@ _PLAN_DELTA_KEYS = ("hits", "misses", "thread_waits",
                     "wisdom_hits", "wisdom_misses", "wisdom_stale")
 
 
+def _pair(out) -> tuple:
+    """A plan's output as a tuple (a real backward plan returns one
+    block)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _percentiles(lat_ms: Sequence[float]) -> Dict[str, float]:
     if not lat_ms:
         return {"p50": 0.0, "p95": 0.0, "p99": 0.0, "mean": 0.0,
@@ -213,27 +253,20 @@ class _CompletionEndpoint(Endpoint):
         return data
 
 
-def _one_rank(mesh) -> None:
-    if mesh.size > 1:
-        raise ValueError(
-            f"the FFT serving engine runs plan ops on a one-rank mesh, got "
-            f"{dict(mesh.shape)}: serving across ranks (every rank forming "
-            f"the same batches, as a rescale onto a consumer mesh needs) is "
-            f"ROADMAP queue 1 item 17")
-
-
 class FFTServeEngine:
     """Multi-request FFT/bandpass serving engine (module docstring).
 
     Drive it either threaded — ``with engine: ...`` or
     ``start()``/``stop()`` spawn the scheduler thread — or manually by
-    calling ``step()`` from your own loop (tests do both).
+    calling ``step()`` from your own loop (tests do both). On a mesh of
+    more than one rank only the manual, collective way works (module
+    docstring).
 
     Parameters:
 
-    * ``mesh`` — one-rank mesh the batched plans run on (default: a host
-      mesh on the CUDA device, ``launch.mesh.make_host_mesh``, built
-      lazily on first plan-op submit; it raises where there is no card).
+    * ``mesh`` — the mesh the batched plans run on (default: a host mesh
+      on the CUDA device, ``launch.mesh.make_host_mesh``, built lazily on
+      first plan-op submit; it raises where there is no card).
     * ``max_pending`` — admission bound: max un-launched requests.
     * ``max_batch`` — default bucket flush size = max rows per batched
       execute.
@@ -253,8 +286,6 @@ class FFTServeEngine:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if mesh is not None:
-            _one_rank(mesh)
         self._mesh = mesh
         self.max_pending = max_pending
         self.max_batch = max_batch
@@ -264,6 +295,7 @@ class FFTServeEngine:
         self._done_cond = threading.Condition() # resolution accounting
         self._buckets: Dict[tuple, _Bucket] = {}
         self._rids = itertools.count()
+        self._seq = 0                           # restarts at a mesh swap
         self._steps = itertools.count()
         self._unlaunched = 0
         self._force = False
@@ -325,7 +357,9 @@ class FFTServeEngine:
         the backward transform, returning the filtered field.
         ``bucket=<name>`` routes to a registered custom executor
         instead. Invalid requests are rejected synchronously
-        (``ValueError``) — they never consume batch capacity."""
+        (``ValueError``) — they never consume batch capacity — and so is
+        a plan op on a rank outside the engine's mesh, which neither
+        plans nor executes."""
         if bucket is not None:
             key = ("custom", bucket)
             with self._cond:
@@ -335,7 +369,12 @@ class FFTServeEngine:
         else:
             payload, key = self._validate(payload, op, direction, real,
                                           keep_frac)
-            _one_rank(self.mesh)
+            mesh = self.mesh
+            if not mesh.is_member:
+                raise ValueError(
+                    f"this rank is outside the engine's mesh (ranks "
+                    f"{list(mesh.members)}): it neither plans nor executes "
+                    f"plan ops; submit them on the mesh's ranks")
         fut = FFTFuture(next(self._rids), key)
         req = _Request(rid=fut.rid, payload=payload, future=fut,
                        t_admit=fut.t_submit)
@@ -366,6 +405,8 @@ class FFTServeEngine:
                 b = self._buckets[key] = _Bucket(
                     key=key, flush_at=self.max_batch,
                     spec=self._spec_of(key))
+            req.seq = self._seq
+            self._seq += 1
             b.pending.append(req)
             b.requests += 1
             self._unlaunched += 1
@@ -497,31 +538,84 @@ class FFTServeEngine:
             self._resolved = 0
 
     # -- scheduling ------------------------------------------------------------
+    def _across(self) -> bool:
+        """Whether this rank is a member of a mesh of several ranks (its
+        ticks are then collective over the mesh)."""
+        m = self._mesh
+        return m is not None and m.size > 1 and m.is_member
+
     def step(self, *, force: bool = False) -> int:
         """One scheduler tick: turn every ready bucket into batched
         executes (full buckets always; partial buckets when their
         oldest request out-waited ``linger_s``, or under ``force``).
-        Returns the number of batched executes launched."""
-        ready: List[Tuple[_Bucket, List[_Request]]] = []
-        now = time.perf_counter()
+        Returns the number of batched executes launched. On a mesh of
+        several ranks it is collective, and the mesh's first rank
+        decides the tick (module docstring)."""
         with self._cond:
             force = force or self._force
             self._force = False
-            for b in self._buckets.values():
-                while len(b.pending) >= b.flush_at:
-                    ready.append((b, b.pending[:b.flush_at]))
-                    del b.pending[:b.flush_at]
-                if b.pending and (force or
-                                  now - b.pending[0].t_admit >=
-                                  self.linger_s):
-                    ready.append((b, b.pending[:]))
-                    b.pending.clear()
-            if ready:
-                self._unlaunched -= sum(len(r) for _, r in ready)
-                self._cond.notify_all()       # free admission waiters
+            across = self._across()
+            ready = [] if across else self._take_ready(force)
+        if across:
+            ready = self._agree_ready(force)
         for b, reqs in ready:
             self._execute_batch(b, reqs)
         return len(ready)
+
+    def _take_ready(self, force: bool) -> List[Tuple[_Bucket,
+                                                     List[_Request]]]:
+        """Pop every batch due now (caller holds ``_cond``)."""
+        ready: List[Tuple[_Bucket, List[_Request]]] = []
+        now = time.perf_counter()
+        for b in self._buckets.values():
+            while len(b.pending) >= b.flush_at:
+                ready.append((b, b.pending[:b.flush_at]))
+                del b.pending[:b.flush_at]
+            if b.pending and (force or
+                              now - b.pending[0].t_admit >= self.linger_s):
+                ready.append((b, b.pending[:]))
+                b.pending.clear()
+        if ready:
+            self._unlaunched -= sum(len(r) for _, r in ready)
+            self._cond.notify_all()       # free admission waiters
+        return ready
+
+    def _agree_ready(self, force: bool) -> List[Tuple[_Bucket,
+                                                      List[_Request]]]:
+        """The mesh's first rank's tick on every member rank: it pops its
+        due batches and broadcasts them as (bucket key, request numbers);
+        the others pop the same requests. All ranks then agree that each
+        found its requests, else fail what they took and raise."""
+        mesh = self._mesh
+        first = dist.get_rank() == mesh.first_rank
+        with self._cond:
+            ready = self._take_ready(force) if first else []
+        decision = _broadcast([(b.key, [r.seq for r in reqs])
+                               for b, reqs in ready], mesh)
+        found = True
+        if not first:
+            with self._cond:
+                for key, seqs in decision:
+                    b = self._buckets.get(key)
+                    mine = {r.seq: r for r in b.pending} if b else {}
+                    reqs = [mine[q] for q in seqs if q in mine]
+                    found = found and len(reqs) == len(seqs)
+                    if reqs:
+                        b.pending[:] = [r for r in b.pending
+                                        if r not in reqs]
+                        ready.append((b, reqs))
+                self._unlaunched -= sum(len(r) for _, r in ready)
+                self._cond.notify_all()
+        if not _sweep_ok(found, mesh):
+            err = RuntimeError(
+                f"the ranks of mesh {list(mesh.members)} hold different "
+                f"pending requests: submit the same requests in the same "
+                f"order on every rank of the engine's mesh")
+            for b, reqs in ready:
+                for req in reqs:
+                    self._finish(b, req, error=err)
+            raise err
+        return ready
 
     def flush(self) -> None:
         """Force-run every partially-filled bucket — the single
@@ -539,10 +633,16 @@ class FFTServeEngine:
         partial buckets as needed) and the completion pipeline is
         idle; ``TimeoutError`` after ``timeout`` seconds."""
         deadline = time.monotonic() + timeout
+        across = self._across()
+        if across:
+            # collective: one agreed forced tick launches everything
+            # pending on every rank; the rest is this rank's own wait
+            self.step(force=True)
         while True:
-            self.flush()
-            if self._thread is None:
-                self.step(force=True)
+            if not across:
+                self.flush()
+                if self._thread is None:
+                    self.step(force=True)
             with self._done_cond:
                 if self._resolved >= self._stats["submitted"]:
                     break
@@ -559,12 +659,22 @@ class FFTServeEngine:
     def start(self) -> "FFTServeEngine":
         if self._thread is not None:
             return self
+        if self._across():
+            raise ValueError(self._no_thread(self._mesh))
         self._stop = False
         self._thread = threading.Thread(target=self._loop,
                                         name="fft-serve-scheduler",
                                         daemon=True)
         self._thread.start()
         return self
+
+    @staticmethod
+    def _no_thread(mesh) -> str:
+        return (f"an engine on mesh {dict(mesh.shape)} over ranks "
+                f"{list(mesh.members)} runs no scheduler thread: its ticks "
+                f"are collective, and a thread's collectives would "
+                f"interleave with the caller's own on the same process "
+                f"groups; drive it by collective step() calls")
 
     def _loop(self) -> None:
         while True:
@@ -597,8 +707,7 @@ class FFTServeEngine:
     def rescale_mesh(self, new_mesh, *, drain: bool = True,
                      timeout: float = 300.0) -> Dict[str, Any]:
         """Swap the engine onto ``new_mesh`` — the serving half of an
-        elastic rescale (the reference's ``runtime/elastic.py`` calls
-        it; its port is ROADMAP queue 1 item 17).
+        elastic rescale (``runtime/elastic.py`` calls it on every rank).
 
         ``drain=True`` (graceful): every admitted request completes on
         the old mesh first, then the swap. ``drain=False`` (the old mesh
@@ -609,8 +718,14 @@ class FFTServeEngine:
         plan ``state`` is dropped — plans are bound to the old mesh's
         device and groups — so the next request per bucket re-plans on
         ``new_mesh``. Submissions after return route to the new mesh.
-        Returns ``{"drained", "failed_pending", "buckets_reset"}``."""
-        _one_rank(new_mesh)
+        On a mesh of several ranks both the drain and the swap are
+        collective over the old mesh's ranks, and every member fails the
+        same pending requests; a threaded engine cannot move onto such a
+        mesh (``ValueError``). The request numbering restarts on the new
+        mesh. Returns ``{"drained", "failed_pending", "buckets_reset"}``."""
+        if (self._thread is not None and new_mesh.size > 1
+                and new_mesh.is_member):
+            raise ValueError(self._no_thread(new_mesh))
         failed = 0
         if drain:
             self.drain(timeout=timeout)
@@ -643,6 +758,7 @@ class FFTServeEngine:
             for b in self._buckets.values():
                 b.state.clear()
             self._mesh = new_mesh
+            self._seq = 0
             self._stats["rescales"] += 1
         return {"drained": bool(drain), "failed_pending": failed,
                 "buckets_reset": reset}
@@ -764,7 +880,9 @@ class FFTServeEngine:
         x = batch.to(mesh.device, non_blocking=True)
 
         if spec["op"] == "fft":
-            re, im = fwd.execute(*fwd.place(x))
+            # unplace: the global result from every rank's block (the
+            # block itself on a one-rank mesh)
+            re, im = fwd.unplace(*fwd.execute(*fwd.place(x)))
             if kind == "r2c":
                 h = rfft_mod.half_bins(shape[-1])
                 finish = lambda a, i: (a["re"][i, ..., :h].numpy()
@@ -778,10 +896,15 @@ class FFTServeEngine:
         # reference's is plain jnp) → backward, one batch
         re, im = fwd.execute(*fwd.place(x))
         if "mask" not in state:
-            state["mask"] = self._bucket_mask(
-                spec, fwd, hp=int(re.shape[-1])).to(re.device, re.dtype)
+            # the global mask in the spectral layout, cut to this rank's
+            # block of the forward plan's output
+            mask = self._bucket_mask(spec, fwd,
+                                     hp=state["bwd"].in_shape()[-1])
+            state["mask"] = distributed.shard(
+                mask, mesh, fwd.schedule().out_spec).to(re.dtype)
         mask = state["mask"]
-        out = state["bwd"].execute(re * mask, im * mask)
+        out = state["bwd"].unplace(*_pair(state["bwd"].execute(re * mask,
+                                                               im * mask)))
         if kind == "r2c":
             return {"field": out}, (lambda a, i: a["field"][i].numpy())
         return ({"re": out[0], "im": out[1]},

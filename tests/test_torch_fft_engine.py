@@ -4,8 +4,10 @@ answer against the JAX engine's answer on the same payloads and against
 numpy at the reference's ``rtol=2e-4, atol=2e-3``; coalescing, bucket
 isolation, synchronous rejection, admission backpressure, failure
 containment, custom buckets, threaded traffic, prewarm and the SLO
-window; ``rescale_mesh`` by a direct swap (drain and no drain); the
-one-rank rule; ``launch/mesh.make_host_mesh``.
+window; ``rescale_mesh`` by a direct swap (drain and no drain); which
+ranks run plan ops, and the collective-only drive on a mesh of several
+ranks (run across four ranks by ``tests/test_torch_elastic.py``);
+``launch/mesh.make_host_mesh``.
 
 The port runs on ``make_mesh((1, 1), ("data", "model"), device="cpu")``
 (its kernels' plain versions), the reference on its one-device host
@@ -435,7 +437,8 @@ def test_stop_rejects_new_submits(mesh):
 
 
 # ---------------------------------------------------------------------------
-# rescale_mesh: a direct swap (the elastic controller is item 17)
+# rescale_mesh: a direct swap (the elastic controller drives it across
+# ranks in tests/test_torch_elastic.py)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("drain", [True, False])
@@ -474,15 +477,34 @@ def test_rescale_mesh_swaps_and_replans(mesh, drain):
 
 
 def test_engine_runs_plan_ops_on_one_rank_only(mesh):
-    """Serving across ranks needs every rank to form the same batches:
-    a mesh of more than one rank is refused, at construction and at a
-    swap."""
-    wide = Mesh(("data",), {"data": 2}, torch.device("cpu"), {"data": 0})
-    with pytest.raises(ValueError, match="one-rank mesh"):
-        FFTServeEngine(wide)
-    eng = FFTServeEngine(mesh)
-    with pytest.raises(ValueError, match="item 17"):
-        eng.rescale_mesh(wide)
+    """Plan ops run only on the ranks of the engine's mesh. A mesh of
+    several ranks is taken, at construction and at a swap, and is driven
+    by collective ``step()`` calls: a scheduler thread is refused there,
+    and a threaded engine cannot move onto one. A rank outside the mesh
+    (here a one-rank mesh over rank 1) neither plans nor executes: its
+    plan-op submit raises at once, while its custom buckets serve."""
+    wide = Mesh(("data",), {"data": 2}, torch.device("cpu"), {"data": 0},
+                ranks=(0, 1))
+    eng = FFTServeEngine(wide)
+    assert eng.mesh is wide
+    with pytest.raises(ValueError, match="collective step"):
+        eng.start()
+    eng.stop(drain=False)
+    threaded = FFTServeEngine(mesh).start()
+    with pytest.raises(ValueError, match="no scheduler thread"):
+        threaded.rescale_mesh(wide)
+    assert threaded.mesh is mesh
+    threaded.stop()
+    other = Mesh(("data",), {"data": 1}, torch.device("cpu"), None,
+                 ranks=(1,))
+    eng = FFTServeEngine(other)
+    with pytest.raises(ValueError, match="outside the engine's mesh"):
+        eng.submit(np.ones((8, 8), np.complex64))
+    eng.register_bucket("sink", lambda p, s: [x * 2 for x in p])
+    fut = eng.submit(3, bucket="sink")
+    eng.step(force=True)
+    assert fut.result(timeout=WAIT_S) == 6
+    assert eng.stats()["submitted"] == 1
     eng.stop()
 
 

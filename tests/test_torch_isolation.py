@@ -67,4 +67,7 @@ def test_port_sources_import_neither_jax_nor_reference():
             "repro_torch.core.solver.stepper",
             "repro_torch.core.solver.base", "repro_torch.core.solver.ns2d",
             "repro_torch.core.solver.bq3d",
-            "repro_torch.launch.solver"} <= set(_modules())
+            "repro_torch.launch.solver",
+            # fault tolerance and the elastic consumer mesh
+            "repro_torch.runtime.fault",
+            "repro_torch.runtime.elastic"} <= set(_modules())

@@ -120,10 +120,10 @@ def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
 
 
 # explicit ids: the ones these cases had while the list still held the
-# monitor flag (flags0), the transit and cluster flags (flags1, flags4-6)
-# and the wisdom flag (flags3), all now ported and tested below
+# monitor flag (flags0), the transit and cluster flags (flags1, flags4-6),
+# the wisdom flag (flags3) and the elastic flag (flags2), all now ported
+# and tested below
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--elastic"], "item 17", id="flags2-item 17"),
     pytest.param(["--arch", "dbrx-132b"], "item 18", id="flags7-item 18"),
 ])
 def test_serve_flags_not_ported_raise(flags, item):
@@ -203,27 +203,19 @@ TRANSIT_RANK = textwrap.dedent("""
 """)
 
 
-def test_serve_transit_consumers_on_two_ranks(tmp_path):
-    """``--transit-consumers 1`` on two gloo CPU ranks started by the
-    ``REPRO_*`` env contract: rank 0 decodes the tokens of the run
-    without transit, rank 1 runs the monitor chain on the logits it is
-    sent and writes the files (the same bytes as the monitor in place),
-    rank 0 writes none, and both reports carry the ``transit`` block."""
-    base = CPU + ["--batch", "2", "--prompt-len", "8", "--tokens", "8",
-                  "--monitor-every", "2", "--monitor-batch", "2"]
-    inplace = serve.main(base + ["--monitor-dir", str(tmp_path / "inplace")])
+def _serve_ranks(world, argv_of):
+    """``serve.main`` on ``world`` gloo CPU ranks started by the
+    ``REPRO_*`` env contract; each rank's report."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         coord = f"localhost:{sock.getsockname()[1]}"
     procs = [subprocess.Popen(
-        [sys.executable, "-c", TRANSIT_RANK, json.dumps(
-            base + ["--monitor-dir", str(tmp_path / f"rank{r}"),
-                    "--transit-consumers", "1"])],
+        [sys.executable, "-c", TRANSIT_RANK, json.dumps(argv_of(r))],
         env=dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
-                 REPRO_COORDINATOR=coord, REPRO_NUM_PROCESSES="2",
+                 REPRO_COORDINATOR=coord, REPRO_NUM_PROCESSES=str(world),
                  REPRO_PROCESS_ID=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+        for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -233,10 +225,23 @@ def test_serve_transit_consumers_on_two_ranks(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+    assert [p.returncode for p in procs] == [0] * world, "\n".join(
         log[-3000:] for log in logs)
-    decode, consume = (json.loads(log.strip().splitlines()[-1])
-                       for log in logs)
+    return [json.loads(log.strip().splitlines()[-1]) for log in logs]
+
+
+def test_serve_transit_consumers_on_two_ranks(tmp_path):
+    """``--transit-consumers 1`` on two gloo CPU ranks started by the
+    ``REPRO_*`` env contract: rank 0 decodes the tokens of the run
+    without transit, rank 1 runs the monitor chain on the logits it is
+    sent and writes the files (the same bytes as the monitor in place),
+    rank 0 writes none, and both reports carry the ``transit`` block."""
+    base = CPU + ["--batch", "2", "--prompt-len", "8", "--tokens", "8",
+                  "--monitor-every", "2", "--monitor-batch", "2"]
+    inplace = serve.main(base + ["--monitor-dir", str(tmp_path / "inplace")])
+    decode, consume = _serve_ranks(2, lambda r: base + [
+        "--monitor-dir", str(tmp_path / f"rank{r}"),
+        "--transit-consumers", "1"])
     assert decode["sample"] == inplace["sample"]
     assert consume["role"] == "consumer" and "sample" not in consume
     assert (decode["monitor"]["submits"], decode["monitor"]["files"]) == \
@@ -392,3 +397,45 @@ def test_monitor_chain_matches_reference(tmp_path):
     want = np.load(jfiles[0]).astype(np.float64)
     assert np.abs(np.load(files[0]) - want).max() <= \
         1e-5 * np.abs(want).max()
+
+
+def test_serve_elastic_needs_transit_consumers():
+    """``--elastic`` alone has no consumer mesh to rescale: the
+    reference's message, before any bring-up."""
+    with pytest.raises(SystemExit, match="--elastic requires "
+                                         "--transit-consumers"):
+        serve.main(CPU + ["--elastic"])
+
+
+def test_serve_elastic_on_three_ranks(tmp_path):
+    """``--elastic --transit-consumers 2`` on three gloo CPU ranks: rank 0
+    decodes the tokens of in-place serving; the two consumers run the
+    monitor under the elastic controller, every rank ticking at each
+    snapshot (no lease expires, so no rescale); every report carries the
+    ``elastic`` block in place of ``transit``."""
+    base = CPU + ["--batch", "2", "--prompt-len", "8", "--tokens", "8",
+                  "--monitor-every", "2", "--monitor-batch", "2"]
+    inplace = serve.main(base + ["--monitor-dir", str(tmp_path / "inplace")])
+    reports = _serve_ranks(3, lambda r: base + [
+        "--monitor-dir", str(tmp_path / f"rank{r}"),
+        "--transit-consumers", "2", "--elastic"])
+    decode, consumers = reports[0], reports[1:]
+    assert decode["sample"] == inplace["sample"]
+    assert (decode["monitor"]["submits"], decode["monitor"]["files"]) == \
+        (2, 0)
+    for rep in reports:
+        assert "transit" not in rep
+        el = rep["elastic"]
+        assert el["state"] == "serving" and el["generation"] == 0
+        assert el["events"] == [] and el["detector"]["dead"] == {}
+        assert el["producer_devices"] == 1 and el["consumer_devices"] == 2
+        assert el["bridge"]["fields"] == 2
+        assert el["bridge"]["consumer"]["processes"] == [1, 2]
+    for r, rep in enumerate(consumers, start=1):
+        assert rep["role"] == "consumer" and "sample" not in rep
+        assert rep["monitor"]["submits"] == 2
+        # each consumer's monitor writes its own statistics
+        assert sorted(f.name for f in (tmp_path / f"rank{r}").glob(
+            "logit_stats_*.npy")) == ["logit_stats_000000.npy",
+                                      "logit_stats_000001.npy"]
+    assert not list((tmp_path / "rank0").glob("*.npy"))

@@ -185,3 +185,35 @@ def test_launch_in_transit_on_three_ranks(tmp_path):
     straight = launch.main([a if a != "10" else "20" for a in BASE])
     assert abs(second[0]["final"]["energy"] - straight["final"]["energy"]) \
         / straight["final"]["energy"] < ENERGY_TOL
+
+
+def test_launch_elastic_on_three_ranks(tmp_path):
+    """``--transit-consumers 2 --elastic`` on three ranks: one solver
+    rank, two consumers under the elastic controller, every rank ticking
+    once per report (no lease expires, so no rescale). The spectra, on
+    the consumer mesh's first rank only, are those of the run without
+    ``--elastic`` (one rank, the same slab decomposition) bit for bit,
+    and every summary carries the ``elastic`` block."""
+    flags = BASE + ["--decomp", "slab"]
+    one = launch.main(flags + ["--spectra-dir", str(tmp_path / "one")])
+    ranks = _three_ranks(tmp_path, lambda r: flags + [
+        "--spectra-dir", str(tmp_path / f"rank{r}"),
+        "--transit-consumers", "2", "--elastic"])
+    solver, consumers = ranks[0], ranks[1:]
+    assert solver["final"] == one["final"]
+    assert [c["role"] for c in consumers] == ["consumer", "consumer"]
+    assert [c["spectra_files"] for c in consumers] == [2, 0]
+    names = ["ns2d_spectrum_000005.npy", "ns2d_spectrum_000010.npy"]
+    assert sorted(f.name for f in (tmp_path / "rank1").glob("*.npy")) \
+        == names
+    assert not list(tmp_path.glob("rank[02]/*.npy"))
+    for name in names:
+        assert np.array_equal(np.load(tmp_path / "rank1" / name),
+                              np.load(tmp_path / "one" / name))
+    for rep in ranks:
+        assert "transit" not in rep
+        el = rep["elastic"]
+        assert el["generation"] == 0 and el["events"] == []
+        assert el["bridge"]["fields"] == 2
+        assert el["bridge"]["producer"]["processes"] == [0]
+        assert el["bridge"]["consumer"]["processes"] == [1, 2]

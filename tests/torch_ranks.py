@@ -111,6 +111,20 @@ SOLVER_CASES = ([("ns2d", d, m, real)
                    for real in (True, False)])
 SOLVER_TABLES = ("k2", "inv_k2", "dealias", "weights")
 
+# elastic: the reference's chaos scenario (tests/test_elastic.py:497-600)
+# on four ranks, 2 producers and a pool of 2 consumers: the field its
+# consumers transform, the engine's pending requests, the heartbeat drop
+# of pool rank 0 from step 2 and a mildly slow pool rank 1; the async
+# chaos (:654-716) on its (12, 8) field with a kill at step 2; the
+# engine across the grown mesh (5 requests a batch of 4 and a partial);
+# reshard between the (4,) mesh and the consumer mesh
+ELASTIC_FIELD = (16, 24)
+ELASTIC_PENDING = 3
+ELASTIC_STEPS = 8
+ELASTIC_ASYNC_FIELD = (12, 8)
+ELASTIC_ASYNC_KILL = 2
+ELASTIC_ACROSS = 5
+RESHARD_FIELD = (16, 24)
 
 def case_id(decomp, direction, batched):
     return f"{decomp}-{direction}-{'batched' if batched else 'single'}"
@@ -835,6 +849,221 @@ def job_transit(inputs, out, workdir):
     gather("transit", mine)
 
 
+def job_elastic(inputs, out, workdir):
+    """The elastic consumer mesh on four ranks: the reference's chaos
+    scenario (cold measured bring-up, a dropped heartbeat detected, a
+    failure-driven shrink failing the engine's pending requests, a
+    resubmit, a grow planned from wisdom alone, bit-identical output),
+    the engine across the grown two-rank mesh, the async chaos, and
+    ``distributed.reshard``. Every rank's results go to rank 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compat import make_mesh
+    from repro_torch.core.fft import distributed as D
+    from repro_torch.core.fft import plan as P
+    from repro_torch.core.insitu.bridge import BridgeData
+    from repro_torch.core.insitu.pipeline import PipelineError
+    from repro_torch.launch.mesh import make_consumer_mesh, make_elastic_setup
+    from repro_torch.runtime.fault import (HEARTBEAT_DROP, KILL_AT_STEP,
+                                           SLOW_RANK, FaultSchedule,
+                                           InjectedFault, StragglerMonitor)
+    from repro_torch.serve.fft_engine import FFTServeEngine
+    res = {}
+    P.set_wisdom(workdir / "wisdom.json", "readwrite")
+    step_box = [0]
+    pm, ctl = make_elastic_setup(
+        2, lease=1.0, max_misses=2, clock=lambda: float(step_box[0]),
+        plan_kwargs={"decomp": "slab", "backend": "measure",
+                     "allow_reduced_wire": False}, device="cpu")
+    res["producer_devices"] = pm.size
+    res["pool"] = {str(r): v["rank"] for r, v in ctl.consumer_ranks().items()}
+    field = inputs["elastic_field"]
+    ref = np.fft.fftn(field)
+
+    def rel(got, want):
+        return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+    def run_fft():      # the consumers', collective over their mesh
+        plan = ctl.plan(field.shape)
+        re, im = plan.unplace(*plan.execute(*plan.place(field)))
+        return re.numpy() + 1j * im.numpy()
+
+    # generation 0: cold measured bring-up, winners recorded to wisdom
+    if ctl.is_consumer():
+        out0 = run_fft()
+        st = ctl.plan_stats()
+        res.update(cold_timed=st["sweep_candidates_timed"],
+                   cold_wisdom_hits=st["wisdom_hits"],
+                   cold_err=rel(out0, ref), out0=out0)
+    # a serving engine rides the consumer mesh; requests stay pending
+    eng = FFTServeEngine(ctl.consumer_mesh, max_batch=4, linger_s=10.0,
+                         plan_kwargs={"decomp": "slab"})
+    ctl.attach_engine(eng)
+    pend = [eng.submit((field + i).astype(np.complex64))
+            for i in range(ELASTIC_PENDING)] if ctl.is_consumer() else []
+    # chaos: pool rank 0 drops its heartbeats from step 2; pool rank 1 is
+    # briefly slow (mild: the percentile report must not evict it)
+    sched = FaultSchedule([
+        InjectedFault(mode=HEARTBEAT_DROP, step=2, rank=0),
+        InjectedFault(mode=SLOW_RANK, step=1, rank=1, duration=2,
+                      slow_factor=1.5)])
+    mon = StragglerMonitor()
+    ev = None
+    for step in range(1, ELASTIC_STEPS):
+        step_box[0] = step
+        for r in ctl.active_ranks():
+            mon.observe(step, 0.1 * sched.slow_factor(step, r), rank=r)
+        ctl.heartbeat_all(drop=[r for r in ctl.active_ranks()
+                                if sched.drops_heartbeat(step, r)])
+        ev = ctl.tick(straggler_report=mon.rank_report())
+        if ev is not None:
+            break
+    res["detected_at_step"] = step_box[0]
+    res["shrink"] = None if ev is None else {
+        k: ev[k] for k in ("generation", "to_devices", "drain",
+                           "plans_evicted", "engine", "reason",
+                           "excluded_ids", "consumer_span", "wall_s")}
+    res["rank1_alive"] = 1 in ctl.detector.alive_ranks()
+    res["pending_errors"] = sorted({type(f.exception(5)).__name__
+                                    for f in pend})
+    res["straggler_resets"] = mon.resets
+    # containment is per request: a resubmit runs on the rebuilt mesh
+    if ctl.is_consumer():
+        f2 = eng.submit(field.astype(np.complex64))
+    else:
+        try:
+            eng.submit(field.astype(np.complex64))
+            res["outside_submit"] = None
+        except ValueError as err:
+            res["outside_submit"] = str(err)
+    eng.step(force=True)
+    eng.drain(timeout=120.0)
+    if ctl.is_consumer():
+        res["resubmit_err"] = rel(np.asarray(f2.result(timeout=30)), ref)
+        out1 = run_fft()             # the shrunk mesh's plan is right too
+        res["shrunk_err"] = rel(out1, ref)
+    res["engine_rescales"] = eng.report()["rescales"]
+    # grow back: generation 0's topology, so planning is wisdom alone
+    ev2 = ctl.rescale(n=2, rejoin_ranks=[0], drain=True,
+                      reason="capacity rejoined")
+    res["grow"] = {k: ev2[k] for k in ("generation", "to_devices",
+                                       "excluded_ids", "consumer_span",
+                                       "wall_s")}
+    if ctl.is_consumer():
+        out2 = run_fft()
+        st = ctl.plan_stats()
+        res.update(warm_timed=st["sweep_candidates_timed"],
+                   warm_wisdom_hits=st["wisdom_hits"],
+                   bit_identical=bool(np.array_equal(out0, out2)))
+        # the engine across the grown mesh: the first rank decides each
+        # tick (a full batch of 4 at once, the partial only when forced)
+        fields = [(field * (i + 1)).astype(np.complex64)
+                  for i in range(ELASTIC_ACROSS)]
+        e0 = eng.stats()["executes"]
+        futs = [eng.submit(f) for f in fields]
+        real = eng.submit(field, op="bandpass", real=True, keep_frac=0.25)
+        ticks = [eng.step(), eng.step(force=True)]
+        eng.drain(timeout=120.0)
+        one = FFTServeEngine(make_mesh((1,), ("data",), device="cpu"),
+                             linger_s=0.0)
+        want = one.submit(field, op="bandpass", real=True, keep_frac=0.25)
+        one.drain(timeout=120.0)
+        one.stop()
+        res["across"] = {
+            "ticks": ticks,
+            "fft_err": max(rel(np.asarray(f.result(timeout=30)),
+                               np.fft.fftn(x)) for f, x in zip(futs, fields)),
+            "bandpass_err": rel(np.asarray(real.result(timeout=30)),
+                                np.asarray(want.result(timeout=30))),
+            "executes": eng.stats()["executes"] - e0}
+        try:
+            eng.start()
+            res["across"]["start"] = None
+        except ValueError as err:
+            res["across"]["start"] = str(err)
+        # a request submitted on the first consumer alone: the ranks'
+        # streams diverged, and both fail the tick instead of hanging
+        lone = eng.submit(fields[0]) \
+            if dist.get_rank() == ctl.consumer_mesh.first_rank else None
+        try:
+            eng.step(force=True)
+            res["across"]["diverged"] = None
+        except RuntimeError as err:
+            res["across"]["diverged"] = str(err)
+        res["across"]["lone"] = None if lone is None else \
+            type(lone.exception(5)).__name__
+    eng.stop()
+    rep = ctl.report()
+    res["state"], res["n_events"] = rep["state"], len(rep["events"])
+    res["generation"] = rep["generation"]
+
+    # the async chaos: a contained consumer death, then a rescale that
+    # retires the old hop
+    pm2, ctl2 = make_elastic_setup(2, lease=1e9, device="cpu")
+    afield = inputs["elastic_async_field"]
+    spec = ("data", None)
+
+    def payload(step):
+        x = D.shard(afield + step, pm2, spec) if ctl2.is_producer() \
+            else torch.empty(afield.shape, device="meta")
+        return BridgeData(arrays={"f": x}, step=step, spec=spec)
+
+    kill = FaultSchedule([InjectedFault(mode=KILL_AT_STEP,
+                                        step=ELASTIC_ASYNC_KILL, rank=0)])
+    delivered = []
+
+    def consume(data):
+        kill.check_kill(data.step, 0)
+        delivered.append(data.step)
+    err = None
+    try:
+        for i in range(4):
+            ctl2.send_async(payload(i), on_result=consume, depth=2)
+        ctl2.drain_async(raise_error=False)
+        ctl2.send_async(payload(9))
+    except PipelineError as e:
+        err = {"step": e.step, "endpoint": e.endpoint,
+               "cause": type(e.cause).__name__}
+    hop = ctl2.bridge.report()["async"]
+    old = ctl2.bridge
+    ev3 = ctl2.rescale(n=1, reason="operator shrink")
+    got = []
+    for i in range(3):
+        ctl2.send_async(payload(i), on_result=got.append, depth=2)
+    ctl2.drain_async()
+    res["async"] = {
+        "delivered_before_kill": delivered, "contained": err,
+        "dropped": hop["dropped"], "rescaled_to": ev3["to_devices"],
+        "old_hop_closed": old._async._closed,
+        "new_bridge": ctl2.bridge is not old,
+        "post_rescale_delivered": [g.step for g in got],
+        "post_rescale_bit_identical": all(
+            np.array_equal(g.arrays["f"].numpy(), afield + g.step)
+            for g in got) if ctl2.is_consumer() else None,
+        "new_async_clean": ctl2.bridge.report()["async"]["error"] is None}
+
+    # reshard: (4,) rows -> the two-rank consumer mesh's columns -> back
+    # to the producers' rows, and one mesh to another spec
+    rf = inputs["reshard_field"]
+    m4 = make_mesh((4,), ("data",), device="cpu")
+    cm = make_consumer_mesh(2, 2, device="cpu")
+    x = D.shard(rf, m4, ("data", None))
+    cols = D.reshard(x, m4, ("data", None), cm, (None, "data"))
+    back = D.reshard(cols if cm.is_member
+                     else torch.empty(rf.shape, device="meta"),
+                     cm, (None, "data"), pm2, ("data", None))
+    same = D.reshard(x, m4, ("data", None), m4, (None, "data"))
+    res["reshard"] = {
+        "to_consumers": None if cols is None else cols.numpy(),
+        "to_producers": None if back is None else back.numpy(),
+        "same_mesh": same.numpy(),
+        "global": (D.unshard(cols, cm, (None, "data")).numpy()
+                   if cm.is_member else None)}
+    every = [None] * WORLD
+    dist.all_gather_object(every, res)
+    out["elastic_ranks"] = np.array(every, dtype=object)
+
+
 def job_solver(inputs, out, workdir):
     """The spectral solvers on every decomposition of SOLVER_CASES:
     every rank steps its blocks and gathers the fields and the basis
@@ -878,7 +1107,7 @@ def main():
     try:
         {"distributed": job_distributed, "schedule": job_schedule,
          "rfft": job_rfft, "wire": job_wire,
-         "transit": job_transit,
+         "transit": job_transit, "elastic": job_elastic,
          "solver": job_solver}[job](inputs, out, workdir)
         dist.barrier()
         if rank == 0:
