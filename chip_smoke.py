@@ -30,7 +30,13 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
   * the elastic consumer mesh (phase 10): an ``ElasticController`` over
     four ranks on the card shrinks its consumer mesh on a dropped
     heartbeat and grows it back, and ``launch/solver.py --elastic`` runs
-    on three.
+    on three;
+  * serving the other six model configs (phase 11): the MoE decoders
+    (grok-1, dbrx), the SSM and hybrid stacks (mamba2, zamba2), whisper's
+    encoder-decoder and internvl2's VLM, at published widths, with the
+    int8 KV cache; zamba2's shared block runs the flash kernel at
+    head_dim 80 and whisper's cross-attention with 1500 keys against 64
+    queries.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -55,8 +61,11 @@ Phases, each printing one JSON line:
      at the qwen3-4b prefill shape in float32 (three TF32 products on the
      tensor cores: bounded by them at the TF32 peak, with the CUDA cores'
      fp32 bound beside it) and bf16 (wgmma), each beside SDPA, and on a
-     float32 case with large logits that one TF32 product would fail;
-     and N = 1 and 2 as rows and columns against the plain Stockham
+     float32 case with large logits that one TF32 product would fail,
+     and at phase 11's two shapes past the reference's Pallas kernel
+     (float32): zamba2's (4, 2048, 32, 32, 80) causal, and whisper's
+     cross-attention, q (4, 64, 16, 64) against k/v (4, 1500, 16, 64),
+     non-causal; and N = 1 and 2 as rows and columns against the plain Stockham
      version;
   4. FFT main path — the chain at 8192 x 8192 (every pass on the
      four-step kernel's radix route), 128 x 128 (every pass on the
@@ -212,7 +221,38 @@ Phases, each printing one JSON line:
      against one rank here: the same final report and bit-identical
      spectra, on the first consumer only. Every FFT shape of the
      scenario against the plain versions, torch.fft and float64;
-then one ``{"kernels": [...]}`` line. The last line is ``{"ok": true,
+  11. lm_families — each config at its published width, float32, seeded
+     weights made on the card, one line each: grok-1 and dbrx cut to 2
+     layers (``dataclasses.replace(cfg, num_layers=2)``, listed as
+     ``reduced``; 45.8 and 31.0 GB of weights), batch 2, a 2048-token
+     prompt, 8 greedy tokens through ``lm.prefill``/``decode_step``;
+     mamba2-1.3b (48 layers) and zamba2-2.7b (54) through ``serve.main``,
+     batch 4, 2048 + 32; whisper-medium (24 + 24) on seeded frames (4,
+     1500, 1024) and a 64-token decoder prompt, 32 tokens through
+     ``encdec.prefill``/``decode_step``; internvl2-2b (24) on 256 seeded
+     patch embeddings and 1792 text tokens, 32 tokens. Each line: prefill
+     ms and decode ms/token (host clock to ``synchronize()``), peak
+     ``max_memory_allocated``, launches by kernel (flash a prefill: 2, 2,
+     0, 9 at head_dim 80, 72 = 24 encoder + 24 self + 24 cross, 24); the
+     teacher-forced error, prefill(S) + one decode step against
+     prefill(S + 1) (held at 1e-4 for whisper and internvl2; for the SSM
+     stacks held at 2e-4 on their first 5 SSM layers and reported at full
+     depth, with one SSM layer's sensitivity to a 1e-6 input change;
+     reported for MoE, whose capacity depends on the token count); each
+     flash call of a prefill against the plain version on its inputs
+     (1e-4), and the prefill's logits on the kernel against the same
+     prefill on the plain version (1e-4 of max |logit|; MoE on the
+     kernel run's routing, replayed; reported for the SSM stacks). grok-1
+     also runs one MoE layer at full width on 512 tokens, nothing
+     dropped, against a loop over its experts (1e-4), twice,
+     bit-identical; zamba2 the continuous batcher (4 slots, 6 requests),
+     each request's tokens equal to its run alone in the same engine;
+     internvl2 decodes 64 tokens from an empty int8 cache and a dense one
+     (max |dlogit| under 0.05 / 0.544 of max |logit|, the reference's
+     bar at its width; total variation < 0.01; the argmax and both
+     caches' bytes reported);
+then one ``{"kernels": [...]}`` line (the flash kernel's row at the
+qwen3-4b shape, and a row at each of phase 11's two shapes). The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
 anything.
@@ -960,26 +1000,28 @@ def profile_chain(dims, mesh, out_dir, real=False):
     return res
 
 
-def check_flash(shape, dtype, causal, cap, gen, mul=1.0):
+def check_flash(shape, dtype, causal, cap, gen, mul=1.0, sk=None):
     """The flash kernel at one shape against its plain version; SDPA as
     the library yardstick where it computes the same function (no
-    softcap). ``mul`` scales q (larger logits). float32 runs as three
-    TF32 products on the tensor cores: its bound is those products at
-    the TF32 peak, with the CUDA cores' fp32 bound beside it."""
+    softcap). ``mul`` scales q (larger logits); ``sk`` gives K/V a length
+    of their own (non-causal calls). float32 runs as three TF32 products
+    on the tensor cores: its bound is those products at the TF32 peak,
+    with the CUDA cores' fp32 bound beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     B, S, H, KV, hd = shape
-    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda")
-               for n in (H, KV, KV))
+    Sk = S if sk is None else sk
+    q, k, v = (torch.randn((B, n_s, n, hd), generator=gen, device="cuda")
+               for n_s, n in ((S, H), (Sk, KV), (Sk, KV)))
     q, k, v = (q * mul).to(dtype), k.to(dtype), v.to(dtype)
     got = flash_attention(q, k, v, causal=causal, softcap=cap)
     want = flash_attention_ref(q, k, v, causal=causal, softcap=cap)
     torch.cuda.synchronize()
     atol, rtol = FLASH_TOL[str(dtype).split(".")[-1]]
     diff = (got.float() - want.float()).abs()
-    res = {"kernel": "flash_attention", "shape": list(shape),
+    res = {"kernel": "flash_attention", "shape": list(shape), "sk": Sk,
            "dtype": str(dtype).split(".")[-1], "causal": causal,
            "softcap": cap, "q_scale": mul, "atol": atol, "rtol": rtol,
            "max_abs_err": float(diff.max()),
@@ -997,7 +1039,7 @@ def check_flash(shape, dtype, causal, cap, gen, mul=1.0):
         res["library_ms"] = (time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
             if cap == 0.0 else None)
-        pairs = S * (S + 1) / 2 if causal else S * S
+        pairs = S * (S + 1) / 2 if causal else S * Sk
         flops = 4.0 * B * H * hd * pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         if dtype == torch.float32:
@@ -3580,6 +3622,587 @@ def solver_phase(counters, gen):
             "shape_checks": checks}
 
 
+# phase 11, the model families past the dense decoders, each at its
+# published width in float32 with seeded weights made on the card. grok-1
+# and dbrx keep 2 of their layers (45.8 and 31.0 GB of weights; the full
+# depths, 1.26 TB and 528 GB, do not fit one card): batch 2, a 2048-token
+# prompt, 8 greedy tokens. mamba2 and zamba2 run serve.main at full depth
+# (batch 4, 2048 + 32); whisper takes seeded frames (4, 1500, 1024) and a
+# 64-token decoder prompt; internvl2 256 seeded patch embeddings and 1792
+# text tokens (batch 4), both decoding 32 tokens
+MOE_FAMILIES = ("grok-1-314b", "dbrx-132b")
+MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_TOKENS = 2, 2, 2048, 8
+SSM_FAMILIES = ("mamba2-1.3b", "zamba2-2.7b")
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_TOKENS = 4, 2048, 32
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64
+# teacher-forced bars, max |difference| over max |logit|: phase 5's for
+# whisper and internvl2; for mamba2 and zamba2 the reference's SSM bar
+# (tests/test_ssm_oracle.py: the chunked scan against the step-by-step
+# recurrence, which is what prefill then decode compares), held on the
+# first SSM_CUT_LAYERS layers at published width (SSM layers only: for
+# zamba2 the five before its first hybrid slot, whose gated norms turn the
+# shared block's rounding into 1.8e-3) and reported at full depth: the
+# random float32 layers amplify float32 rounding (mamba2 read 2.9e-3 at
+# full depth; on the CPU its reduced width reads 2.8e-6 at 4 layers,
+# 2.5e-4 at 48, and 4.9e-7 at 48 with the stack in float64, so the gap is
+# float32's, as the sensitivity above says);
+# reported and not held for the MoE stacks, whose capacity depends on the
+# token count, so that prefill(S) and prefill(S + 1) may drop other picks
+SSM_TEACHER_TOL = 2e-4
+SSM_CUT_LAYERS = 5
+# each family's prefill on the flash kernel against the same prefill on
+# its plain version, relative to max |logit|. The MoE stacks' plain run
+# replays the kernel run's top-k picks: routing is a step function, and a
+# 1e-5 change in one token's router input flips a near-tie (grok-1's
+# smallest gap between the 2nd and 3rd expert was 8.6e-6 over 4096
+# tokens), which the next layer's attention spreads into every later
+# position (read: 7.7e-4 on grok-1 without the replay, 2.4e-5 on a draw
+# with no flip). The picks the plain run would have made are counted.
+# Every flash call of a prefill is also held, on its own inputs, against
+# the plain version (the same bar, relative to max |plain|). On the SSM
+# and hybrid stacks the logits' comparison is reported, not held: Mamba2's
+# gated RMSNorm divides heads whose gated output nearly vanishes (rms
+# down to 4.7e-7 against eps 1e-6 at zamba2's width) by their rms, so one
+# SSM layer turns a 1e-6 change of its input into 6e-4-8e-4 of its output
+# (measured on the card; SSM_SENSITIVITY_EPS below), the reference's
+# formula alike; a flash call's 2.4e-6 becomes 0.25 of the logits after
+# 54 layers
+FLASH_PLAIN_TOL = 1e-4
+SSM_SENSITIVITY_EPS = 1e-6
+# one grok-1 MoE layer at full width against a loop over its experts, with
+# the capacity factor at E / K so that nothing drops (every expert's
+# buffer holds every token), relative to max |oracle|
+MOE_ORACLE_TOKENS = 512
+MOE_ORACLE_TOL = 1e-4
+# the int8 cache against the dense one on internvl2-2b, decoding from an
+# empty state: the reference's bar (tests/test_serve.py:135-157), max
+# |dlogit| < 0.05, total variation < 0.01, the same argmax. Its absolute
+# 0.05 was set at width 64, where that test's logits reach 0.544 (its
+# dense run, read on the CPU); at internvl2's 2048 the head's logits are
+# ~5.6x larger (embedding init 0.02 x sqrt(d)), so max |dlogit| is held
+# relative to max |logit| at the reference's ratio, 0.05 / 0.544, and
+# reported beside the absolute 0.05. The argmax is reported with each
+# row's dense top-two gap, not held: with 92553 random logits a row's top
+# two lie ~0.2 apart, and any row whose gap is under 2 x max |dlogit| may
+# flip (read: one row of four flipped at max |dlogit| 0.080, 1.8% of max
+# |logit|); a row whose gap exceeds it cannot, by the bound above
+INT8_TOKENS = 64
+INT8_MAX_DLOGIT = 0.05
+INT8_MAX_REL_DLOGIT = 0.05 / 0.544
+INT8_MAX_TV = 0.01
+# the continuous batcher on zamba2: slots, requests, new tokens each. A
+# request's run alone is the same engine (HYBRID_SLOTS slots) holding only
+# that request: a GEMM's row is bitwise the same whatever the other rows
+# hold, but not across batch sizes (cuBLAS picks its kernel by shape), and
+# the gated norms above turn a last-bit change into other tokens
+HYBRID_SLOTS, HYBRID_REQUESTS, HYBRID_NEW = 4, 6, 8
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@contextlib.contextmanager
+def flash_route(fn):
+    """The models' flash calls go to ``fn`` (given the kernel's wrapper)
+    while the block runs."""
+    from repro_torch.models import attention
+    real = attention.flash_attention
+    attention.flash_attention = functools.partial(fn, real)
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def plain_flash(_real, q, k, v, *, causal=True, softcap=0.0, **_):
+    from repro_torch.kernels.ref import flash_attention_ref
+    return flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+
+
+def checking_flash(errs: list):
+    """A route that launches the kernel and holds each call, on its own
+    inputs, against the plain version: ``errs`` gets max |kernel - plain|
+    over max |plain| a call."""
+    def fn(real, q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        errs.append(rel_err(out, plain_flash(real, q, k, v, **kw)))
+        return out
+    return flash_route(fn)
+
+
+def ssm_sensitivity(cfg, params, tokens, gen):
+    """Relative change of the first SSM layer's output for a relative
+    change of SSM_SENSITIVITY_EPS (of max |x|) in its input, at the
+    model's embedded tokens."""
+    import torch
+    from repro_torch.models import blocks, lm
+    x = lm.embed_inputs(cfg, params, {"tokens": tokens})
+    p = params["blocks"][0]["l0"]
+    noise = torch.randn(x.shape, generator=gen, device=x.device)
+    a, _ = blocks._ssm_layer(cfg, p, x)
+    b, _ = blocks._ssm_layer(cfg, p, x + SSM_SENSITIVITY_EPS
+                             * x.abs().max() * noise)
+    return rel_err(b, a)
+
+
+def recording_flash(seen: list):
+    """A route that records each flash call's (q shape, k shape, causal)
+    and launches the kernel."""
+    def fn(real, q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), kw.get("causal")))
+        return real(q, k, v, **kw)
+    return flash_route(fn)
+
+
+def no_drop(cfg):
+    """``cfg`` with the MoE capacity factor at E / K: C = T, so no pick
+    drops (a token picks an expert at most once)."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def moe_layer_check(cfg, p, gen):
+    """One MoE layer at full width on MOE_ORACLE_TOKENS tokens, nothing
+    dropped, against a loop over the experts; run twice, bit-identical."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.common import activation
+    cfg = no_drop(cfg)
+    x = 0.5 * torch.randn((1, MOE_ORACLE_TOKENS, cfg.d_model),
+                          generator=gen, device="cuda")
+    got, aux = moe.moe_mlp(cfg, p, x)
+    again, aux2 = moe.moe_mlp(cfg, p, x)
+    xt = x[0]
+    gates, ids = moe.top_k(torch.softmax(xt @ p["router"], -1),
+                           cfg.moe.top_k)
+    gates = gates / gates.sum(-1, keepdim=True)
+    act = activation(cfg.act)
+    want = torch.zeros_like(xt)
+    for e in range(cfg.moe.num_experts):
+        y = (act(xt @ p["moe_gate"][e]) * (xt @ p["moe_up"][e])) \
+            @ p["moe_down"][e]
+        want += (gates * (ids == e)).sum(-1, keepdim=True) * y
+    res = {"tokens": MOE_ORACLE_TOKENS,
+           "capacity": moe.capacity(MOE_ORACLE_TOKENS, cfg),
+           "rel_err_vs_expert_loop": rel_err(got[0], want),
+           "tol": MOE_ORACLE_TOL,
+           "bit_identical_rerun": bool(torch.equal(got, again)
+                                       and torch.equal(aux, aux2))}
+    assert res["rel_err_vs_expert_loop"] < MOE_ORACLE_TOL, res
+    assert res["bit_identical_rerun"], res
+    return res
+
+
+def drive_decoder(cfg, params, batch, new_tokens, counters):
+    """lm.prefill then greedy lm.decode_step, as serve.main drives them:
+    host ms to synchronize(), launches of the prefill and of the decode,
+    and the last logits."""
+    import torch
+    from repro_torch.models import lm
+    S = batch["tokens"].shape[1]
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = lm.prefill(cfg, params, batch,
+                               cache_len=S + new_tokens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = launch_counts(counters)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for _ in range(new_tokens):
+        logits, state = lm.decode_step(cfg, params, tok, state)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode = (time.perf_counter() - t0) * 1e3 / new_tokens
+    total = launch_counts(counters)
+    assert bool(torch.isfinite(logits).all())
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode,
+            "launches_prefill": at_prefill,
+            "launches_decode": {k: total[k] - at_prefill[k]
+                                for k in total},
+            "flash_launches_per_prefill": at_prefill["flash_attention"]}
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None, flips=None):
+    """MoE top-k picks recorded into ``record``, or replayed from
+    ``replay`` (call by call) with the gate values taken at the replayed
+    experts; ``flips`` gets, per call, the tokens whose own picks
+    differed."""
+    from repro_torch.models import moe
+    real = moe.top_k
+    calls = iter(replay or ())
+
+    def fn(probs, k):
+        vals, ids = real(probs, k)
+        if record is not None:
+            record.append(ids)
+        if replay is not None:
+            want = next(calls)
+            flips.append(int((ids != want).any(-1).sum()))
+            ids, vals = want, probs.gather(-1, want)
+        return vals, ids
+    moe.top_k = fn
+    try:
+        yield
+    finally:
+        moe.top_k = real
+
+
+def teacher_forced(cfg, params, batch):
+    """prefill(S) then one decode step against prefill(S + 1), relative to
+    max |logit|; and the prefill on the plain flash version against the
+    kernel's, relative to max |logit| (MoE: on the kernel run's picks)."""
+    import torch
+    from repro_torch.models import lm
+    S = batch["tokens"].shape[1] - 1
+    short = {k: (v[:, :S] if k == "tokens" else v) for k, v in batch.items()}
+    picks, flips, calls = [], [], []
+    with routing(record=picks), checking_flash(calls):
+        with_kernel, state = lm.prefill(cfg, params, short,
+                                        cache_len=S + 1)
+    step, _ = lm.decode_step(cfg, params, batch["tokens"][:, S:], state)
+    del state
+    full, _ = lm.prefill(cfg, params, batch)
+    with flash_route(plain_flash), routing(replay=picks, flips=flips):
+        plain, _ = lm.prefill(cfg, params, short)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(step).all() and torch.isfinite(full).all())
+    out = {"teacher_forced_rel_err": rel_err(step, full),
+           "flash_vs_plain_rel_err": rel_err(with_kernel, plain),
+           "flash_calls_max_rel_err": max(calls, default=0.0),
+           "flash_plain_tol": FLASH_PLAIN_TOL}
+    if cfg.moe is not None:
+        out["plain_run_own_picks_differing"] = flips
+    return out
+
+
+def family_tokens(cfg, gen, B, S):
+    import torch
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+
+
+def moe_family(arch, counters, gen):
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(registry.get_config(arch),
+                              num_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), torch.float32)
+    torch.cuda.synchronize()
+    res = {"phase": "lm_family", "arch": arch, "family": cfg.family,
+           "reduced": {"num_layers": [registry.get_config(arch).num_layers,
+                                      MOE_LAYERS]},
+           "param_bytes": sum(t.numel() * 4 for t in _tensors(params)),
+           "param_init_seconds": time.perf_counter() - t0,
+           "batch": MOE_BATCH, "prompt_len": MOE_PROMPT,
+           "tokens": MOE_TOKENS}
+    tokens = family_tokens(cfg, gen, MOE_BATCH, MOE_PROMPT + 1)
+    res.update(drive_decoder(cfg, params, {"tokens": tokens[:, :-1]},
+                             MOE_TOKENS, counters))
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res.update(teacher_forced(cfg, params, {"tokens": tokens}))
+    res["teacher_forced_held"] = False
+    if arch == "grok-1-314b":
+        res["moe_layer"] = moe_layer_check(
+            cfg, params["blocks"][0]["l0"]["moe"], gen)
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    assert res["flash_launches_per_prefill"] == MOE_LAYERS, res
+    assert res["flash_vs_plain_rel_err"] < FLASH_PLAIN_TOL, res
+    assert res["flash_calls_max_rel_err"] < FLASH_PLAIN_TOL, res
+    return res
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def ssm_family(arch, counters, gen):
+    """serve.main at full depth, the teacher-forced and flash-vs-plain
+    checks; on zamba2 also the continuous batcher against each request
+    run alone."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+    cfg = registry.get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), torch.float32)
+    torch.cuda.synchronize()
+    res = {"phase": "lm_family", "arch": arch, "family": cfg.family,
+           "reduced": None,
+           "param_bytes": sum(t.numel() * 4 for t in _tensors(params)),
+           "param_init_seconds": time.perf_counter() - t0,
+           "batch": FAMILY_BATCH, "prompt_len": FAMILY_PROMPT,
+           "tokens": FAMILY_TOKENS}
+    zero_counts(counters)
+    report = serve.main(["--arch", arch, "--batch", str(FAMILY_BATCH),
+                         "--prompt-len", str(FAMILY_PROMPT), "--tokens",
+                         str(FAMILY_TOKENS), "--seed", "0", "--bench-out",
+                         ""], params=params)
+    res.update({"prefill_ms": report["prefill_ms"],
+                "decode_ms_per_token": report["decode_ms_per_token"],
+                "launches": launch_counts(counters),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    res["flash_launches_per_prefill"] = res["launches"]["flash_attention"]
+    tokens = family_tokens(cfg, gen, FAMILY_BATCH, FAMILY_PROMPT + 1)
+    res.update(teacher_forced(cfg, params, {"tokens": tokens}))
+    res["teacher_forced_held"] = res["flash_vs_plain_held"] = False
+    res["ssm_layer_sensitivity"] = {
+        "input_change": SSM_SENSITIVITY_EPS,
+        "output_change": ssm_sensitivity(cfg, params, tokens[:, :-1], gen)}
+    cut = dataclasses.replace(cfg, num_layers=SSM_CUT_LAYERS,
+                              layer_pattern=("ssm",))
+    first = [g[f"l{i}"] for g in params["blocks"]
+             for i, kind in enumerate(cfg.layer_pattern) if kind == "ssm"]
+    cut_tf = teacher_forced(cut, dict(params, blocks=[
+        {"l0": p} for p in first[:SSM_CUT_LAYERS]]), {"tokens": tokens})
+    res["teacher_forced_cut"] = {"layers": SSM_CUT_LAYERS,
+                                 "rel_err": cut_tf["teacher_forced_rel_err"],
+                                 "tol": SSM_TEACHER_TOL}
+    if cfg.family == "hybrid":
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(4, 17))).astype(np.int32),
+            max_new=HYBRID_NEW) for i in range(HYBRID_REQUESTS)]
+        t1 = time.perf_counter()
+        eng = ContinuousBatcher(cfg, params, slots=HYBRID_SLOTS,
+                                cache_len=64)
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t1
+        alone = {}
+        for r in reqs:
+            one = ContinuousBatcher(cfg, params, slots=HYBRID_SLOTS,
+                                    cache_len=64)
+            one.submit(Request(rid=r.rid, prompt=r.prompt,
+                               max_new=HYBRID_NEW))
+            alone[r.rid] = one.run()[r.rid].out
+        res["engine"] = {"slots": HYBRID_SLOTS, "requests": len(reqs),
+                         "finished": len(done), "ticks": eng.ticks,
+                         "seconds": batched_s,
+                         "tokens_equal_alone": all(
+                             done[r.rid].out == alone[r.rid]
+                             for r in reqs)}
+        del eng
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    n_hybrid = cfg.num_layers // len(cfg.layer_pattern) * \
+        cfg.layer_pattern.count("hybrid")
+    assert res["flash_launches_per_prefill"] == n_hybrid, res
+    assert res["teacher_forced_cut"]["rel_err"] < SSM_TEACHER_TOL, res
+    assert res["flash_calls_max_rel_err"] < FLASH_PLAIN_TOL, res
+    if "engine" in res:
+        assert res["engine"]["finished"] == HYBRID_REQUESTS, res
+        assert res["engine"]["tokens_equal_alone"], res
+    return res
+
+
+def vlm_family(counters, gen):
+    """internvl2-2b with seeded patch embeddings, the teacher-forced and
+    flash-vs-plain checks, and the int8 cache against the dense one."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get_config("internvl2-2b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), torch.float32)
+    res = {"phase": "lm_family", "arch": cfg.name, "family": cfg.family,
+           "reduced": None,
+           "param_bytes": sum(t.numel() * 4 for t in _tensors(params)),
+           "batch": FAMILY_BATCH, "prompt_len": FAMILY_PROMPT,
+           "patches": cfg.num_patches, "tokens": FAMILY_TOKENS}
+    patches = torch.randn((FAMILY_BATCH, cfg.num_patches, lm.VIT_STUB_DIM),
+                          generator=gen, device="cuda")
+    tokens = family_tokens(cfg, gen, FAMILY_BATCH, FAMILY_PROMPT + 1)
+    res.update(drive_decoder(cfg, params, {"tokens": tokens[:, :-1],
+                                           "patch_embeds": patches},
+                             FAMILY_TOKENS, counters))
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res.update(teacher_forced(cfg, params, {"tokens": tokens,
+                                            "patch_embeds": patches}))
+    res["teacher_forced_tol"] = TEACHER_TOL
+    # the int8 cache: decode INT8_TOKENS tokens from empty states
+    logits, caches = {}, {}
+    for impl in ("dense", "int8"):
+        state = lm.init_decode_state(cfg, FAMILY_BATCH, INT8_TOKENS,
+                                     torch.float32, cache_impl=impl)
+        for t in range(INT8_TOKENS):
+            out, state = lm.decode_step(cfg, params, tokens[:, t:t + 1],
+                                        state)
+        logits[impl] = out[:, 0]
+        caches[impl] = sum(t.numel() * t.element_size()
+                           for c in state["caches"].values()
+                           for t in vars(c).values() if torch.is_tensor(t))
+        del state
+    pd, pq = (torch.softmax(logits[k], -1) for k in ("dense", "int8"))
+    dlogit = float((logits["dense"] - logits["int8"]).abs().max())
+    top2 = logits["dense"].topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = logits["dense"].argmax(-1) == logits["int8"].argmax(-1)
+    res["int8"] = {
+        "tokens": INT8_TOKENS,
+        "max_abs_dlogit": dlogit,
+        "max_abs_logit": float(logits["dense"].abs().max()),
+        "rel_dlogit": rel_err(logits["int8"], logits["dense"]),
+        "rel_dlogit_tol": INT8_MAX_REL_DLOGIT,
+        "abs_dlogit_bar_at_width_64": INT8_MAX_DLOGIT,
+        "total_variation": float(0.5 * (pd - pq).abs().sum(-1).max()),
+        "same_argmax_rows": int(same.sum()),
+        "rows": int(same.numel()),
+        "top2_gap": gap.tolist(),
+        "argmax_held": False,
+        "dense_cache_bytes": caches["dense"],
+        "int8_cache_bytes": caches["int8"]}
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    assert res["flash_launches_per_prefill"] == cfg.num_layers, res
+    assert res["teacher_forced_rel_err"] < TEACHER_TOL, res
+    assert res["flash_vs_plain_rel_err"] < FLASH_PLAIN_TOL, res
+    assert res["flash_calls_max_rel_err"] < FLASH_PLAIN_TOL, res
+    assert res["int8"]["rel_dlogit"] < INT8_MAX_REL_DLOGIT, res
+    assert res["int8"]["total_variation"] < INT8_MAX_TV, res
+    return res
+
+
+def whisper_family(counters, gen):
+    """whisper-medium: encode seeded frames, prefill a decoder prompt,
+    decode greedily; the teacher-forced and flash-vs-plain checks. The
+    flash calls are recorded by shape: the encoder's, the decoder's
+    self-attention and the cross-attention (64 queries, 1500 keys)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import encdec
+    cfg = registry.get_config("whisper-medium")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = encdec.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), torch.float32)
+    B, S = FAMILY_BATCH, WHISPER_PROMPT
+    frames = 0.02 * torch.randn((B, WHISPER_FRAMES, cfg.d_model),
+                                generator=gen, device="cuda")
+    tokens = family_tokens(cfg, gen, B, S + 1)
+    res = {"phase": "lm_family", "arch": cfg.name, "family": cfg.family,
+           "reduced": None,
+           "param_bytes": sum(t.numel() * 4 for t in _tensors(params)),
+           "batch": B, "frames": WHISPER_FRAMES, "prompt_len": S,
+           "tokens": FAMILY_TOKENS}
+    seen = []
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with recording_flash(seen):
+        logits, state = encdec.prefill(
+            cfg, params, {"frames": frames, "tokens": tokens[:, :S]},
+            cache_len=S + FAMILY_TOKENS)
+    torch.cuda.synchronize()
+    res["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+    at_prefill = launch_counts(counters)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    t1 = time.perf_counter()
+    for _ in range(FAMILY_TOKENS):
+        logits, state = encdec.decode_step(cfg, params, tok, state)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    res["decode_ms_per_token"] = (time.perf_counter() - t1) * 1e3 / \
+        FAMILY_TOKENS
+    total = launch_counts(counters)
+    del state
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res["launches_prefill"] = at_prefill
+    res["launches_decode"] = {k: total[k] - at_prefill[k] for k in total}
+    res["flash_launches_per_prefill"] = at_prefill["flash_attention"]
+    res["flash_calls_by_kind"] = {
+        "encoder": sum(1 for q, k, c in seen if q[1] == WHISPER_FRAMES),
+        "self": sum(1 for q, k, c in seen if c and q[1] == S),
+        "cross": sum(1 for q, k, c in seen
+                     if not c and q[1] == S and k[1] == WHISPER_FRAMES)}
+    # teacher-forced: prefill(S) + one decode step == prefill(S + 1);
+    # and the prefill on the plain flash version
+    short = {"frames": frames, "tokens": tokens[:, :S]}
+    calls = []
+    with checking_flash(calls):
+        with_kernel, state = encdec.prefill(cfg, params, short,
+                                            cache_len=S + 1)
+    step, _ = encdec.decode_step(cfg, params, tokens[:, S:], state)
+    del state
+    full, _ = encdec.prefill(cfg, params, {"frames": frames,
+                                           "tokens": tokens})
+    with flash_route(plain_flash):
+        plain, _ = encdec.prefill(cfg, params, short)
+    res.update({"teacher_forced_rel_err": rel_err(step, full),
+                "teacher_forced_tol": TEACHER_TOL,
+                "flash_vs_plain_rel_err": rel_err(with_kernel, plain),
+                "flash_calls_max_rel_err": max(calls),
+                "flash_plain_tol": FLASH_PLAIN_TOL,
+                "seconds": time.perf_counter() - t0})
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    L = cfg.encoder_layers
+    assert res["flash_calls_by_kind"] == {"encoder": L, "self": L,
+                                          "cross": L}, res
+    assert res["flash_launches_per_prefill"] == 3 * L, res
+    assert bool(torch.isfinite(step).all())
+    assert res["teacher_forced_rel_err"] < TEACHER_TOL, res
+    assert res["flash_vs_plain_rel_err"] < FLASH_PLAIN_TOL, res
+    assert res["flash_calls_max_rel_err"] < FLASH_PLAIN_TOL, res
+    return res
+
+
+def lm_families(counters, gen):
+    """Phase 11: every family past the dense decoders at published width;
+    returns their results by arch."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in MOE_FAMILIES:
+        out[arch] = moe_family(arch, counters, gen)
+    for arch in SSM_FAMILIES:
+        out[arch] = ssm_family(arch, counters, gen)
+    out["whisper-medium"] = whisper_family(counters, gen)
+    out["internvl2-2b"] = vlm_family(counters, gen)
+    emit({"phase": "lm_families", "seconds": time.perf_counter() - t0,
+          "table": [{k: r.get(k) for k in (
+              "arch", "prefill_ms", "decode_ms_per_token",
+              "peak_memory_bytes", "flash_launches_per_prefill",
+              "teacher_forced_rel_err", "flash_vs_plain_rel_err")}
+              for r in out.values()]})
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3594,7 +4217,9 @@ def main() -> int:
                                                   fft_fourstep_columns)
     from repro_torch.kernels.fft_stockham import (fft_stockham,
                                                   fft_stockham_columns)
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+    from repro_torch.kernels.flash_attention import (BF16_HEAD_DIMS,
+                                                     HEAD_DIMS,
+                                                     flash_attention)
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3625,7 +4250,8 @@ def main() -> int:
     emit({"phase": "flash_sass", "tensor_instructions": sass})
     if sass is not None:   # one kernel per dtype and head dim
         assert sorted(k for f in sass for k in FLASH_KERNELS if k in f) == \
-            sorted(FLASH_KERNELS * len(HEAD_DIMS)), sass
+            sorted([FLASH_KERNELS[0]] * len(HEAD_DIMS)
+                   + [FLASH_KERNELS[1]] * len(BF16_HEAD_DIMS)), sass
         assert all(c["HGMMA"] + c["HMMA"] > 0 for c in sass.values()), sass
 
     # 3. kernels against their plain versions
@@ -3678,6 +4304,15 @@ def main() -> int:
                  ((2, 300, 32, 8, 128), torch.float32, True, 0.0, 1.0),
                  # logits at std 4: one TF32 product would miss the bar
                  ((1, 512, 4, 2, 128), torch.float32, True, 0.0, 4.0))]
+    # the shapes phase 11's families give the kernel past the reference's
+    # Pallas kernel: zamba2's shared block at head_dim 80 (causal, MHA),
+    # and whisper's cross-attention, 64 decoder queries against 1500
+    # encoder keys (non-causal, a key length of its own)
+    flash_hd80 = check_flash((FAMILY_BATCH, FAMILY_PROMPT, 32, 32, 80),
+                             torch.float32, True, 0.0, gen)
+    flash_cross = check_flash((FAMILY_BATCH, WHISPER_PROMPT, 16, 16, 64),
+                              torch.float32, False, 0.0, gen,
+                              sk=WHISPER_FRAMES)
     emit({"phase": "flash_checks_seconds",
           "seconds": time.perf_counter() - t0})
 
@@ -3898,6 +4533,10 @@ def main() -> int:
     # ranks, launch/solver.py --elastic on three
     elastic = elastic_phase(gen)
 
+    # 11. the model families past the dense decoders: MoE (grok-1, dbrx),
+    # SSM (mamba2), hybrid (zamba2), enc-dec (whisper), VLM (internvl2)
+    families = lm_families(all_counters, gen)
+
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
         (producers first) and the transit serve (rank 0 decodes)."""
@@ -3950,6 +4589,21 @@ def main() -> int:
                                                r["inverse_rel_err_vs_f64"])}
                     for r in elastic["shape_checks"]
                     if r["kernel"] == name]}
+
+    def flash_row(res, launches, launches_from):
+        """A kernels-line row of the flash kernel at one of phase 11's
+        shapes."""
+        return {"name": "flash_attention", "route": "cuda",
+                "source": csrc + "flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:95",
+                "launches": launches, "launches_from": launches_from,
+                "shape": res["shape"], "sk": res["sk"],
+                "causal": res["causal"], "dtype": res["dtype"],
+                **{k: res[k] for k in (
+                    "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                    "bound_note", "cuda_core_bound_ms", "library_ms",
+                    "device_ms")},
+                "ms": res["kernel_ms"]}
 
     def row(name, source, replaces, main, cols=None):
         dims = tuple(main["shape"])
@@ -4132,6 +4786,14 @@ def main() -> int:
          "bf16_max_abs_err": flash[1]["max_abs_err"],
          "bf16_bound_ms": flash[1]["bound_ms"],
          "bf16_library_ms": flash[1]["library_ms"]},
+        flash_row(flash_hd80, families["zamba2-2.7b"][
+            "flash_launches_per_prefill"],
+            "zamba2-2.7b serve main path (one 2048-token prefill, 9 "
+            "hybrid layers of the shared block at head_dim 80)"),
+        flash_row(flash_cross, families["whisper-medium"][
+            "flash_calls_by_kind"]["cross"],
+            "whisper-medium prefill's cross-attention (64 decoder "
+            "queries against 1500 encoder keys, one a decoder layer)"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,11 @@
 """Architecture registry (counterpart of ``repro/configs/registry.py``).
 
-The port serves the dense decoder archs whose every feature its modules
-cover: qk-norm (qwen3), qkv-bias and padded heads (qwen2.5), attention
-and final softcaps, sliding windows, post-norms and embedding scale
-(gemma2, h2o-danube). The other archs of the reference need MoE, SSM,
-hybrid, encoder-decoder or VLM layers, which are still to port
-(ROADMAP queue 1 item 18); asking for one raises ``NotImplementedError``.
+Every arch of the reference: the dense decoders (qwen3, qwen2.5,
+gemma2, h2o-danube), the VLM (internvl2, a stub vision frontend), the
+MoE decoders (grok-1, dbrx), the SSM and hybrid stacks (mamba2, zamba2)
+and the encoder-decoder (whisper, served through ``models/encdec.py``).
+Each module exposes ``CONFIG`` (the published configuration) and
+``reduced()`` (a tiny same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -20,10 +20,13 @@ ARCH_MODULES: Dict[str, str] = {
     "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }
-# archs of the reference whose layers the port does not have yet
-NOT_PORTED = ("internvl2-2b", "grok-1-314b", "dbrx-132b", "whisper-medium",
-              "zamba2-2.7b", "mamba2-1.3b")
 
 
 def list_archs() -> List[str]:
@@ -31,10 +34,6 @@ def list_archs() -> List[str]:
 
 
 def _module(arch: str):
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: its MoE, SSM, hybrid, "
-            f"enc-dec or VLM layers are ROADMAP queue 1 item 18")
     if arch not in ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     return importlib.import_module(ARCH_MODULES[arch])
@@ -49,7 +48,7 @@ def get_reduced(arch: str) -> ModelConfig:
 
 
 def reduce_common(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Shrink a dense config to smoke-test size, keeping its features."""
+    """Shrink a config to smoke-test size, keeping its family features."""
     base = dict(
         num_layers=len(cfg.layer_pattern) * 2,
         d_model=64,
@@ -60,5 +59,14 @@ def reduce_common(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=512,
         window=(32 if cfg.window else None),
     )
+    if cfg.moe is not None:
+        base["moe"] = dataclasses.replace(cfg.moe, num_experts=4,
+                                          top_k=min(cfg.moe.top_k, 2))
+    if cfg.ssm is not None:
+        base["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=8,
+                                          chunk=16)
+    if cfg.family == "encdec":
+        base["encoder_layers"] = 2
+        base["decoder_layers"] = 2
     base.update(overrides)
     return dataclasses.replace(cfg, **base)

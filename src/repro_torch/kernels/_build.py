@@ -47,7 +47,7 @@ _SIGNATURES = {
     "repro_fft_stockham": (_P, _P, _P, _P, _I, _I, _I, _P),
     "repro_fft_stockham_axis": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
     "repro_bandpass": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _F, _F, _I, _P),
 }
 

@@ -1,5 +1,8 @@
 // Fused flash attention (forward) on (B, S, H, hd) queries and
-// (B, S, KV, hd) keys/values, H = G * KV, on Hopper's tensor cores.
+// (B, Sk, KV, hd) keys/values, H = G * KV, on Hopper's tensor cores.
+// Sk == S for causal calls; a non-causal call (whisper's cross-attention:
+// 1500 encoder keys against the decoder's queries) runs the key loop and
+// its bounds mask to Sk.
 //
 // Replaces the Pallas TPU kernel `flash_attention` (+ `_kernel`) in
 // src/repro/kernels/flash_attention.py: out = softmax(softcap(q k^T / sqrt
@@ -27,7 +30,7 @@
 // barrier a tile. Causal tiles past the diagonal are not visited, only
 // tiles on the diagonal or past S are masked, and causal grids run their
 // heaviest query tiles first. Inputs are read through their (B, S, H,
-// hd) strides; any S works. The Pallas kernel holds a head's whole K/V in
+// hd) strides; any S and Sk work. The Pallas kernel holds a head's whole K/V in
 // VMEM and takes block_q / block_k as a TPU tiling hint; here one tile
 // shape serves every call. exp2 (ex2.approx) with log2(e) folded into
 // the logits after the softcap.
@@ -54,7 +57,10 @@
 // to match it (k = t, t + 4 are keys 2t, 2t + 1, and V's rows are read
 // in that order), so P never touches shared memory. The three products
 // of a k step are issued in passes over independent accumulators.
-// ptxas: 251 registers at hd 128, no spills.
+// ptxas: 251 registers at hd 128, no spills. hd 80 (zamba2's shared
+// block) is 10 k steps of 8 and 20 16-byte chunks a row; the pitches
+// (88 and 84 floats) keep the fragment reads conflict-free, and the P.V
+// n tiles go in two groups of five.
 //
 // bf16: wgmma.mma_async m64nNk16, bf16 -> float32, one warpgroup per 64
 // query rows. S = Q.K^T reads Q and K from shared memory (K-major);
@@ -66,6 +72,9 @@
 // at hd 128, two CTAs an SM. The scale 1/sqrt(hd) multiplies the float32
 // logits. ptxas: 128 registers at hd 128 (the cap two CTAs an SM set),
 // 36 bytes of spill stores; one CTA an SM without the cap ran slower.
+// The bf16 route builds hd 16, 32, 64 and 128: an 80-wide bf16 row (160
+// bytes) fits none of wgmma's swizzled layouts, so the wrapper refuses
+// it.
 //
 // ptxas's registers and spills for every instantiation are in the
 // build's log (chip_smoke.py's build phase prints the spilling ones).
@@ -90,7 +99,7 @@ struct Strides {
 struct Args {
   const void *q, *k, *v;
   void* o;
-  int B, S, H, G;
+  int B, S, Sk, H, G;
   Strides st;
   int causal;
   float cap, scale;
@@ -118,18 +127,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // A CTA's query tile: its first row q0 (heaviest causal tiles first),
 // the thread's first row r0 (its second is r0 + 8) and the key tiles it
-// visits (none past the diagonal).
+// visits (none past the diagonal; Sk keys, Sk == S when causal).
 struct Tile {
   int q0, r0, nk;
 };
 
-__device__ __forceinline__ Tile tile_geometry(int S, int causal) {
+__device__ __forceinline__ Tile tile_geometry(int S, int Sk, int causal) {
   const int nq = (S + kBlockQ - 1) / kBlockQ;
   const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
   Tile g;
   g.q0 = qt * kBlockQ;
   g.r0 = g.q0 + 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2);
-  g.nk = (S + kBlockK - 1) / kBlockK;
+  g.nk = (Sk + kBlockK - 1) / kBlockK;
   if (causal) g.nk = min(g.nk, (min(g.q0 + kBlockQ, S) - 1) / kBlockK + 1);
   return g;
 }
@@ -141,7 +150,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Online softmax over one key tile for a thread's two rows (r0 and
-// r0 + 8). s holds the logits in accumulator layout, still to be
+// r0 + 8), of Sk keys. s holds the logits in accumulator layout, still to be
 // multiplied by `pre`; on return it holds p = 2^(x - m_new), x the
 // scaled, softcapped, masked logits in log2 units. m is per row; l is
 // this thread's part of the row's sum (its four lanes are added at the
@@ -152,7 +161,7 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ void softmax_tile(float (&s)[kChunks][4],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int r0,
-                                             int col0, int S, bool mask,
+                                             int col0, int Sk, bool mask,
                                              int causal, float pre,
                                              float cap) {
   float mul = pre * kLog2e;
@@ -170,7 +179,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kChunks][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = col0 + 8 * c + (e & 1), row = r0 + 8 * (e >> 1);
-        if (col >= S || (causal && col > row)) s[c][e] = -INFINITY;
+        if (col >= Sk || (causal && col > row)) s[c][e] = -INFINITY;
       }
   }
 #pragma unroll
@@ -285,29 +294,31 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S,
-                  int G, Strides st, int causal, float cap, float scale) {
+                  int Sk, int G, Strides st, int causal, float cap,
+                  float scale) {
   // Pitches that make every fragment read conflict-free: Q and K rows
   // are read as float2 by lanes (g, t) at g * LDK + 2t, V rows as floats
   // at 2t * LDV + g.
   constexpr int LDK = HD + 8, LDV = HD + 4;
   constexpr int KT = kBlockK * LDK, VT = kBlockK * LDV;
   constexpr int KS = HD / 8;     // k steps of Q.K^T, n tiles of P.V
-  constexpr int kGroup = KS < 4 ? KS : 4;
+  // P.V's n tiles a group: four, or five at hd 80 (KS 10)
+  constexpr int kGroup = KS % 4 == 0 ? 4 : KS % 5 == 0 ? 5 : KS;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [kBlockQ][LDK]
   float* Ks = Qs + kBlockQ * LDK;                  // [2][kBlockK][LDK]
   float* Vs = Ks + 2 * KT;                         // [2][kBlockK][LDV]
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const Tile geo = tile_geometry(S, causal);
+  const Tile geo = tile_geometry(S, Sk, causal);
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const float* qp = q + b * st.qb + h * st.qh;
   const float* kp = k + b * st.kb + kvh * st.kh;
   const float* vp = v + b * st.vb + kvh * st.vh;
 
   load_tile_f32<HD, LDK, kBlockQ>(Qs, qp, st.qs, geo.q0, S);
-  load_tile_f32<HD, LDK, kBlockK>(Ks, kp, st.ks, 0, S);
-  load_tile_f32<HD, LDV, kBlockK>(Vs, vp, st.vs, 0, S);
+  load_tile_f32<HD, LDK, kBlockK>(Ks, kp, st.ks, 0, Sk);
+  load_tile_f32<HD, LDV, kBlockK>(Vs, vp, st.vs, 0, Sk);
   cp_async_commit();
 
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, corr[2];
@@ -337,9 +348,9 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (j + 1 < geo.nk) {
       const int nxt = (j + 1) & 1;
       load_tile_f32<HD, LDK, kBlockK>(Ks + nxt * KT, kp, st.ks,
-                                      k0 + kBlockK, S);
+                                      k0 + kBlockK, Sk);
       load_tile_f32<HD, LDV, kBlockK>(Vs + nxt * VT, vp, st.vs,
-                                      k0 + kBlockK, S);
+                                      k0 + kBlockK, Sk);
       cp_async_commit();
     }
     const float* Kt = Ks + (j & 1) * KT + g * LDK + 2 * t;
@@ -381,8 +392,8 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     const bool mask =
-        k0 + kBlockK > S || (causal && k0 + kBlockK - 1 > geo.q0);
-    softmax_tile(s, m, l, corr, geo.r0, k0 + 2 * t, S, mask, causal, 1.f,
+        k0 + kBlockK > Sk || (causal && k0 + kBlockK - 1 > geo.q0);
+    softmax_tile(s, m, l, corr, geo.r0, k0 + 2 * t, Sk, mask, causal, 1.f,
                  cap);
     rescale(acc, corr);
 
@@ -587,8 +598,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int S, int G, Strides st,
-                   int causal, float cap, float scale) {
+                   __nv_bfloat16* __restrict__ o, int S, int Sk, int G,
+                   Strides st, int causal, float cap, float scale) {
   constexpr int R = HD * 2 < 128 ? HD * 2 : 128;  // swizzled row bytes
   constexpr int W = R / 2;                        // columns a block
   constexpr int QB = kBlockQ * HD * 2, TB = kBlockK * HD * 2;
@@ -599,15 +610,15 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t Qs = base, Ks = base + QB, Vs = Ks + 2 * TB;
 
   const int t = threadIdx.x & 3, wg = threadIdx.x >> 7;
-  const Tile geo = tile_geometry(S, causal);
+  const Tile geo = tile_geometry(S, Sk, causal);
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const __nv_bfloat16* qp = q + b * st.qb + h * st.qh;
   const __nv_bfloat16* kp = k + b * st.kb + kvh * st.kh;
   const __nv_bfloat16* vp = v + b * st.vb + kvh * st.vh;
 
   load_tile_bf16<HD, kBlockQ>(Qs, qp, st.qs, geo.q0, S);
-  load_tile_bf16<HD, kBlockK>(Ks, kp, st.ks, 0, S);
-  load_tile_bf16<HD, kBlockK>(Vs, vp, st.vs, 0, S);
+  load_tile_bf16<HD, kBlockK>(Ks, kp, st.ks, 0, Sk);
+  load_tile_bf16<HD, kBlockK>(Vs, vp, st.vs, 0, Sk);
   cp_async_commit();
 
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, corr[2];
@@ -630,8 +641,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // tile j landed; tile j - 1's stage is free
     if (j + 1 < geo.nk) {
       const int nxt = (j + 1) & 1;
-      load_tile_bf16<HD, kBlockK>(Ks + nxt * TB, kp, st.ks, k0 + kBlockK, S);
-      load_tile_bf16<HD, kBlockK>(Vs + nxt * TB, vp, st.vs, k0 + kBlockK, S);
+      load_tile_bf16<HD, kBlockK>(Ks + nxt * TB, kp, st.ks, k0 + kBlockK,
+                                  Sk);
+      load_tile_bf16<HD, kBlockK>(Vs + nxt * TB, vp, st.vs, k0 + kBlockK,
+                                  Sk);
       cp_async_commit();
     }
     const uint32_t Kt = Ks + (j & 1) * TB, Vt = Vs + (j & 1) * TB;
@@ -653,8 +666,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     fence_regs(s);
 
     const bool mask =
-        k0 + kBlockK > S || (causal && k0 + kBlockK - 1 > geo.q0);
-    softmax_tile(s, m, l, corr, geo.r0, k0 + 2 * t, S, mask, causal, scale,
+        k0 + kBlockK > Sk || (causal && k0 + kBlockK - 1 > geo.q0);
+    softmax_tile(s, m, l, corr, geo.r0, k0 + 2 * t, Sk, mask, causal, scale,
                  cap);
     rescale(acc, corr);
 
@@ -696,8 +709,8 @@ int launch_f32(const Args& a) {
   const dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.H, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.S, a.G,
-      a.st, a.causal, a.cap, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.S, a.Sk,
+      a.G, a.st, a.causal, a.cap, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -714,8 +727,8 @@ int launch_bf16(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.o), a.S, a.G, a.st, a.causal, a.cap,
-      a.scale);
+      static_cast<__nv_bfloat16*>(a.o), a.S, a.Sk, a.G, a.st, a.causal,
+      a.cap, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -724,6 +737,7 @@ int by_head_dim(const Args& a, int hd, int bf16) {
     case 16: return bf16 ? launch_bf16<16>(a) : launch_f32<16>(a);
     case 32: return bf16 ? launch_bf16<32>(a) : launch_f32<32>(a);
     case 64: return bf16 ? launch_bf16<64>(a) : launch_f32<64>(a);
+    case 80: return bf16 ? (int)cudaErrorInvalidValue : launch_f32<80>(a);
     case 128: return bf16 ? launch_bf16<128>(a) : launch_f32<128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -733,18 +747,19 @@ int by_head_dim(const Args& a, int hd, int bf16) {
 
 // Strides are in elements; the head dimension must be contiguous and
 // every row start 16-byte aligned. bf16 = 1 selects __nv_bfloat16 inputs
-// and output, else float32.
+// and output, else float32. S queries against Sk keys; causal needs
+// Sk == S.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int S,
-    int H, int KV, int hd, long long qsb, long long qss, long long qsh,
+    int Sk, int H, int KV, int hd, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
     long long osh, int causal, float cap, float scale, int bf16,
     void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || H > 65535 ||
-      B > 65535)
+  if (B <= 0 || S <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV ||
+      H > 65535 || B > 65535 || (causal && Sk != S))
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, B, S, H, H / KV,
+  Args a{q, k, v, o, B, S, Sk, H, H / KV,
          Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh},
          causal, cap, scale, (cudaStream_t)stream};
   return by_head_dim(a, hd, bf16);

@@ -27,8 +27,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         softcap: float = 0.0):
     """Plain softmax attention with GQA head sharing, causal mask and
     optional logit softcap; the plain version of the flash kernel.
-    q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype."""
-    S, H, hd = q.shape[1:]
+    q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype.
+    A causal call needs Sk == Sq; a non-causal one attends every query
+    to all Sk keys."""
+    Sq, H, hd = q.shape[1:]
+    Sk = k.shape[1]
+    if causal and Sk != Sq:
+        raise ValueError(f"flash_attention: a causal call needs as many "
+                         f"keys as queries, got {Sk} keys for {Sq}")
     G = H // k.shape[2]
     qf = q.float() / math.sqrt(hd)
     kf = k.float().repeat_interleave(G, dim=2)
@@ -37,7 +43,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     if causal:
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

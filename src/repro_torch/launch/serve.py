@@ -3,7 +3,10 @@
 
     python -m repro_torch.launch.serve --arch qwen3-4b --reduced --device cpu
 
-runs a random prompt batch through prefill, then greedy decode, and
+serves any decoder arch of the registry (dense, MoE, SSM, hybrid, and
+the VLM on text tokens; whisper's enc-dec is refused, as in the
+reference, and is served through ``models/encdec.py``). It runs a
+random prompt batch through prefill, then greedy decode, and
 reports the prefill time, the decode time per token and tokens per
 second. Parameters (unless the caller passes its own) and prompts are
 drawn on the device from a seeded ``torch.Generator``. It runs on the CUDA device unless ``--device cpu``
@@ -328,6 +331,10 @@ def main(argv=None, *, params=None):
     init_cluster(cluster, device=device)
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    if cfg.family == "encdec":
+        raise SystemExit(f"{cfg.name} is an encoder-decoder: serve it "
+                         f"through repro_torch.models.encdec.prefill and "
+                         f"decode_step (frames and a decoder prompt)")
     bridge = elastic = None
     if args.transit_consumers:
         from repro_torch.launch.mesh import (make_elastic_setup,

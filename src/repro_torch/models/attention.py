@@ -4,8 +4,10 @@
 Paths, as in the reference:
   * flash     — on a CUDA tensor, full-sequence ``"full"``/``"bidir"``
                 attention runs the hand-written CUDA kernel
-                (``kernels/flash_attention.py``); the counterpart of the
-                reference's ``_use_flash_kernel`` on a TPU.
+                (``kernels/flash_attention.py``), head_dim 80 and
+                cross-attention's own key length included; the
+                counterpart of the reference's ``_use_flash_kernel`` on
+                a TPU.
   * direct    — S·S einsum (short sequences, decode).
   * blockwise — flash-style loop over (q-block × kv-block) with running
                 max/denominator in f32.
@@ -15,7 +17,7 @@ Paths, as in the reference:
                 absolute position stored in each slot.
 
 The port has no sharding policy yet (``sharding/policy.py`` is ROADMAP
-queue 1 item 18): a ``policy`` other than ``None`` raises, and
+queue 1 item 18 part 5): a ``policy`` other than ``None`` raises, and
 ``maybe_repeat_kv`` / ``policy.constrain`` wait with it.
 """
 from __future__ import annotations
@@ -33,7 +35,7 @@ def no_policy(policy) -> None:
     if policy is not None:
         raise NotImplementedError(
             "sharding policies are not ported yet (sharding/policy.py, "
-            "ROADMAP queue 1 item 18); pass policy=None")
+            "ROADMAP queue 1 item 18 part 5); pass policy=None")
 
 
 # ---------------------------------------------------------------------------

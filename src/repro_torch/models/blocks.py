@@ -1,34 +1,29 @@
 """Decoder blocks and the loop over depth (counterpart of
-``repro/models/blocks.py``), for the attention layers of the dense
-archs.
+``repro/models/blocks.py``).
 
 Models repeat a *pattern period* of layers (gemma2 alternates ("swa",
-"full")). The reference stacks one period's parameters with a leading
-``n_groups`` axis and runs depth as one ``lax.scan``; here
-``params["blocks"]`` is a list of per-period parameter dicts and depth
-is a Python loop. Caches keep the reference's stacked layout: one
-``KVCache`` per layer slot of the period, with a leading ``n_groups``
-axis, which the decode loop reads and updates one depth index at a
-time. MoE, SSM and hybrid layers raise (ROADMAP queue 1 item 18).
+"full"); zamba2 is five "ssm" layers then one "hybrid" slot that invokes
+the shared attention block). The reference stacks one period's
+parameters with a leading ``n_groups`` axis and runs depth as one
+``lax.scan``; here ``params["blocks"]`` is a list of per-period
+parameter dicts and depth is a Python loop. Caches and SSM states keep
+the reference's stacked layout: one cache (or ``SSMState``) per layer
+slot of the period, with a leading ``n_groups`` axis, which the decode
+loop reads and updates in place one depth index at a time.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import rms_norm
-from repro_torch.serve.kvcache import (KVCache, cache_positions, read_kv,
-                                       update_cache)
-
-
-def check_dense(cfg, kind: str) -> None:
-    if kind not in ("full", "swa") or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {'moe' if cfg.moe is not None else kind} layers "
-            f"are not ported yet (ROADMAP queue 1 item 18)")
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.serve.kvcache import (cache_positions, cache_views, read_kv,
+                                       update_any_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -36,18 +31,30 @@ def check_dense(cfg, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer_params(cfg, kind: str, gen, dtype) -> Dict[str, Any]:
-    check_dense(cfg, kind)
     d = cfg.d_model
 
     def zeros():
         return torch.zeros((d,), dtype=dtype, device=gen.device)
 
+    if kind == "ssm":
+        return {"pre_norm": zeros(),
+                "ssm": ssm_mod.init_ssm_params(cfg, gen, dtype)}
+    if kind == "hybrid":
+        # zamba2: a per-use projection of concat(hidden, first embedding)
+        # to D; the attention/MLP weights are shared (init_shared_params)
+        return {"pre_norm": zeros(),
+                "fuse_proj": dense_init(gen, (2 * d, d), dtype,
+                                        fan_in=2 * d),
+                "ssm": ssm_mod.init_ssm_params(cfg, gen, dtype)}
     p: Dict[str, Any] = {
         "pre_norm": zeros(),
         "attn": attn_mod.init_attn_params(cfg, gen, dtype),
         "pre_mlp_norm": zeros(),
-        "mlp": mlp_mod.init_mlp_params(cfg, gen, dtype),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe_params(cfg, gen, dtype)
+    else:
+        p["mlp"] = mlp_mod.init_mlp_params(cfg, gen, dtype)
     if cfg.post_norm:  # gemma2 sandwich norms
         p["post_attn_norm"] = zeros()
         p["post_mlp_norm"] = zeros()
@@ -59,6 +66,20 @@ def init_period_params(cfg, gen, dtype) -> Dict[str, Any]:
             for i, kind in enumerate(cfg.layer_pattern)}
 
 
+def init_shared_params(cfg, gen, dtype) -> Optional[Dict[str, Any]]:
+    """Zamba2's shared attention+MLP block (one copy, used every
+    period); None for archs without a hybrid slot."""
+    if "hybrid" not in cfg.layer_pattern:
+        return None
+    zeros = dict(dtype=dtype, device=gen.device)
+    return {
+        "pre_norm": torch.zeros((cfg.d_model,), **zeros),
+        "attn": attn_mod.init_attn_params(cfg, gen, dtype),
+        "pre_mlp_norm": torch.zeros((cfg.d_model,), **zeros),
+        "mlp": mlp_mod.init_mlp_params(cfg, gen, dtype),
+    }
+
+
 def n_groups(cfg) -> int:
     period = len(cfg.layer_pattern)
     assert cfg.num_layers % period == 0, (cfg.name, cfg.num_layers, period)
@@ -66,7 +87,7 @@ def n_groups(cfg) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill): full-sequence layer application
+# Layer pieces shared by prefill and decode
 # ---------------------------------------------------------------------------
 
 def _norm(cfg, x, scale):
@@ -74,10 +95,16 @@ def _norm(cfg, x, scale):
 
 
 def _mlp_residual(cfg, p, x):
-    out = mlp_mod.mlp(cfg, p["mlp"], _norm(cfg, x, p["pre_mlp_norm"]))
+    """x + (MLP or MoE)(norm x); returns (x, aux loss)."""
+    h = _norm(cfg, x, p["pre_mlp_norm"])
+    aux = 0.0
+    if "moe" in p:
+        out, aux = moe_mod.moe_mlp(cfg, p["moe"], h)
+    else:
+        out = mlp_mod.mlp(cfg, p["mlp"], h)
     if cfg.post_norm:
         out = _norm(cfg, out, p["post_mlp_norm"])
-    return x + out
+    return x + out, aux
 
 
 def _attn_residual(cfg, p, x, attn):
@@ -87,65 +114,150 @@ def _attn_residual(cfg, p, x, attn):
     return x + out
 
 
+def _fused(cfg, p, shared, x, x0):
+    """The hybrid slot's input to the shared block: fuse_proj over
+    concat(x, x0), normed."""
+    fused = torch.matmul(torch.cat([x, x0], dim=-1), p["fuse_proj"])
+    return _norm(cfg, fused, shared["pre_norm"])
+
+
+def _shared_tail(cfg, shared, x, attn):
+    """The shared block after its attention: out-projection and MLP."""
+    x = x + attn_mod.out_proj(shared["attn"], attn, cfg)
+    return x + mlp_mod.mlp(cfg, shared["mlp"],
+                           _norm(cfg, x, shared["pre_mlp_norm"]))
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill): full-sequence layer application
+# ---------------------------------------------------------------------------
+
 def _attn_layer(cfg, p, x, positions, kind, *, want_cache=False):
     h = _norm(cfg, x, p["pre_norm"])
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, positions)
     out = attn_mod.attention(q, k, v, kind=("swa" if kind == "swa"
                                             else "full"), cfg=cfg)
-    x = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out))
-    return x, ((k, v) if want_cache else None)
+    x, aux = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out))
+    return x, aux, ((k, v) if want_cache else None)
 
 
-def period_forward(cfg, pparams, x, positions, *, want_cache: bool = False):
-    """Apply one pattern period. Returns (x, caches): caches maps
-    f"l{i}" to that layer's (k, v) when ``want_cache``."""
-    caches = {}
+def _ssm_layer(cfg, p, x, *, want_state=False):
+    h = _norm(cfg, x, p["pre_norm"])
+    if want_state:
+        out, st = ssm_mod.ssm_mixer(cfg, p["ssm"], h, want_state=True)
+        return x + out, st
+    return x + ssm_mod.ssm_mixer(cfg, p["ssm"], h), None
+
+
+def _shared_block(cfg, shared, p, x, x0, positions, *, want_cache=False):
+    """Zamba2 hybrid slot: the shared attn+MLP on concat(x, x0), then the
+    slot's own SSM layer."""
+    q, k, v = attn_mod.project_qkv(cfg, shared["attn"],
+                                   _fused(cfg, p, shared, x, x0), positions)
+    out = attn_mod.attention(q, k, v, kind="full", cfg=cfg)
+    x = _shared_tail(cfg, shared, x, out)
+    x, st = _ssm_layer(cfg, p, x, want_state=want_cache)
+    return x, ((k, v) if want_cache else None), st
+
+
+def period_forward(cfg, pparams, x, x0, positions, shared=None, *,
+                   want_cache: bool = False):
+    """Apply one pattern period. Returns (x, aux, caches, states): caches
+    maps f"l{i}" to an attention slot's (k, v), states an SSM or hybrid
+    slot's final ``SSMState``, when ``want_cache``."""
+    aux_total = 0.0
+    caches, states = {}, {}
     for i, kind in enumerate(cfg.layer_pattern):
-        check_dense(cfg, kind)
-        x, cache = _attn_layer(cfg, pparams[f"l{i}"], x, positions, kind,
-                               want_cache=want_cache)
-        if want_cache:
-            caches[f"l{i}"] = cache
-    return x, caches
+        key, p = f"l{i}", pparams[f"l{i}"]
+        if kind == "ssm":
+            x, st = _ssm_layer(cfg, p, x, want_state=want_cache)
+            if want_cache:
+                states[key] = st
+        elif kind == "hybrid":
+            x, cache, st = _shared_block(cfg, shared, p, x, x0, positions,
+                                         want_cache=want_cache)
+            if want_cache:
+                caches[key], states[key] = cache, st
+        else:
+            x, aux, cache = _attn_layer(cfg, p, x, positions, kind,
+                                        want_cache=want_cache)
+            aux_total = aux_total + aux
+            if want_cache:
+                caches[key] = cache
+    return x, aux_total, caches, states
 
 
-def stack_forward(cfg, blocks: List[Dict[str, Any]], x, positions):
+def stack_forward(cfg, blocks: List[Dict[str, Any]], x, positions,
+                  shared=None):
     """All periods over depth (no remat: the port has no training path
-    yet). Returns x."""
+    yet). Returns (x, summed aux loss)."""
+    x0 = x
+    aux = 0.0
     for gparams in blocks:
-        x, _ = period_forward(cfg, gparams, x, positions)
-    return x
+        x, a, _, _ = period_forward(cfg, gparams, x, x0, positions, shared)
+        aux = aux + a
+    return x, aux
 
 
-def stack_prefill(cfg, blocks, x, positions):
-    """Full-sequence pass that also emits every layer's (k, v): returns
-    (x, list over depth of {f"l{i}": (k, v)})."""
-    caches = []
+def stack_prefill(cfg, blocks, x, positions, shared=None):
+    """Full-sequence pass that also emits every layer's cache and state:
+    returns (x, caches, states), each a list over depth of dicts keyed
+    f"l{i}"."""
+    x0 = x
+    caches, states = [], []
     for gparams in blocks:
-        x, c = period_forward(cfg, gparams, x, positions, want_cache=True)
+        x, _, c, s = period_forward(cfg, gparams, x, x0, positions, shared,
+                                    want_cache=True)
         caches.append(c)
-    return x, caches
+        states.append(s)
+    return x, caches, states
 
 
 # ---------------------------------------------------------------------------
 # Decode: one token through the stack with per-layer caches
 # ---------------------------------------------------------------------------
 
-def period_decode(cfg, pparams, x, caches: Dict[str, KVCache], cur_pos):
-    """One-token step through a period; ``caches`` maps f"l{i}" to that
-    layer's cache, which is updated in place."""
+def _decode_attn(cfg, attn_p, h, cache, cur_pos, window=None):
+    """One token's attention against its cache, which gets the token's
+    K/V written in place first."""
+    q, k, v = attn_mod.project_qkv(cfg, attn_p, h, positions_of(cur_pos, h))
+    update_any_cache(cache, k, v, cur_pos)
+    k_r, v_r = read_kv(cache, k.dtype)
+    return attn_mod.decode_attention(q, k_r, v_r, cache_positions(cache),
+                                     cur_pos, cfg=cfg, window=window)
+
+
+def _ssm_step(cfg, p, x, state: ssm_mod.SSMState):
+    """x + the SSM layer's one-token step; ``state`` (views into the
+    stacked states) is overwritten with the new state."""
+    out, new = ssm_mod.ssm_decode_step(cfg, p["ssm"],
+                                       _norm(cfg, x, p["pre_norm"]), state)
+    for old, t in zip(state, new):
+        old.copy_(t)
+    return x + out
+
+
+def period_decode(cfg, pparams, x, x0, caches, ssm_states, cur_pos,
+                  shared=None):
+    """One-token step through a period. ``caches`` maps f"l{i}" to an
+    attention or hybrid slot's cache, ``ssm_states`` an SSM or hybrid
+    slot's ``SSMState``; both are updated in place."""
     for i, kind in enumerate(cfg.layer_pattern):
-        check_dense(cfg, kind)
-        p = pparams[f"l{i}"]
-        h = _norm(cfg, x, p["pre_norm"])
-        q, k, v = attn_mod.project_qkv(cfg, p["attn"], h,
-                                       positions_of(cur_pos, x))
-        cache = update_cache(caches[f"l{i}"], k, v, cur_pos)
-        k_r, v_r = read_kv(cache)
-        out = attn_mod.decode_attention(
-            q, k_r, v_r, cache_positions(cache), cur_pos, cfg=cfg,
-            window=cfg.window if kind == "swa" else None)
-        x = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out))
+        key, p = f"l{i}", pparams[f"l{i}"]
+        if kind == "ssm":
+            x = _ssm_step(cfg, p, x, ssm_states[key])
+            continue
+        if kind == "hybrid":
+            out = _decode_attn(cfg, shared["attn"],
+                               _fused(cfg, p, shared, x, x0), caches[key],
+                               cur_pos)
+            x = _shared_tail(cfg, shared, x, out)
+            x = _ssm_step(cfg, p, x, ssm_states[key])
+            continue
+        out = _decode_attn(cfg, p["attn"], _norm(cfg, x, p["pre_norm"]),
+                           caches[key], cur_pos,
+                           window=cfg.window if kind == "swa" else None)
+        x, _ = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out))
     return x
 
 
@@ -158,11 +270,15 @@ def positions_of(cur_pos, x):
     return cur_pos[:, None].expand(B, S).to(torch.int32)
 
 
-def stack_decode(cfg, blocks, x, caches: Dict[str, KVCache], cur_pos):
-    """One token through all periods; ``caches`` maps f"l{i}" to a cache
-    stacked over depth, updated in place. Returns x."""
+def stack_decode(cfg, blocks, x, caches, ssm_states, cur_pos, shared=None):
+    """One token through all periods; ``caches`` / ``ssm_states`` map
+    f"l{i}" to a cache / ``SSMState`` stacked over depth, updated in
+    place. Returns x."""
+    x0 = x
     for g, gparams in enumerate(blocks):
-        views = {key: KVCache(c.k[g], c.v[g], c.positions[g], c.window)
-                 for key, c in caches.items()}
-        x = period_decode(cfg, gparams, x, views, cur_pos)
+        views = {key: cache_views(c, g) for key, c in caches.items()}
+        states = {key: ssm_mod.SSMState(*(t[g] for t in st))
+                  for key, st in ssm_states.items()}
+        x = period_decode(cfg, gparams, x, x0, views, states, cur_pos,
+                          shared)
     return x

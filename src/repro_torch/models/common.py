@@ -3,7 +3,7 @@ activations (counterpart of ``repro/models/common.py``).
 
 The init functions draw from an explicit ``torch.Generator`` and make
 the tensor on that generator's device. ``chunked_softmax_xent`` comes
-with the training path (ROADMAP queue 1 item 18).
+with the training path (ROADMAP queue 1 item 18 part 6).
 """
 from __future__ import annotations
 
@@ -75,6 +75,18 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(length: int, dim: int, dtype=torch.float32,
+                       device=None):
+    """Whisper-style fixed sinusoidal embeddings (T, D)."""
+    log_timescale = math.log(10000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(
+        dim // 2, dtype=torch.float32, device=device))
+    scaled = torch.arange(length, dtype=torch.float32,
+                          device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)],
+                     dim=1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Carry the reference's parameters across: ``params_from_jax`` takes the
-tree that ``repro.models.lm.init_params`` makes, as numpy arrays, and
-returns the port's parameters. The two packages' random inits cannot
+tree that ``repro.models.lm.init_params`` (or ``encdec.init_params``)
+makes, as numpy arrays, and returns the port's parameters. The two packages' random inits cannot
 match, so the parity tests build weights once and hand them to both.
 """
 from __future__ import annotations
@@ -29,17 +29,21 @@ def _map(tree, fn):
 
 def params_from_jax(cfg, tree: Dict[str, Any], *,
                     device="cuda") -> Dict[str, Any]:
-    """The reference's ``lm.init_params`` tree (numpy leaves) → the
-    port's parameters, on ``device`` (the CUDA device unless the caller
-    passes ``"cpu"``): the leading ``n_groups`` axis of ``"blocks"`` is
-    unstacked into a list of per-period dicts."""
-    extra = set(tree) - {"embedding", "blocks", "final_norm", "head"}
-    if extra:
-        raise NotImplementedError(
-            f"{cfg.name}: parameters {sorted(extra)} belong to layers not "
-            f"ported yet (ROADMAP queue 1 item 18)")
-    out = {k: _tensor(v, device) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_map(tree["blocks"], lambda a, g=g: _tensor(a[g],
-                                                                 device))
-                     for g in range(n_groups(cfg))]
+    """The reference's ``lm.init_params`` or ``encdec.init_params`` tree
+    (numpy leaves) → the port's parameters, on ``device`` (the CUDA
+    device unless the caller passes ``"cpu"``): the leading depth axis
+    of ``"blocks"`` (``n_groups``), ``"enc_layers"`` and
+    ``"dec_layers"`` is unstacked into a list of per-period (per-layer)
+    dicts; every other leaf (``shared``, ``patch_proj``, SSM and MoE
+    weights among them) is carried as it is."""
+    depth = {"blocks": n_groups(cfg) if cfg.family != "encdec" else 0,
+             "enc_layers": cfg.encoder_layers,
+             "dec_layers": cfg.decoder_layers}
+    out = {}
+    for key, sub in tree.items():
+        if key in depth:
+            out[key] = [_map(sub, lambda a, g=g: _tensor(a[g], device))
+                        for g in range(depth[key])]
+        else:
+            out[key] = _map(sub, lambda a: _tensor(a, device))
     return out

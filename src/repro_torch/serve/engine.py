@@ -12,7 +12,9 @@ Inactive slots replay their last token at their current position each
 tick; the cache write is idempotent (same token and position give the
 same K/V) and their logits are discarded. The reference's jitted step
 is an eager call here, and a slot's reset is an in-place write of -1
-(positions) and 0 (K/V) into that slot's rows of every cache.
+(positions) and 0 (K/V, an int8 cache's scales, the SSM states) into
+that slot's rows of every cache and state, as the reference's tree-wide
+reset writes them.
 """
 from __future__ import annotations
 
@@ -70,11 +72,14 @@ class ContinuousBatcher:
                 self.cur_tok[s, 0] = self.slot_remaining_prompt[s].pop(0)
 
     def _reset_slot_cache(self, s: int):
-        # stacked caches (G, B, ...): batch is axis 1
+        # stacked caches and states (G, B, ...): batch is axis 1
         for cache in self.state["caches"].values():
-            cache.k[:, s] = 0
-            cache.v[:, s] = 0
-            cache.positions[:, s] = -1
+            for name, t in vars(cache).items():
+                if torch.is_tensor(t):
+                    t[:, s] = -1 if name == "positions" else 0
+        for st in self.state["ssm"].values():
+            for t in st:
+                t[:, s] = 0
 
     # -- stepping ---------------------------------------------------------------
     def step(self) -> bool:

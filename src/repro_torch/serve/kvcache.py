@@ -1,4 +1,4 @@
-"""KV caches: full and rolling (sliding-window) (counterpart of
+"""KV caches: full, rolling (sliding-window) and int8 (counterpart of
 ``repro/serve/kvcache.py``).
 
 Every cache carries an explicit per-slot ``positions`` tensor (absolute
@@ -13,8 +13,9 @@ new token's K/V into the cache tensors in place: a copy of every layer's
 cache per decoded token would move the whole cache through device
 memory each step. Stacked caches (a leading depth axis, as
 ``lm.prefill`` makes them) hold views of one tensor per layer slot, so
-the in-place writes reach the stack. ``QuantKVCache`` (int8 storage)
-waits for the int8 caches (ROADMAP queue 1 item 18).
+the in-place writes reach the stack. ``QuantKVCache`` stores K/V as
+int8 with one absmax scale per (position, head), as the reference does;
+``update_any_cache`` writes either kind and ``read_kv`` dequantizes.
 """
 from __future__ import annotations
 
@@ -105,6 +106,96 @@ def cache_positions(cache: KVCache) -> torch.Tensor:
     return cache.positions
 
 
-def read_kv(cache: KVCache):
-    """K/V views for attention (dense caches hold them as they are)."""
+# ---------------------------------------------------------------------------
+# Int8-quantized cache (halves the cache's memory and decode traffic)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """Per-(position, head) absmax-scaled int8 KV storage."""
+    k: torch.Tensor            # (..., B, S, KV, hd) int8
+    v: torch.Tensor            # (..., B, S, KV, hd) int8
+    k_scale: torch.Tensor      # (..., B, S, KV, 1) bf16
+    v_scale: torch.Tensor      # (..., B, S, KV, 1) bf16
+    positions: torch.Tensor    # (..., B, S) int32
+    window: int = 0
+
+
+def quantize_kv(x):
+    """x (..., hd) -> (int8 values, bf16 scales (..., 1)); the values are
+    rounded against the float32 scale, as in the reference."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def init_quant_cache(batch: int, length: int, n_kv: int, head_dim: int,
+                     *, window: int = 0, device="cuda") -> QuantKVCache:
+    if window:
+        length = min(length, window)
+    shape = (batch, length, n_kv, head_dim)
+    scale = (batch, length, n_kv, 1)
+    return QuantKVCache(
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device),
+        k_scale=torch.zeros(scale, dtype=torch.bfloat16, device=device),
+        v_scale=torch.zeros(scale, dtype=torch.bfloat16, device=device),
+        positions=torch.full((batch, length), -1, dtype=torch.int32,
+                             device=device),
+        window=window,
+    )
+
+
+def read_kv(cache, dtype=torch.bfloat16):
+    """K/V for attention: an int8 cache dequantized to ``dtype``, a dense
+    cache's tensors as they are."""
+    if isinstance(cache, QuantKVCache):
+        k = (cache.k.float() * cache.k_scale.float()).to(dtype)
+        v = (cache.v.float() * cache.v_scale.float()).to(dtype)
+        return k, v
     return cache.k, cache.v
+
+
+def update_any_cache(cache, k_new, v_new, cur_pos):
+    """Write one token's K/V into a dense or an int8 cache, in place;
+    ``cur_pos`` an int or a (B,) tensor (see ``update_cache``)."""
+    if not isinstance(cache, QuantKVCache):
+        return update_cache(cache, k_new, v_new, cur_pos)
+    S = cache.k.shape[1]
+    kq, ks = quantize_kv(k_new[:, 0])
+    vq, vs = quantize_kv(v_new[:, 0])
+    if not torch.is_tensor(cur_pos) or cur_pos.dim() == 0:
+        pos = int(cur_pos)
+        slot = pos % S if cache.window else pos
+        rows = slice(None)
+    else:
+        cur_pos = cur_pos.long()
+        slot = cur_pos % S if cache.window else cur_pos
+        rows = torch.arange(cache.k.shape[0], device=cache.k.device)
+        pos = cur_pos.to(torch.int32)
+    cache.k[rows, slot] = kq
+    cache.v[rows, slot] = vq
+    cache.k_scale[rows, slot] = ks
+    cache.v_scale[rows, slot] = vs
+    cache.positions[rows, slot] = pos
+    return cache
+
+
+def split_rows(cache, G: int, batch: int):
+    """A cache made for G·batch rows, as one stacked (G, batch, ...)."""
+    return type(cache)(**{
+        f.name: (getattr(cache, f.name).unflatten(0, (G, batch))
+                 if torch.is_tensor(getattr(cache, f.name))
+                 else getattr(cache, f.name))
+        for f in dataclasses.fields(cache)})
+
+
+def cache_views(cache, g: int):
+    """Depth index ``g`` of a cache stacked over depth: a cache of the
+    same kind whose tensors are views, so in-place writes reach the
+    stack."""
+    fields = {f.name: getattr(cache, f.name)
+              for f in dataclasses.fields(cache)}
+    return type(cache)(**{k: (v[g] if torch.is_tensor(v) else v)
+                          for k, v in fields.items()})

@@ -361,7 +361,7 @@ def _flash_case(gen, shape, dtype, causal=True, softcap=0.0):
            None if dtype == torch.float32 else 3e-2)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 30.0)])
 def test_flash_kernel_head_dims(gen, hd, causal, softcap):
     _flash_case(gen, (2, 200, 8, 2, hd), torch.float32, causal, softcap)
@@ -442,6 +442,44 @@ def test_flash_kernel_reads_strided_views(gen):
     assert q.data_ptr() % 16
     got = flash_attention.flash_attention(q, k, v)
     _close(got, ref.flash_attention_ref(q, k, v))
+
+
+def _qkv_sk(gen, B, Sq, Sk, H, KV, hd):
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((B, Sk, KV, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("Sq,Sk", [(64, 1500), (1, 1500), (300, 65),
+                                   (130, 7), (2048, 64)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_flash_kernel_key_length_of_its_own(gen, Sq, Sk, softcap):
+    # non-causal, Sk != Sq: whisper's cross-attention (64 decoder queries
+    # against 1500 encoder keys) and ragged tiles on both sides
+    q, k, v = _qkv_sk(gen, 2, Sq, Sk, 16, 16, 64)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=False,
+                                          softcap=softcap)
+    assert flash_attention.flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, causal=False,
+                                        softcap=softcap))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_head_dim_80_at_zamba2_heads(gen, causal):
+    # zamba2's shared block: MHA, 32 heads of 80, a ragged S
+    _flash_case(gen, (2, 333, 32, 32, 80), torch.float32, causal)
+
+
+def test_flash_wrapper_refuses_the_new_shapes_where_it_must(gen):
+    q, k, v = _qkv_sk(gen, 1, 64, 96, 4, 4, 64)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention.flash_attention(q, k, v, causal=True)
+    q, k, v = _qkv(gen, 1, 64, 4, 4, 80, torch.bfloat16)
+    with pytest.raises(ValueError, match="80"):
+        flash_attention.flash_attention(q, k, v)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):

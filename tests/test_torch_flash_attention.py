@@ -150,3 +150,44 @@ def test_three_tf32_products_hold_the_reference_bar(causal):
     one = _attention_tf32(q, k, v, causal=causal, products=1)
     excess = np.abs(one - want) - 1e-4 * np.abs(want)
     assert excess.max() > 2e-5, excess.max()
+
+
+# Shapes past the reference's Pallas kernel (it asserts S a multiple of
+# its block and reshapes K/V to the query's S): head_dim 80 (zamba2's
+# shared block) and non-causal calls with a key length of their own
+# (whisper's cross-attention). Off the TPU the reference computes both
+# through attention_direct, which the plain version is held to.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_plain_version_at_head_dim_80(causal, softcap):
+    from repro.models.attention import attention_direct
+    q, k, v = _qkv(2, 75, 8, 8, 80)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                          softcap=softcap).numpy()
+    want = attention_direct(*map(jnp.asarray, (q, k, v)), causal=causal,
+                            cap=softcap or None)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(64, 1500), (1, 37), (130, 7)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_plain_version_with_a_key_length_of_its_own(Sq, Sk, softcap):
+    from repro.models.attention import attention_direct
+    q = RNG.standard_normal((2, Sq, 4, 64)).astype(np.float32)
+    k, v = (RNG.standard_normal((2, Sk, 2, 64)).astype(np.float32)
+            for _ in range(2))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=False,
+                          softcap=softcap).numpy()
+    want = attention_direct(*map(jnp.asarray, (q, k, v)), causal=False,
+                            cap=softcap or None)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_causal_with_another_key_length_is_refused():
+    q, k, v = _qkv(1, 64, 4, 4, 16)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(torch.from_numpy(q), torch.from_numpy(k[:, :32]),
+                        torch.from_numpy(v[:, :32]))
+    with pytest.raises(ValueError, match="causal"):
+        ref.flash_attention_ref(torch.from_numpy(q[:, :32]),
+                                torch.from_numpy(k), torch.from_numpy(v))

@@ -70,4 +70,10 @@ def test_port_sources_import_neither_jax_nor_reference():
             "repro_torch.launch.solver",
             # fault tolerance and the elastic consumer mesh
             "repro_torch.runtime.fault",
-            "repro_torch.runtime.elastic"} <= set(_modules())
+            "repro_torch.runtime.elastic",
+            # the model families past the dense decoders
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.encdec",
+            "repro_torch.configs.grok1_314b",
+            "repro_torch.configs.zamba2_2_7b",
+            "repro_torch.configs.whisper_medium"} <= set(_modules())

@@ -121,15 +121,157 @@ def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
 
 # explicit ids: the ones these cases had while the list still held the
 # monitor flag (flags0), the transit and cluster flags (flags1, flags4-6),
-# the wisdom flag (flags3) and the elastic flag (flags2), all now ported
-# and tested below
+# the wisdom flag (flags3), the elastic flag (flags2) and the MoE arch
+# (flags7), all now ported; the name is kept from when they raised. The
+# MoE case serves a reduced dbrx; the other flags are tested below
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--arch", "dbrx-132b"], "item 18", id="flags7-item 18"),
 ])
 def test_serve_flags_not_ported_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+    report = serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
+                         "--batch", "2", "--prompt-len", "12", "--tokens",
+                         "3", *flags])
+    assert report["arch"] == "dbrx-132b" and len(report["sample"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "grok-1-314b", "internvl2-2b"])
+def test_serve_main_serves_every_decoder_family(arch):
+    report = serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
+                         "--arch", arch, "--batch", "2", "--prompt-len",
+                         "20", "--tokens", "3"])
+    assert report["arch"] == arch and len(report["sample"]) == 3
+
+
+def test_serve_main_refuses_the_encoder_decoder():
+    with pytest.raises(SystemExit, match="encdec"):
         serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
-                    *flags])
+                    "--arch", "whisper-medium"])
+
+
+# The int8 cache against the dense one, at the reference's bar
+# (tests/test_serve.py::test_int8_cache_close_to_dense): max |dlogit| <
+# 0.05, total variation < 0.01, the same argmax; and against the
+# reference's int8 cache on the same weights (its quantization, to the
+# int8 value, and its logits at 1e-5 / 1e-4).
+def _int8_runs(arch, B=2, S=16, seed=8):
+    jcfg, cfg = jregistry.get_reduced(arch), registry.get_reduced(arch)
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(seed), jnp.float32)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    step = jax.jit(lambda p, t, s: jlm.decode_step(jcfg, p, t, s))
+    runs = {}
+    for impl in ("dense", "int8"):
+        js = jlm.init_decode_state(jcfg, B, S + 2, jnp.float32,
+                                   cache_impl=impl)
+        ts = lm.init_decode_state(cfg, B, S + 2, torch.float32,
+                                  cache_impl=impl, device="cpu")
+        for t in range(S):
+            jl, js = step(jparams, jnp.asarray(tokens[:, t:t + 1]), js)
+            tl, ts = lm.decode_step(cfg, params,
+                                    torch.from_numpy(tokens[:, t:t + 1]), ts)
+        runs[impl] = (tl, ts, np.asarray(jl), js)
+    return runs
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "internvl2-2b",
+                                  "zamba2-2.7b"])
+def test_int8_cache_close_to_dense(arch):
+    runs = _int8_runs(arch)
+    ld, lq = runs["dense"][0][:, 0], runs["int8"][0][:, 0]
+    assert float((ld - lq).abs().max()) < 0.05
+    pd, pq = torch.softmax(ld, -1), torch.softmax(lq, -1)
+    assert float(0.5 * (pd - pq).abs().sum(-1).max()) < 0.01
+    assert torch.equal(ld.argmax(-1), lq.argmax(-1))
+    caches = runs["int8"][1]["caches"]
+    assert all(c.k.dtype == c.v.dtype == torch.int8 for c in
+               caches.values())
+    # against the reference's int8 cache: the same int8 values (a value
+    # may sit one step off where the two float32 K/V round either side
+    # of a half) and the same logits
+    for key, c in caches.items():
+        jc = runs["int8"][3]["caches"][key]
+        for name in ("k", "v"):
+            diff = np.abs(getattr(c, name).numpy().astype(np.int32)
+                          - np.asarray(getattr(jc, name), np.int32))
+            assert diff.max() <= 1 and diff.mean() < 1e-3
+        np.testing.assert_array_equal(c.positions.numpy(),
+                                      np.asarray(jc.positions))
+    np.testing.assert_allclose(lq.numpy(), runs["int8"][2][:, 0],
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_update_any_cache_matches_reference_on_both_paths():
+    from repro.serve import kvcache as jkv
+    from repro_torch.serve import kvcache
+    rng = np.random.default_rng(9)
+    knew = rng.standard_normal((3, 1, 2, 8)).astype(np.float32)
+    for window, pos in ((0, 4), (0, [1, 5, 0]), (6, [7, 2, 11])):
+        want = jkv.update_any_cache(
+            jkv.init_quant_cache(3, 6, 2, 8, window=window),
+            jnp.asarray(knew), jnp.asarray(-2 * knew), jnp.asarray(pos))
+        got = kvcache.update_any_cache(
+            kvcache.init_quant_cache(3, 6, 2, 8, window=window,
+                                     device="cpu"),
+            torch.from_numpy(knew), torch.from_numpy(-2 * knew),
+            torch.tensor(pos) if isinstance(pos, list) else pos)
+        for name in ("k", "v", "positions"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, name)))
+        for name in ("k_scale", "v_scale"):
+            np.testing.assert_array_equal(
+                getattr(got, name).float().numpy(),
+                np.asarray(getattr(want, name), np.float32))
+        k, v = kvcache.read_kv(got, torch.float32)
+        jk, jv = jkv.read_kv(want, jnp.float32)
+        np.testing.assert_array_equal(k.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+
+
+def _alone(cfg, params, req, state=None):
+    """The request's tokens from a one-slot engine of its own."""
+    eng = ContinuousBatcher(cfg, params, slots=1, cache_len=32)
+    if state is not None:
+        eng.state = state(1)
+    return _run(eng, [Request(rid=0, prompt=req.prompt,
+                              max_new=req.max_new)])[0].out
+
+
+@pytest.mark.parametrize("arch,impl", [("zamba2-2.7b", "dense"),
+                                       ("qwen3-4b", "int8"),
+                                       ("zamba2-2.7b", "int8")])
+def test_engine_slot_reset_clears_ssm_and_int8_state(arch, impl):
+    """Six requests on two slots: each reused slot's rows of every cache
+    (K/V, an int8 cache's scales, positions) and SSM state start empty,
+    so each request's tokens equal a run of it alone."""
+    cfg = registry.get_reduced(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(2),
+                            torch.float32)
+
+    def state(slots):
+        return lm.init_decode_state(cfg, slots, 32, torch.float32,
+                                    cache_impl=impl, device="cpu")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(
+        rng.integers(3, 7))).astype(np.int32), max_new=4) for i in range(6)]
+    eng = ContinuousBatcher(cfg, params, slots=2, cache_len=32)
+    eng.state = state(2)
+    finished = _run(eng, reqs)
+    assert len(finished) == 6
+    for r in reqs:
+        assert finished[r.rid].out == _alone(cfg, params, r, state)
+    eng._reset_slot_cache(1)
+    for c in eng.state["caches"].values():
+        for name, t in vars(c).items():
+            if torch.is_tensor(t):
+                want = -1 if name == "positions" else 0
+                assert bool((t[:, 1] == want).all()), name
+                assert bool((t[:, 0] != want).any()), name
+    for st in eng.state["ssm"].values():
+        for t in st:
+            assert not bool(t[:, 1].any()) and bool(t[:, 0].any())
 
 
 CPU = ["--reduced", "--device", "cpu", "--bench-out", ""]
