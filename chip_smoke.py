@@ -36,7 +36,12 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
     encoder-decoder and internvl2's VLM, at published widths, with the
     int8 KV cache; zamba2's shared block runs the flash kernel at
     head_dim 80 and whisper's cross-attention with 1500 keys against 64
-    queries.
+    queries;
+  * the training path (phase 12): qwen3-4b at full width through
+    ``train/step.make_train_step`` under a one-rank sharding policy (no
+    hand-written kernel runs there, as no Pallas kernel runs in the
+    reference's), the 100m example, and ``launch/train.py``'s restart
+    and transit runs.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -251,8 +256,31 @@ Phases, each printing one JSON line:
      (max |dlogit| under 0.05 / 0.544 of max |logit|, the reference's
      bar at its width; total variation < 0.01; the argmax and both
      caches' bytes reported);
+  12. train — qwen3-4b at full width, depth cut to 8 of 36 layers
+     (``dataclasses.replace(cfg, num_layers=8)``), batch 8 x 512, bf16
+     compute, 10 steps of ``make_train_step`` with the gradient monitor
+     every 5: losses, grad norms, ms a step, device busy ms (the
+     kernels' device time in one profiled step) and share, the profiled
+     kernels, peak memory, the monitor's spectra, and every kernel's launches
+     (none). ``train_cpu_check``: one float32 step at 2 layers, full
+     width, batch 1 x 64, the loss over 4 sequence chunks of 16, its
+     loss and every gradient leaf against the CPU run of the same step
+     (1e-4). ``train_100m_steps``: the 100m model alone, 10 steps timed
+     to each loss and a profiled step's device time, as the main path.
+     ``train_100m``: the example's 100m preset, 200 steps (loss
+     down by more than 0.5, spectra written), run while ``train_procs``'s
+     processes run (its threads, CPU seconds and load average beside the
+     step time). ``train_procs``: six
+     processes at once (``--job train_procs``):
+     ``launch/train.py`` at 100m for 40 steps straight and with
+     ``--fail-at 15 30 --ckpt-every 10``, with deterministic algorithms
+     (bit-identical final checkpoints, held) and without (reported), and
+     ``--transit-consumers 1 --transit-async`` on two ranks (spectra on
+     the consumer only; both ranks' timelines: where each hop's time
+     goes, and the producer's own overlap);
 then one ``{"kernels": [...]}`` line (the flash kernel's row at the
-qwen3-4b shape, and a row at each of phase 11's two shapes). The last line is ``{"ok": true,
+qwen3-4b shape, and a row at each of phase 11's two shapes; every row
+carries its phase-12 launches, ``train_launches``). The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
 anything.
@@ -4203,6 +4231,516 @@ def lm_families(counters, gen):
     return out
 
 
+# phase 12, the training path: qwen3-4b at full width (d_model 2560, 32/8
+# heads of 128, d_ff 9728, vocab 151936, untied head), depth cut to
+# TRAIN_LAYERS of 36 (at full depth the float32 masters, m, v and the
+# bf16 copy and gradients take about 70 GB by themselves), through
+# make_train_step at bf16 compute with the in-step gradient monitor every
+# TRAIN_INSITU_EVERY steps. Its check: one step at TRAIN_CHECK_LAYERS
+# layers, still full width, float32 compute (TF32 off since phase 1),
+# held against the port's CPU run of the same step: the loss and every
+# gradient leaf within TRAIN_CHECK_TOL of its max |CPU| (float32 products
+# summed in other orders, cuBLAS against the CPU's BLAS; the CPU tests
+# hold the CPU path to the reference at the same bar)
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS = 10
+TRAIN_INSITU_EVERY = 5
+TRAIN_LR = 3e-4
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 1, 64
+TRAIN_CHECK_TOL = 1e-4
+TRAIN_CHECK_CHUNK = 16          # 4 loss chunks: the chunked, recomputed path
+# the 100m preset of examples/train_insitu_torch.py, its restart run and
+# the transit run, each through launch/train.main: the restart run twice
+# with torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG set
+# before CUDA starts) and twice without, straight and with failures
+# injected; the transit run on two ranks sharing the card over gloo. The
+# six processes run at once, the example in this process beside them. The
+# example runs 200 of its 300 steps, for the script's time: at lr 6e-3
+# its loss first rises and falls below the start only after ~90 steps
+# (an H100 read 10.53 -> 8.42 in 200)
+TRAIN_100M_STEPS = 200
+TRAIN_RESTART_STEPS = 40
+TRAIN_RESTART_FAILS = ("15", "30")
+TRAIN_RESTART_CKPT_EVERY = 10
+TRAIN_TRANSIT_STEPS = 10
+TRAIN_TRANSIT_INSITU_EVERY = 5
+TRAIN_PROCS = 6                 # 4 restart runs, then the 2 transit ranks
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def _example():
+    """examples/train_insitu_torch.py as a module (its presets and the
+    registration of their configs)."""
+    import importlib.util
+    name = "train_insitu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / "train_insitu_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def measure_train(counters, cfg, batch, seq, steps, lr, insitu_every):
+    """``steps`` steps of ``cfg`` through make_train_step (bf16 compute,
+    the gradient monitor every ``insitu_every``) at ``batch`` x ``seq``,
+    under a one-rank policy on the card; the counts zeroed just before
+    and read just after. Each step is timed on the host clock to its
+    loss's ``float()`` (the step's device work done); device busy is the
+    kernels' device time of one profiled report step. Returns the
+    measurements."""
+    import torch
+    from repro_torch.core.insitu.chain import InSituChain
+    from repro_torch.core.insitu.endpoints.spectral_monitor import (
+        SpectralMonitorEndpoint)
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding.policy import make_policy
+    from repro_torch.train import step as train_step
+    mesh = make_host_mesh(device="cuda")
+    policy = make_policy(mesh, global_batch=batch)
+    opt = AdamW(warmup_cosine(lr, 1, steps))
+    hook = InSituChain([SpectralMonitorEndpoint(
+        source="grads", nbins=8, max_tensors=4)], mesh=mesh).initialize() \
+        .as_step_hook()
+    step_fn = train_step.make_train_step(
+        cfg, policy, opt, loss_chunk=seq, insitu_chain=hook,
+        insitu_every=insitu_every)
+    base = fresh_peak()
+    state = train_step.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0),
+        max_target=seq)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in synthetic.batch_at(
+        s, global_batch=batch, seq_len=seq, vocab=cfg.vocab_size,
+        seed=0).items()} for s in range(steps)]
+    zero_counts(counters)
+    losses, gnorms, step_ms, reports = [], [], [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s])
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        if s % insitu_every == 0:
+            reports.append({"step": s, **{k: v.tolist() for k, v in
+                                          m["insitu"].items()}})
+        else:
+            assert all(float(v.abs().max()) == 0
+                       for v in m["insitu"].values()), m["insitu"]
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    assert launches["flash_attention"] == 0, launches
+    for r in reports:
+        spectra = torch.tensor(r["insitu_grad_spectra"])
+        assert spectra.shape == (4, 8), spectra.shape
+        assert torch.allclose(spectra.sum(-1), torch.ones(4), atol=1e-5)
+    # device busy: the kernels' device time of one profiled report step
+    # (torch.profiler), over the step's ms
+    wall_ms, rows = device_profile(lambda: step_fn(state, batches[0]))
+    busy = sum(t for _, t, _ in rows)
+    ms = statistics.median(step_ms[1:])
+    gemm = sum(t for n, t, _ in rows if "gemm" in n.lower()
+               or "sm90" in n.lower() or "cutlass" in n.lower())
+    res = {"params": sum(p.numel() for p in _tensors(state["params"])),
+           "batch": batch, "seq": seq, "steps": steps,
+           "compute_dtype": "bfloat16", "loss": losses,
+           "grad_norm": gnorms, "ms_per_step": ms,
+           "first_step_ms": step_ms[0], "step_ms": step_ms,
+           "device_busy_ms_per_step": busy,
+           "device_busy_share": busy / ms,
+           "profiled_wall_ms": wall_ms,
+           "profiled_gemm_ms": gemm,
+           "by_kernel_ms": [{"name": n[:80], "ms": t, "launches": c}
+                            for n, t, c in rows[:12]],
+           "state_bytes": state_bytes, "peak_memory_bytes": peak,
+           "launches": launches, "insitu": reports}
+    del state, batches, step_fn
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_qwen(counters):
+    """Phase 12's main path: TRAIN_STEPS steps of qwen3-4b (TRAIN_LAYERS
+    layers, full width) at batch TRAIN_BATCH x TRAIN_SEQ; the counts
+    zeroed just before and read just after. Returns the result line."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
+    res = {"phase": "train", "arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+           "of_layers": registry.get_config(TRAIN_ARCH).num_layers,
+           **measure_train(counters, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           TRAIN_STEPS, TRAIN_LR, TRAIN_INSITU_EVERY)}
+    emit(res)
+    return res
+
+
+def train_100m_steps(counters):
+    """The 100m preset's model alone on the card, before anything runs
+    beside it: TRAIN_STEPS steps at batch 8 x 512 through make_train_step
+    (the example's lr), each to its loss's ``float()``, and one profiled
+    step's device time, so the step's ms is held against its device
+    work. The launcher's step EMA (``train_100m``) times only the host's
+    part of a step: the call returns once the host has queued it."""
+    cfg = _example().model_100m()
+    res = {"phase": "train_100m_steps", "config": cfg.name,
+           **measure_train(counters, cfg, 8, 512, TRAIN_STEPS, 6e-3,
+                           TRAIN_INSITU_EVERY)}
+    emit(res)
+    return res
+
+
+def train_cpu_check():
+    """One float32 step of qwen3-4b at TRAIN_CHECK_LAYERS layers, full
+    width, on the card and on the CPU from the same parameters (made on
+    the card from a seed), the loss over TRAIN_CHECK_SEQ / TRAIN_CHECK_CHUNK
+    sequence chunks: the loss and every gradient leaf against the CPU's
+    (TRAIN_CHECK_TOL of max |CPU leaf|)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding.policy import make_policy
+    from repro_torch.train import step as train_step
+    from repro_torch.tree_util import tree_leaves_with_path, tree_map
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_CHECK_LAYERS)
+    opt = AdamW(warmup_cosine(TRAIN_LR, 1, 10))
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(1), torch.float32)
+    batch = synthetic.batch_at(0, global_batch=TRAIN_CHECK_BATCH,
+                               seq_len=TRAIN_CHECK_SEQ,
+                               vocab=cfg.vocab_size, seed=1)
+    out, seconds = {}, {}
+    for device in ("cpu", "cuda"):   # the CPU copy before the card's step
+        p = params if device == "cuda" else tree_map(
+            lambda t: t.cpu(), params)
+        captured = {}
+
+        def hook(payload):
+            captured["grads"] = payload["grads"]
+            return {}
+        fn = train_step.make_train_step(
+            cfg, make_policy(make_host_mesh(device=device),
+                             global_batch=TRAIN_CHECK_BATCH), opt,
+            loss_chunk=TRAIN_CHECK_CHUNK, compute_dtype=torch.float32,
+            insitu_chain=hook)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        t0 = time.perf_counter()
+        _, m = fn(state, {k: torch.from_numpy(v).to(device)
+                          for k, v in batch.items()})
+        loss = float(m["loss"])
+        seconds[device] = time.perf_counter() - t0
+        out[device] = (loss, {k: g.cpu() for k, g in
+                              tree_leaves_with_path(captured["grads"])})
+        del state, captured, p
+    del params
+    torch.cuda.empty_cache()
+    (closs, cgrads), (gloss, ggrads) = out["cpu"], out["cuda"]
+    errs = {k: float((ggrads[k] - g).abs().max())
+            / max(float(g.abs().max()), 1e-30) for k, g in cgrads.items()}
+    worst = max(errs, key=errs.get)
+    res = {"phase": "train_cpu_check", "arch": TRAIN_ARCH,
+           "layers": TRAIN_CHECK_LAYERS, "batch": TRAIN_CHECK_BATCH,
+           "seq": TRAIN_CHECK_SEQ, "compute_dtype": "float32",
+           "loss_chunks": TRAIN_CHECK_SEQ // TRAIN_CHECK_CHUNK,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "loss_cuda": gloss, "loss_cpu": closs,
+           "loss_rel_err": abs(gloss - closs) / abs(closs),
+           "grad_leaves": len(errs), "max_grad_rel_err": errs[worst],
+           "worst_leaf": worst, "tol": TRAIN_CHECK_TOL,
+           "cpu_step_s": seconds["cpu"], "cuda_step_s": seconds["cuda"]}
+    emit(res)
+    assert res["loss_rel_err"] <= TRAIN_CHECK_TOL, res
+    assert res["max_grad_rel_err"] <= TRAIN_CHECK_TOL, res
+    return res
+
+
+def train_100m(out_dir, beside=0):
+    """The example's 100m preset (examples/train_insitu_torch.py, through
+    launch/train.main): TRAIN_100M_STEPS steps at batch 8 x 512; its own
+    assertions hold (loss down by more than 0.5, spectra written).
+    ``beside``: how many other training processes share the card and the
+    host meanwhile. The host-paced step moves with what else runs on the
+    host, so the line also has this process's threads, its CPU seconds
+    over the run and the load average before and after."""
+    import threading
+    import torch
+    mod = _example()
+    fresh_peak()
+    threads = sorted(t.name for t in threading.enumerate())
+    load0 = os.getloadavg()
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = mod.main(["--preset", "100m", "--steps",
+                        str(TRAIN_100M_STEPS), "--out", str(out_dir)])
+    wall = time.perf_counter() - t0
+    cpu_s = time.process_time() - cpu0
+    res = {"phase": "train_100m", "config": "repro-100m",
+           "params": mod.model_100m().param_count(),
+           "steps": TRAIN_100M_STEPS, "batch": 8, "seq": 512,
+           "first_loss": out["first_loss"], "final_loss": out["final_loss"],
+           "spectra_files": out["spectra_files"],
+           "spectra_backpressure_ms": out["spectra_backpressure_ms"],
+           "restarts": out["restarts"], "wall_s": wall,
+           "train_wall_s": out["wall_s"],
+           "step_ema_ms": out["straggler"]["mean_step_s"] * 1e3,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "processes_beside": beside, "threads": threads,
+           "process_cpu_s": cpu_s, "process_cpu_share": cpu_s / wall,
+           "loadavg_1m": [load0[0], os.getloadavg()[0]],
+           "host_cpus": os.cpu_count()}
+    emit(res)
+    assert out["final_loss"] < out["first_loss"] - 0.5, res
+    assert out["spectra_files"] > 0, res
+    return res
+
+
+def _last_checkpoint(ckpt_dir):
+    last = sorted(Path(ckpt_dir).glob("step_*"))[-1]
+    return last.name, [leaf["sha256"] for leaf in json.loads(
+        (last / "manifest.json").read_text())["leaves"]]
+
+
+def train_proc_worker(rank, world, store):
+    """One of phase 12's processes: ranks 0-3 run the 100m restart check
+    (rank 0 and 1 deterministic, 1 and 3 with failures injected), ranks 4
+    and 5 are the two ranks of the transit run (REPRO_* env contract)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()                # built by the parent
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    cfg = _example().model_100m()
+    _example().register(cfg)
+    base = Path(store).parent
+    common = ["--arch", cfg.name, "--batch", "8", "--seq", "512", "--lr",
+              "6e-3", "--device", "cuda"]
+    zero_counts(counters)
+    if rank < 4:
+        deterministic = rank < 2
+        if deterministic:
+            torch.use_deterministic_algorithms(True)
+        fail = rank % 2 == 1
+        ckpt = base / f"restart{rank}"
+        argv = common + ["--steps", str(TRAIN_RESTART_STEPS),
+                         "--insitu-every", "10", "--ckpt-dir", str(ckpt)]
+        if fail:
+            argv += ["--fail-at", *TRAIN_RESTART_FAILS, "--ckpt-every",
+                     str(TRAIN_RESTART_CKPT_EVERY)]
+        with contextlib.redirect_stdout(sys.stderr):
+            summary = train.main(argv)
+        step, shas = _last_checkpoint(ckpt)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        print(json.dumps({"rank": rank, "role": "restart",
+                          "deterministic": deterministic, "fail": fail,
+                          "cublas_workspace_config":
+                              os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+                          "summary": summary, "last_checkpoint": step,
+                          "shas": shas,
+                          "launches": launch_counts(counters)},
+                         default=str), flush=True)
+        return
+    timeline = _transit_timeline(train)
+    spectra = base / f"transit_spectra{rank - 4}"
+    argv = common + ["--steps", str(TRAIN_TRANSIT_STEPS), "--insitu-every",
+                     str(TRAIN_TRANSIT_INSITU_EVERY), "--ckpt-dir",
+                     str(base / "transit_ckpt"), "--insitu-spectra-dir",
+                     str(spectra), "--transit-consumers", "1",
+                     "--transit-async"]
+    with contextlib.redirect_stdout(sys.stderr):
+        summary = train.main(argv)
+    files = sorted(spectra.glob("*.npy"))
+    sums = [np.load(f).sum(-1).tolist() for f in files]
+    print(json.dumps({"rank": rank, "role": "transit", "summary": summary,
+                      "files": [f.name for f in files], "row_sums": sums,
+                      "timeline": timeline,
+                      "launches": launch_counts(counters)},
+                     default=str), flush=True)
+
+
+def _transit_timeline(train):
+    """Wall-clock stamps (time.time(), one clock for every process on the
+    host) of a transit rank's run: worker entry, bridge set-up, the
+    training loop, each async submit, each hop's header exchange (where
+    a rank waits for the other side to reach the same send), its byte
+    gathers and the drains, as (name, start, end). Wraps the launcher's
+    and the bridge's functions in this process only."""
+    from repro_torch.core.insitu import transit
+    timeline = [("worker", time.time(), time.time())]
+
+    def stamp(name, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timeline.append((name, t0, time.time()))
+        return wrapped
+    train.make_transit_setup = stamp("setup", train.make_transit_setup)
+    train.run_with_restarts = stamp("train", train.run_with_restarts)
+    for name, attr in (("submit", "send_async"), ("headers",
+                       "_exchange_headers"), ("gather", "_move"),
+                       ("drain", "drain_async")):
+        setattr(transit.TransitBridge, attr,
+                stamp(name, getattr(transit.TransitBridge, attr)))
+    return timeline
+
+
+def transit_hops(producer, consumer):
+    """Where a transit hop's time goes, from both ranks' timelines: for
+    each send, when each side reached its header exchange (the first
+    collective of the hop), how long the earlier one waited there for
+    the later one, and the hop from the later arrival to the consumer's
+    last gather. Times in s from the earlier worker's entry."""
+    t0 = min(producer["timeline"][0][1], consumer["timeline"][0][1])
+
+    def spans(rank, name):
+        return [(a - t0, b - t0) for n, a, b in rank["timeline"]
+                if n == name]
+    out = {side: {n: spans(r, n) for n in ("worker", "setup", "train",
+                                             "submit", "drain")}
+           for side, r in (("producer", producer),
+                           ("consumer", consumer))}
+    hops = []
+    gathers = spans(consumer, "gather")
+    per = len(gathers) // max(len(spans(consumer, "headers")), 1)
+    for i, (p, c) in enumerate(zip(spans(producer, "headers"),
+                                   spans(consumer, "headers"))):
+        later = max(p[0], c[0])
+        hops.append({"producer_at": p[0], "consumer_at": c[0],
+                     "consumer_waited_s": p[0] - c[0],
+                     "exchange_s": max(p[1], c[1]) - later,
+                     "hop_s": gathers[(i + 1) * per - 1][1] - later})
+    out["hops"] = hops
+    return out
+
+
+def start_train_procs(out_dir, box):
+    """Start phase 12's six processes at once on the card (the 100m
+    restart check, straight and failed, with and without deterministic
+    algorithms, and the transit run on two ranks), waited for on a
+    thread: ``box`` gets ``"results"`` (each rank's line, the wall s) or
+    ``"error"``. Returns the thread."""
+    import threading
+    transit_env = cluster_env(2)
+
+    def env(r):
+        if r < 4:
+            return {"CUBLAS_WORKSPACE_CONFIG": CUBLAS_DETERMINISTIC} \
+                if r < 2 else {}
+        return transit_env(r - 4)
+
+    def run():
+        try:
+            box["results"] = spawn_ranks("train_procs", TRAIN_PROCS,
+                                         out_dir, env=env)
+        except BaseException as err:        # raised by train_procs
+            box["error"] = err
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread
+
+
+def train_procs(box):
+    """The six processes' line (``start_train_procs``), then its checks:
+    both restart runs end at step 40, the failed one after 2 restarts;
+    the deterministic pair bit-identical; the consumer alone writes a
+    file a report, its rows normalised."""
+    if "error" in box:
+        raise box["error"]
+    results, wall = box["results"]
+    restart = {(r["deterministic"], r["fail"]): r for r in results[:4]}
+    identical = {det: restart[(det, False)]["shas"]
+                 == restart[(det, True)]["shas"] for det in (True, False)}
+    producer, consumer = results[4], results[5]
+    reports = len(range(0, TRAIN_TRANSIT_STEPS, TRAIN_TRANSIT_INSITU_EVERY))
+    res = {"phase": "train_procs", "processes": TRAIN_PROCS, "wall_s": wall,
+           "restart": {
+               "steps": TRAIN_RESTART_STEPS,
+               "fail_at": list(TRAIN_RESTART_FAILS),
+               "bit_identical_deterministic": identical[True],
+               "bit_identical_without_deterministic": identical[False],
+               "final_loss": {f"{'det' if d else 'nondet'}_"
+                              f"{'failed' if f else 'straight'}":
+                              r["summary"]["final_loss"]
+                              for (d, f), r in restart.items()},
+               "wall_s": {f"{'det' if d else 'nondet'}_"
+                          f"{'failed' if f else 'straight'}":
+                          r["summary"]["wall_s"]
+                          for (d, f), r in restart.items()}},
+           "transit": {"steps": TRAIN_TRANSIT_STEPS,
+                       "producer_final_loss":
+                           producer["summary"]["final_loss"],
+                       "producer_files": producer["files"],
+                       "consumer_files": consumer["files"],
+                       "consumer_row_sums": consumer["row_sums"],
+                       "transit": consumer["summary"]["transit"],
+                       "producer_async":
+                           producer["summary"]["transit"]["async"],
+                       "timeline": transit_hops(producer, consumer)},
+           "launches_by_process": [r["launches"] for r in results]}
+    emit(res)
+    for (det, fail), r in restart.items():
+        assert r["last_checkpoint"] == \
+            f"step_{TRAIN_RESTART_STEPS:08d}", r["last_checkpoint"]
+        assert r["summary"]["restarts"] == (2 if fail else 0), r
+    assert identical[True], restart
+    assert producer["files"] == [] and consumer["summary"]["role"] == \
+        "consumer", (producer, consumer)
+    assert len(consumer["files"]) == reports, consumer
+    assert all(abs(s - 1.0) < 1e-5 for row in consumer["row_sums"]
+               for s in row), consumer["row_sums"]
+    assert consumer["summary"]["transit"]["fields"] == reports
+    return res
+
+
+def train_phase(counters):
+    """Phase 12: the training path on the card (see TRAIN_ARCH above)."""
+    import torch
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        main_path = train_qwen(counters)
+        check = train_cpu_check()
+        steps_100m = train_100m_steps(counters)
+        torch.cuda.empty_cache()
+        # the 100m example here while the six processes run: each is
+        # paced by its host thread, and the card has room for all seven
+        box = {}
+        thread = start_train_procs(out_dir / "procs", box)
+        try:
+            hundred = train_100m(out_dir / "example", beside=TRAIN_PROCS)
+        finally:
+            thread.join()
+        procs = train_procs(box)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "train_phase", "seconds": time.perf_counter() - t0})
+    return {"main": main_path, "check": check, "100m_steps": steps_100m,
+            "100m": hundred, "procs": procs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4537,6 +5075,11 @@ def main() -> int:
     # SSM (mamba2), hybrid (zamba2), enc-dec (whisper), VLM (internvl2)
     families = lm_families(all_counters, gen)
 
+    # 12. the training path: qwen3-4b at full width (8 of 36 layers)
+    # through make_train_step, the card's float32 step against the CPU's,
+    # the 100m example, and launch/train.py's restart and transit runs
+    training = train_phase(all_counters)
+
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
         (producers first) and the transit serve (rank 0 decodes)."""
@@ -4711,7 +5254,7 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [
+    kernels = [
         dict(row("fft_fourstep", csrc + "fft_fourstep.cu",
                  "src/repro/kernels/fft_fourstep.py:89", fourstep[0],
                  fourstep_cols[0]),
@@ -4794,7 +5337,16 @@ def main() -> int:
             "flash_calls_by_kind"]["cross"],
             "whisper-medium prefill's cross-attention (64 decoder "
             "queries against 1500 encoder keys, one a decoder layer)"),
-    ]})
+    ]
+    # phase 12's main path launches none: the training path runs under a
+    # sharding policy, where attention takes the plain paths, and the
+    # gradient monitor's rfft is torch.fft's, as the reference's is jnp's
+    for k in kernels:
+        k["train_launches"] = training["main"]["launches"][k["name"]]
+        k["train_launches_from"] = (
+            f"{TRAIN_ARCH} training main path ({TRAIN_STEPS} steps, "
+            f"{TRAIN_LAYERS} layers): none by design")
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -4811,6 +5363,7 @@ if __name__ == "__main__":
                                                       restore=True),
                   "elastic": elastic_worker,
                   "elastic_solver": elastic_solver_worker,
+                  "train_procs": train_proc_worker,
                   }[args["--job"]]
         try:
             worker(int(args["--rank"]), int(args["--world"]),

@@ -5,7 +5,11 @@ as three TF32 products (``mma.sync``), bf16 on ``wgmma``.
 
 On CUDA tensors the wrapper launches the kernel or raises; on CPU
 tensors it computes the plain version, ``ref.flash_attention_ref``.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches. The kernel has no
+backward, as the reference's has none: a CUDA call made while autograd
+records and any of q, k, v requires grad raises, so an output without a
+gradient never passes for one (training runs attention under a sharding
+policy, which takes the plain paths).
 
 Two shapes go past the reference's Pallas kernel, which asserts S a
 multiple of its block and reshapes K/V to the query's S: head_dim 80
@@ -100,6 +104,12 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     (128 query rows a CTA against 64-key tiles); any Sq and Sk work."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, and q, k or "
+            "v requires grad; training runs attention under a sharding "
+            "policy (models.attention takes its direct/blockwise paths "
+            "then), or call it under torch.no_grad()")
     _check(q, k, v, causal, block_q, block_k)
     q, k, v = (_kernel_layout(t) for t in (q, k, v))
     B, S, H, hd = q.shape

@@ -2,12 +2,14 @@
 (counterpart of ``repro/models/attention.py``).
 
 Paths, as in the reference:
-  * flash     — on a CUDA tensor, full-sequence ``"full"``/``"bidir"``
-                attention runs the hand-written CUDA kernel
-                (``kernels/flash_attention.py``), head_dim 80 and
-                cross-attention's own key length included; the
-                counterpart of the reference's ``_use_flash_kernel`` on
-                a TPU.
+  * flash     — with no sharding policy, full-sequence ``"full"``/
+                ``"bidir"`` attention on a CUDA tensor runs the
+                hand-written CUDA kernel (``kernels/flash_attention.py``),
+                head_dim 80 and cross-attention's own key length
+                included; the counterpart of the reference's
+                ``_use_flash_kernel`` on a TPU. The kernel has no
+                backward (nor has the reference's): training runs
+                attention under a policy, which takes the paths below.
   * direct    — S·S einsum (short sequences, decode).
   * blockwise — flash-style loop over (q-block × kv-block) with running
                 max/denominator in f32.
@@ -16,9 +18,10 @@ Paths, as in the reference:
   * decode    — one query position against a KV cache, masked by the
                 absolute position stored in each slot.
 
-The port has no sharding policy yet (``sharding/policy.py`` is ROADMAP
-queue 1 item 18 part 5): a ``policy`` other than ``None`` raises, and
-``maybe_repeat_kv`` / ``policy.constrain`` wait with it.
+Under a ``sharding.policy.Policy``, K/V are repeated up to the padded
+query heads where the KV heads do not divide the TP axis
+(``maybe_repeat_kv``), and q/k/v and the output are constrained to the
+policy's head layout, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,14 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
-
-
-def no_policy(policy) -> None:
-    if policy is not None:
-        raise NotImplementedError(
-            "sharding policies are not ported yet (sharding/policy.py, "
-            "ROADMAP queue 1 item 18 part 5); pass policy=None")
+from repro_torch.models.common import (apply_rope, dense_init, matmul,
+                                       rms_norm, softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -70,10 +67,24 @@ def head_mask(cfg, x):
     return x * mask[:, None].to(x.dtype)
 
 
+def maybe_repeat_kv(cfg, policy, k, v):
+    """When KV heads don't divide the TP axis, repeat K/V up to the padded
+    query-head count so every attention product shards cleanly on heads.
+    Activation-only (params keep true GQA shapes)."""
+    if policy is None or policy.tp_axis is None:
+        return k, v
+    tp = policy.mesh.shape[policy.tp_axis]
+    kv = k.shape[2]
+    if kv % tp == 0:
+        return k, v
+    reps = cfg.heads_padded // kv
+    return (k.repeat_interleave(reps, dim=2),
+            v.repeat_interleave(reps, dim=2))
+
+
 def _proj(x, w):
     """x (..., d) · w (d, n, h) -> (..., n, h), one matmul."""
-    return torch.matmul(x, w.reshape(w.shape[0], -1)).unflatten(
-        -1, w.shape[1:])
+    return matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def project_qkv(cfg, p, x, positions, *, rope: bool = True):
@@ -98,7 +109,7 @@ def out_proj(p, attn, cfg=None):  # (B,S,Hp,hd) -> (B,S,D)
     if cfg is not None:
         attn = head_mask(cfg, attn)
     wo = p["wo"]
-    return torch.matmul(attn.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    return matmul(attn.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -214,24 +225,38 @@ def attention_banded(q, k, v, *, window: int, cap: Optional[float] = None,
 DIRECT_MAX_SEQ = 2048
 
 
+def _use_flash_kernel(q, kind: str, policy) -> bool:
+    """The reference's rule with the card in the TPU's place: the fused
+    kernel only with no policy, on a CUDA tensor, for full-sequence
+    ``"full"``/``"bidir"`` attention."""
+    return policy is None and q.is_cuda and kind in ("full", "bidir")
+
+
 def attention(q, k, v, *, kind: str, cfg, policy=None):
     """kind: "full" (causal) | "swa" | "bidir" (encoder/cross)."""
-    no_policy(policy)
     cap = cfg.attn_softcap
     S = q.shape[1]
-    if q.is_cuda and kind in ("full", "bidir"):
+    if _use_flash_kernel(q, kind, policy):
         return flash_attention(q, k, v, causal=(kind == "full"),
                                softcap=cap or 0.0)
+    k, v = maybe_repeat_kv(cfg, policy, k, v)
+    if policy is not None:
+        q, k, v = (policy.constrain(t, policy.act_heads()) for t in (q, k, v))
     if kind == "swa" and cfg.window is not None and S > cfg.window:
-        return attention_banded(q, k, v, window=cfg.window, cap=cap)
-    if kind == "bidir":
+        out = attention_banded(q, k, v, window=cfg.window, cap=cap)
+    elif kind == "bidir":
         if S <= DIRECT_MAX_SEQ:
-            return attention_direct(q, k, v, causal=False, cap=cap)
-        return attention_blockwise(q, k, v, causal=False, cap=cap)
-    if S <= DIRECT_MAX_SEQ:
-        return attention_direct(q, k, v, causal=True, cap=cap,
-                                window=cfg.window if kind == "swa" else None)
-    return attention_blockwise(q, k, v, causal=True, cap=cap)
+            out = attention_direct(q, k, v, causal=False, cap=cap)
+        else:
+            out = attention_blockwise(q, k, v, causal=False, cap=cap)
+    elif S <= DIRECT_MAX_SEQ:
+        out = attention_direct(q, k, v, causal=True, cap=cap,
+                               window=cfg.window if kind == "swa" else None)
+    else:
+        out = attention_blockwise(q, k, v, causal=True, cap=cap)
+    if policy is not None:
+        out = policy.constrain(out, policy.act_heads())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +268,10 @@ def decode_attention(q, k_cache, v_cache, kv_positions, cur_pos, *, cfg,
     """q (B,1,H,hd); caches (B,S,KV,hd); kv_positions (B,S) holding the
     absolute position stored in each slot (-1 = unwritten). ``cur_pos``
     is an int (every row at one position) or a (B,) tensor."""
-    no_policy(policy)
+    if policy is not None:
+        spec = policy.act_kv_cache(k_cache.shape[2])
+        k_cache = policy.constrain(k_cache, spec)
+        v_cache = policy.constrain(v_cache, spec)
     if torch.is_tensor(cur_pos) and cur_pos.dim() == 1:
         q_pos = cur_pos[:, None]
     else:

@@ -10,6 +10,12 @@ parameter dicts and depth is a Python loop. Caches and SSM states keep
 the reference's stacked layout: one cache (or ``SSMState``) per layer
 slot of the period, with a leading ``n_groups`` axis, which the decode
 loop reads and updates in place one depth index at a time.
+
+``policy`` (``sharding.policy.Policy`` or None) is threaded to every
+layer as in the reference, which constrains the hidden state after each
+layer slot. ``stack_forward`` (the training forward) recomputes each
+period in the backward pass (``remat``, the reference's
+``jax.checkpoint`` around the scan body).
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, matmul, rms_norm
+from repro_torch.models.common import remat as _remat
 from repro_torch.serve.kvcache import (cache_positions, cache_views, read_kv,
                                        update_any_cache)
 
@@ -94,14 +101,14 @@ def _norm(cfg, x, scale):
     return rms_norm(x, scale, cfg.norm_eps, plus_one=True)
 
 
-def _mlp_residual(cfg, p, x):
+def _mlp_residual(cfg, p, x, policy=None):
     """x + (MLP or MoE)(norm x); returns (x, aux loss)."""
     h = _norm(cfg, x, p["pre_mlp_norm"])
     aux = 0.0
     if "moe" in p:
-        out, aux = moe_mod.moe_mlp(cfg, p["moe"], h)
+        out, aux = moe_mod.moe_mlp(cfg, p["moe"], h, policy)
     else:
-        out = mlp_mod.mlp(cfg, p["mlp"], h)
+        out = mlp_mod.mlp(cfg, p["mlp"], h, policy)
     if cfg.post_norm:
         out = _norm(cfg, out, p["post_mlp_norm"])
     return x + out, aux
@@ -117,51 +124,64 @@ def _attn_residual(cfg, p, x, attn):
 def _fused(cfg, p, shared, x, x0):
     """The hybrid slot's input to the shared block: fuse_proj over
     concat(x, x0), normed."""
-    fused = torch.matmul(torch.cat([x, x0], dim=-1), p["fuse_proj"])
+    fused = matmul(torch.cat([x, x0], dim=-1), p["fuse_proj"])
     return _norm(cfg, fused, shared["pre_norm"])
 
 
-def _shared_tail(cfg, shared, x, attn):
+def _shared_tail(cfg, shared, x, attn, policy=None):
     """The shared block after its attention: out-projection and MLP."""
     x = x + attn_mod.out_proj(shared["attn"], attn, cfg)
     return x + mlp_mod.mlp(cfg, shared["mlp"],
-                           _norm(cfg, x, shared["pre_mlp_norm"]))
+                           _norm(cfg, x, shared["pre_mlp_norm"]), policy)
 
 
 # ---------------------------------------------------------------------------
 # Forward (prefill): full-sequence layer application
 # ---------------------------------------------------------------------------
 
-def _attn_layer(cfg, p, x, positions, kind, *, want_cache=False):
+def _attn_layer(cfg, p, x, positions, kind, policy=None, *,
+                want_cache=False):
     h = _norm(cfg, x, p["pre_norm"])
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, positions)
     out = attn_mod.attention(q, k, v, kind=("swa" if kind == "swa"
-                                            else "full"), cfg=cfg)
-    x, aux = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out))
-    return x, aux, ((k, v) if want_cache else None)
+                                            else "full"), cfg=cfg,
+                             policy=policy)
+    x, aux = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out), policy)
+    return x, aux, (_constrain_cache(k, v, policy) if want_cache else None)
 
 
-def _ssm_layer(cfg, p, x, *, want_state=False):
+def _constrain_cache(k, v, policy):
+    """Prefill-emitted K/V in the cache layout (the reference pins them
+    before its scan stacks them)."""
+    if policy is None:
+        return (k, v)
+    spec = policy.act_kv_cache(k.shape[2])
+    return (policy.constrain(k, spec), policy.constrain(v, spec))
+
+
+def _ssm_layer(cfg, p, x, policy=None, *, want_state=False):
     h = _norm(cfg, x, p["pre_norm"])
     if want_state:
-        out, st = ssm_mod.ssm_mixer(cfg, p["ssm"], h, want_state=True)
+        out, st = ssm_mod.ssm_mixer(cfg, p["ssm"], h, policy,
+                                    want_state=True)
         return x + out, st
-    return x + ssm_mod.ssm_mixer(cfg, p["ssm"], h), None
+    return x + ssm_mod.ssm_mixer(cfg, p["ssm"], h, policy), None
 
 
-def _shared_block(cfg, shared, p, x, x0, positions, *, want_cache=False):
+def _shared_block(cfg, shared, p, x, x0, positions, policy=None, *,
+                  want_cache=False):
     """Zamba2 hybrid slot: the shared attn+MLP on concat(x, x0), then the
     slot's own SSM layer."""
     q, k, v = attn_mod.project_qkv(cfg, shared["attn"],
                                    _fused(cfg, p, shared, x, x0), positions)
-    out = attn_mod.attention(q, k, v, kind="full", cfg=cfg)
-    x = _shared_tail(cfg, shared, x, out)
-    x, st = _ssm_layer(cfg, p, x, want_state=want_cache)
-    return x, ((k, v) if want_cache else None), st
+    out = attn_mod.attention(q, k, v, kind="full", cfg=cfg, policy=policy)
+    x = _shared_tail(cfg, shared, x, out, policy)
+    x, st = _ssm_layer(cfg, p, x, policy, want_state=want_cache)
+    return x, (_constrain_cache(k, v, policy) if want_cache else None), st
 
 
-def period_forward(cfg, pparams, x, x0, positions, shared=None, *,
-                   want_cache: bool = False):
+def period_forward(cfg, pparams, x, x0, positions, policy=None, shared=None,
+                   *, want_cache: bool = False):
     """Apply one pattern period. Returns (x, aux, caches, states): caches
     maps f"l{i}" to an attention slot's (k, v), states an SSM or hybrid
     slot's final ``SSMState``, when ``want_cache``."""
@@ -170,44 +190,63 @@ def period_forward(cfg, pparams, x, x0, positions, shared=None, *,
     for i, kind in enumerate(cfg.layer_pattern):
         key, p = f"l{i}", pparams[f"l{i}"]
         if kind == "ssm":
-            x, st = _ssm_layer(cfg, p, x, want_state=want_cache)
+            x, st = _ssm_layer(cfg, p, x, policy, want_state=want_cache)
             if want_cache:
                 states[key] = st
         elif kind == "hybrid":
             x, cache, st = _shared_block(cfg, shared, p, x, x0, positions,
-                                         want_cache=want_cache)
+                                         policy, want_cache=want_cache)
             if want_cache:
                 caches[key], states[key] = cache, st
         else:
-            x, aux, cache = _attn_layer(cfg, p, x, positions, kind,
+            x, aux, cache = _attn_layer(cfg, p, x, positions, kind, policy,
                                         want_cache=want_cache)
             aux_total = aux_total + aux
             if want_cache:
                 caches[key] = cache
+        if policy is not None:
+            x = policy.constrain(x, policy.act_hidden())
     return x, aux_total, caches, states
 
 
 def stack_forward(cfg, blocks: List[Dict[str, Any]], x, positions,
-                  shared=None):
-    """All periods over depth (no remat: the port has no training path
-    yet). Returns (x, summed aux loss)."""
+                  policy=None, shared=None, *, remat: bool = True,
+                  remat_policy=None):
+    """All periods over depth; with ``remat``, each period's activations
+    are recomputed in the backward pass instead of kept. Returns (x,
+    summed aux loss, a float32 scalar). ``remat_policy`` (the reference's
+    ``jax.checkpoint`` saveable policies, which only ``launch/specs.py``
+    passes) is ROADMAP queue 1 item 19."""
+    if remat_policy is not None:
+        raise NotImplementedError(
+            "stack_forward: remat_policy (a checkpoint saveable policy) is "
+            "ROADMAP queue 1 item 19; pass None")
     x0 = x
-    aux = 0.0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(h, gparams):
+        h, a, _, _ = period_forward(cfg, gparams, h, x0, positions, policy,
+                                    shared)
+        return h, a
+
     for gparams in blocks:
-        x, a, _, _ = period_forward(cfg, gparams, x, x0, positions, shared)
+        if remat:
+            x, a = _remat(body, x, gparams)
+        else:
+            x, a = body(x, gparams)
         aux = aux + a
     return x, aux
 
 
-def stack_prefill(cfg, blocks, x, positions, shared=None):
+def stack_prefill(cfg, blocks, x, positions, policy=None, shared=None):
     """Full-sequence pass that also emits every layer's cache and state:
     returns (x, caches, states), each a list over depth of dicts keyed
     f"l{i}"."""
     x0 = x
     caches, states = [], []
     for gparams in blocks:
-        x, _, c, s = period_forward(cfg, gparams, x, x0, positions, shared,
-                                    want_cache=True)
+        x, _, c, s = period_forward(cfg, gparams, x, x0, positions, policy,
+                                    shared, want_cache=True)
         caches.append(c)
         states.append(s)
     return x, caches, states
@@ -217,47 +256,50 @@ def stack_prefill(cfg, blocks, x, positions, shared=None):
 # Decode: one token through the stack with per-layer caches
 # ---------------------------------------------------------------------------
 
-def _decode_attn(cfg, attn_p, h, cache, cur_pos, window=None):
+def _decode_attn(cfg, attn_p, h, cache, cur_pos, window=None, policy=None):
     """One token's attention against its cache, which gets the token's
     K/V written in place first."""
     q, k, v = attn_mod.project_qkv(cfg, attn_p, h, positions_of(cur_pos, h))
     update_any_cache(cache, k, v, cur_pos)
     k_r, v_r = read_kv(cache, k.dtype)
     return attn_mod.decode_attention(q, k_r, v_r, cache_positions(cache),
-                                     cur_pos, cfg=cfg, window=window)
+                                     cur_pos, cfg=cfg, window=window,
+                                     policy=policy)
 
 
-def _ssm_step(cfg, p, x, state: ssm_mod.SSMState):
+def _ssm_step(cfg, p, x, state: ssm_mod.SSMState, policy=None):
     """x + the SSM layer's one-token step; ``state`` (views into the
     stacked states) is overwritten with the new state."""
     out, new = ssm_mod.ssm_decode_step(cfg, p["ssm"],
-                                       _norm(cfg, x, p["pre_norm"]), state)
+                                       _norm(cfg, x, p["pre_norm"]), state,
+                                       policy)
     for old, t in zip(state, new):
         old.copy_(t)
     return x + out
 
 
 def period_decode(cfg, pparams, x, x0, caches, ssm_states, cur_pos,
-                  shared=None):
+                  policy=None, shared=None):
     """One-token step through a period. ``caches`` maps f"l{i}" to an
     attention or hybrid slot's cache, ``ssm_states`` an SSM or hybrid
     slot's ``SSMState``; both are updated in place."""
     for i, kind in enumerate(cfg.layer_pattern):
         key, p = f"l{i}", pparams[f"l{i}"]
         if kind == "ssm":
-            x = _ssm_step(cfg, p, x, ssm_states[key])
+            x = _ssm_step(cfg, p, x, ssm_states[key], policy)
             continue
         if kind == "hybrid":
             out = _decode_attn(cfg, shared["attn"],
                                _fused(cfg, p, shared, x, x0), caches[key],
-                               cur_pos)
-            x = _shared_tail(cfg, shared, x, out)
-            x = _ssm_step(cfg, p, x, ssm_states[key])
+                               cur_pos, policy=policy)
+            x = _shared_tail(cfg, shared, x, out, policy)
+            x = _ssm_step(cfg, p, x, ssm_states[key], policy)
             continue
         out = _decode_attn(cfg, p["attn"], _norm(cfg, x, p["pre_norm"]),
                            caches[key], cur_pos,
-                           window=cfg.window if kind == "swa" else None)
-        x, _ = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out))
+                           window=cfg.window if kind == "swa" else None,
+                           policy=policy)
+        x, _ = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out), policy)
     return x
 
 
@@ -270,7 +312,8 @@ def positions_of(cur_pos, x):
     return cur_pos[:, None].expand(B, S).to(torch.int32)
 
 
-def stack_decode(cfg, blocks, x, caches, ssm_states, cur_pos, shared=None):
+def stack_decode(cfg, blocks, x, caches, ssm_states, cur_pos, policy=None,
+                 shared=None):
     """One token through all periods; ``caches`` / ``ssm_states`` map
     f"l{i}" to a cache / ``SSMState`` stacked over depth, updated in
     place. Returns x."""
@@ -280,5 +323,5 @@ def stack_decode(cfg, blocks, x, caches, ssm_states, cur_pos, shared=None):
         states = {key: ssm_mod.SSMState(*(t[g] for t in st))
                   for key, st in ssm_states.items()}
         x = period_decode(cfg, gparams, x, x0, views, states, cur_pos,
-                          shared)
+                          policy, shared)
     return x

@@ -1,9 +1,11 @@
 """Shared model building blocks: init, norms, rotary embeddings,
-activations (counterpart of ``repro/models/common.py``).
+activations, the chunked loss (counterpart of ``repro/models/common.py``).
 
 The init functions draw from an explicit ``torch.Generator`` and make
-the tensor on that generator's device. ``chunked_softmax_xent`` comes
-with the training path (ROADMAP queue 1 item 18 part 6).
+the tensor on that generator's device; a ``ShapeOnly`` in its place
+makes shapes only (tensors on the ``meta`` device, the counterpart of
+``jax.eval_shape``). ``remat`` is ``jax.checkpoint``'s counterpart:
+activation checkpointing while autograd records.
 """
 from __future__ import annotations
 
@@ -12,6 +14,19 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` in the init functions: every
+    tensor is made on the ``meta`` device (no memory, no draws)."""
+    device = torch.device("meta")
+
+
+def _draw(gen, shape):
+    return torch.randn(shape, device=gen.device, dtype=torch.float32,
+                       generator=gen if isinstance(gen, torch.Generator)
+                       else None)
 
 
 # ---------------------------------------------------------------------------
@@ -22,15 +37,11 @@ def dense_init(gen: torch.Generator, shape, dtype,
                fan_in: Optional[int] = None):
     fan = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan, 1))
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(std).to(dtype)
+    return _draw(gen, shape).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(0.02).to(dtype)
+    return _draw(gen, shape).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -106,3 +117,61 @@ def softcap(x, cap: Optional[float]):
     if cap is None:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def matmul(a, b):
+    """``a @ b`` in the two operands' promoted dtype (``jnp.einsum``'s
+    rule: float32 frames against bfloat16 weights compute in float32)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in the backward pass
+    instead of kept (``jax.checkpoint``) when autograd records; a plain
+    call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def chunked_softmax_xent(hidden, head_w, labels, *, chunk: int,
+                         constrain=None, final_cap: Optional[float] = None):
+    """Cross-entropy over a large vocab computed seq-chunk at a time.
+
+    The (B, S, V) logits never exist whole: each chunk's float32 head
+    product, softcap, logsumexp and gold gather run under ``remat``, so
+    live memory stays at (B, chunk, V) and the backward recomputes them.
+    Labels < 0 are padding. Returns the summed loss and the token count
+    (float32 scalars)."""
+    B, S, D = hidden.shape
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    if chunk * n_chunks != S:
+        raise ValueError(f"chunked_softmax_xent: sequence {S} does not "
+                         f"split into {n_chunks} chunks")
+
+    def chunk_loss(h_c, y_c):
+        logits = softcap(h_c.float() @ head_w.float(), final_cap)
+        if constrain is not None:
+            logits = constrain(logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        # a negative label indexes from the end, as take_along_axis
+        # does; its term is masked out
+        idx = torch.where(y_c < 0, y_c + logits.shape[-1], y_c).long()
+        gold = logits.gather(-1, idx[..., None])[..., 0]
+        mask = (y_c >= 0).float()
+        return ((lse - gold) * mask).sum(), mask.sum()
+
+    loss = count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        l, n = remat(chunk_loss, hidden[:, sl], labels[:, sl])
+        loss, count = loss + l, count + n
+    return loss, count

@@ -1,7 +1,10 @@
 """Carry the reference's parameters across: ``params_from_jax`` takes the
 tree that ``repro.models.lm.init_params`` (or ``encdec.init_params``)
-makes, as numpy arrays, and returns the port's parameters. The two packages' random inits cannot
-match, so the parity tests build weights once and hand them to both.
+makes, as numpy arrays, and returns the port's parameters;
+``train_state_from_jax`` does the same for a whole train state
+(``repro.train.step.init_train_state``'s tree). The two packages'
+random inits cannot match, so the parity tests build weights once and
+hand them to both.
 """
 from __future__ import annotations
 
@@ -47,3 +50,19 @@ def params_from_jax(cfg, tree: Dict[str, Any], *,
         else:
             out[key] = _map(sub, lambda a: _tensor(a, device))
     return out
+
+
+def train_state_from_jax(cfg, state: Dict[str, Any], *,
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's train state ``{"params", "opt": {"m", "v",
+    "count"}, "step"}`` (numpy leaves) → the port's: parameters and
+    moments on ``device`` in the port's layout, ``count`` and ``step``
+    as host int32 scalars (``train/step.py``)."""
+    def scalar(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32))
+    opt = state["opt"]
+    return {"params": params_from_jax(cfg, state["params"], device=device),
+            "opt": {"m": params_from_jax(cfg, opt["m"], device=device),
+                    "v": params_from_jax(cfg, opt["v"], device=device),
+                    "count": scalar(opt["count"])},
+            "step": scalar(state["step"])}

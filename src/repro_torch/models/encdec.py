@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder (counterpart of
-``repro/models/encdec.py``), for serving.
+``repro/models/encdec.py``): training loss, prefill and decode.
 
 The audio conv frontend is a stub, as in the reference: the caller
 supplies precomputed frame embeddings (B, T, d_model), the output of the
@@ -17,8 +17,10 @@ K/V have a leading layer axis. On a CUDA tensor the encoder's attention
 (``"bidir"``), the decoder's self-attention (``"full"``) and the
 prefill's cross-attention (``"bidir"``, 1500 keys against the prompt's
 queries) run the flash kernel; decode's cross-attention stays
-``attention_direct``, as in the reference. ``loss_fn`` waits for the
-training path (ROADMAP queue 1 item 18 part 6).
+``attention_direct``, as in the reference. Under a sharding policy (the
+training path) attention takes the plain paths, and each encoder and
+decoder layer is recomputed in the backward pass (``remat``, the
+reference's ``jax.checkpoint`` around its scan bodies).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import (dense_init, embed_init, layer_norm,
+from repro_torch.models.common import (chunked_softmax_xent, dense_init,
+                                       embed_init, layer_norm, matmul, remat,
                                        sinusoid_positions)
 from repro_torch.serve.kvcache import (cache_views, from_prefill,
                                        init_cache, split_rows, update_cache)
@@ -46,7 +49,8 @@ def _mlp_init(cfg, gen, dtype):
 
 
 def _mlp(p, x):
-    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return matmul(F.gelu(matmul(x, p["w_up"]), approximate="tanh"),
+                  p["w_down"])
 
 
 def _enc_layer_init(cfg, gen, dtype):
@@ -94,17 +98,25 @@ def _positions(B, S, device):
 
 def encode(cfg, params, frames, policy=None):
     """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
-    attn_mod.no_policy(policy)
     B, T, D = frames.shape
     h = frames + sinusoid_positions(T, D, frames.dtype, frames.device)[None]
+    if policy is not None:
+        h = policy.constrain(h, policy.act_hidden())
     positions = _positions(B, T, frames.device)
-    for p in params["enc_layers"]:
+
+    def layer(h, p):
         a = _ln(h, p["ln1"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(cfg, p["attn"], a, positions,
                                        rope=False)
-        a = attn_mod.attention(q, k, v, kind="bidir", cfg=cfg)
+        a = attn_mod.attention(q, k, v, kind="bidir", cfg=cfg, policy=policy)
         h = h + attn_mod.out_proj(p["attn"], a, cfg)
         h = h + _mlp(p["mlp"], _ln(h, p["ln2"], cfg.norm_eps))
+        if policy is not None:
+            h = policy.constrain(h, policy.act_hidden())
+        return h
+
+    for p in params["enc_layers"]:
+        h = remat(layer, h, p)
     return _ln(h, params["enc_final"], cfg.norm_eps)
 
 
@@ -119,29 +131,67 @@ def _cross_q(cfg, p, c):
     return qc
 
 
-def _decoder_stack(cfg, params, x, enc_out, positions, *,
+def _decoder_stack(cfg, params, x, enc_out, positions, policy=None, *,
                    want_cache=False):
     """The decoder over the whole prompt. Returns (x, caches): with
     ``want_cache`` a list over layers of ((k, v), (kc, vc)), the
-    self-attention's and the cross-attention's K/V."""
-    caches = []
-    for p in params["dec_layers"]:
+    self-attention's and the cross-attention's K/V; without, each layer
+    is recomputed in the backward pass."""
+    def layer(x, p):
         a = _ln(x, p["ln1"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(cfg, p["self_attn"], a, positions,
                                        rope=False)
-        a = attn_mod.attention(q, k, v, kind="full", cfg=cfg)
+        a = attn_mod.attention(q, k, v, kind="full", cfg=cfg, policy=policy)
         x = x + attn_mod.out_proj(p["self_attn"], a, cfg)
         qc = _cross_q(cfg, p, _ln(x, p["ln2"], cfg.norm_eps))
         kc = attn_mod._proj(enc_out, p["cross_attn"]["wk"])
         vc = attn_mod._proj(enc_out, p["cross_attn"]["wv"])
         if cfg.qkv_bias:
             kc, vc = kc + p["cross_attn"]["bk"], vc + p["cross_attn"]["bv"]
-        cx = attn_mod.attention(qc, kc, vc, kind="bidir", cfg=cfg)
+        cx = attn_mod.attention(qc, kc, vc, kind="bidir", cfg=cfg,
+                                policy=policy)
         x = x + attn_mod.out_proj(p["cross_attn"], cx, cfg)
         x = x + _mlp(p["mlp"], _ln(x, p["ln3"], cfg.norm_eps))
-        if want_cache:
-            caches.append(((k, v), (kc, vc)))
-    return x, (caches if want_cache else None)
+        if policy is not None:
+            x = policy.constrain(x, policy.act_hidden())
+        return x, ((k, v), (kc, vc))
+
+    if not want_cache:
+        for p in params["dec_layers"]:
+            x = remat(lambda x, p: layer(x, p)[0], x, p)
+        return x, None
+    caches = []
+    for p in params["dec_layers"]:
+        x, cache = layer(x, p)
+        caches.append(cache)
+    return x, caches
+
+
+def _embed(params, tokens):
+    S = tokens.shape[1]
+    return (params["embedding"][tokens.long()]
+            + params["pos_embedding"][None, :S])
+
+
+def loss_fn(cfg, params, batch, policy=None, **_):
+    """batch: frames (B,T,D), tokens (B,S), labels (B,S) (-1 = pad).
+    Returns (loss, metrics). The reference's keywords (``remat``,
+    ``loss_chunk``, ...) are accepted and, as there, not read: the
+    layers always recompute and the loss runs in chunks of 512."""
+    enc_out = encode(cfg, params, batch["frames"], policy)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x, _ = _decoder_stack(cfg, params, _embed(params, tokens), enc_out,
+                          _positions(B, S, tokens.device), policy)
+    x = _ln(x, params["dec_final"], cfg.norm_eps)
+    constrain = ((lambda t: policy.constrain(
+        t, policy.act_logits(cfg.vocab_size))) if policy is not None
+        else None)
+    loss_sum, count = chunked_softmax_xent(
+        x, params["embedding"].T, batch["labels"], chunk=512,
+        constrain=constrain)
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss, {"loss": loss, "tokens": count}
 
 
 def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
@@ -150,10 +200,8 @@ def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
     enc_out = encode(cfg, params, batch["frames"], policy)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
-    x = (params["embedding"][tokens.long()]
-         + params["pos_embedding"][None, :S])
-    x, caches = _decoder_stack(cfg, params, x, enc_out, positions,
+    x, caches = _decoder_stack(cfg, params, _embed(params, tokens), enc_out,
+                               _positions(B, S, tokens.device), policy,
                                want_cache=True)
     x = _ln(x, params["dec_final"], cfg.norm_eps)
 
@@ -164,13 +212,16 @@ def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
                               pad_to=cache_len)
     cross = (stacked(1, 0), stacked(1, 1))
     del caches
-    return _last_logits(cfg, params, x), {"self": self_cache,
-                                          "cross": cross, "pos": S}
+    return _last_logits(cfg, params, x, policy), {"self": self_cache,
+                                                  "cross": cross, "pos": S}
 
 
-def _last_logits(cfg, params, x):
+def _last_logits(cfg, params, x, policy=None):
     """Final-position logits (B,1,V), in float32 (tied embeddings)."""
-    return torch.matmul(x[:, -1:].float(), params["embedding"].T.float())
+    logits = torch.matmul(x[:, -1:].float(), params["embedding"].T.float())
+    if policy is not None:
+        logits = policy.constrain(logits, policy.act_logits(cfg.vocab_size))
+    return logits
 
 
 def init_decode_state(cfg, batch: int, cache_len: int, enc_len: int,
@@ -190,7 +241,6 @@ def decode_step(cfg, params, tokens, state, policy=None):
     """One decoder token against the cached self and cross attention;
     the self-attention cache is written in place. Returns (logits
     (B,1,V), new state)."""
-    attn_mod.no_policy(policy)
     cur_pos = state["pos"]
     B = tokens.shape[0]
     n_pos = params["pos_embedding"].shape[0]
@@ -210,11 +260,12 @@ def decode_step(cfg, params, tokens, state, policy=None):
                                        rope=False)
         cache = update_cache(cache_views(state["self"], i), k, v, cur_pos)
         a = attn_mod.decode_attention(q, cache.k, cache.v, cache.positions,
-                                      cur_pos, cfg=cfg)
+                                      cur_pos, cfg=cfg, policy=policy)
         h = h + attn_mod.out_proj(p["self_attn"], a, cfg)
         qc = _cross_q(cfg, p, _ln(h, p["ln2"], cfg.norm_eps))
         cx = attn_mod.attention_direct(qc, kcs[i], vcs[i], causal=False)
         h = h + attn_mod.out_proj(p["cross_attn"], cx, cfg)
         h = h + _mlp(p["mlp"], _ln(h, p["ln3"], cfg.norm_eps))
     h = _ln(h, params["dec_final"], cfg.norm_eps)
-    return _last_logits(cfg, params, h), {**state, "pos": cur_pos + 1}
+    return _last_logits(cfg, params, h, policy), {**state,
+                                                  "pos": cur_pos + 1}

@@ -1,13 +1,15 @@
-"""Decoder-only LM, plus the VLM variant: init / prefill / decode
-(counterpart of ``repro/models/lm.py``), for the dense, MoE, SSM, hybrid
-and VLM archs (whisper's enc-dec is ``models/encdec.py``).
+"""Decoder-only LM, plus the VLM variant: init / train / prefill /
+decode (counterpart of ``repro/models/lm.py``), for the dense, MoE, SSM,
+hybrid and VLM archs (whisper's enc-dec is ``models/encdec.py``).
 
 * ``init_params(cfg, gen, dtype)``                  — on ``gen``'s device
+* ``loss_fn(cfg, params, batch, policy)``           — train objective
 * ``prefill(cfg, params, batch, cache_len=...)``    — logits + caches
 * ``decode_step(cfg, params, tokens, state)``       — one-token serve
 
-``loss_fn`` waits for the training path (ROADMAP queue 1 item 18 part
-6).
+``policy`` is a ``sharding.policy.Policy`` or None everywhere, as in the
+reference; training passes one, so its attention takes the plain paths
+(the flash kernel has no backward).
 """
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import blocks as blk
-from repro_torch.models.attention import no_policy
-from repro_torch.models.common import embed_init, rms_norm, softcap
+from repro_torch.models.common import (chunked_softmax_xent, embed_init,
+                                       matmul, rms_norm, softcap)
 from repro_torch.models.ssm import SSMState, init_ssm_state
 from repro_torch.serve.kvcache import (from_prefill, init_cache,
                                        init_quant_cache, split_rows)
@@ -58,7 +60,7 @@ def head_weights(cfg, params):
     return params["head"]
 
 
-def embed_inputs(cfg, params, batch):
+def embed_inputs(cfg, params, batch, policy=None):
     """tokens (B,S) [+ patch_embeds (B,P,VIT)] -> hidden (B,S,D).
 
     For the VLM, the first P positions of the sequence are image
@@ -67,25 +69,61 @@ def embed_inputs(cfg, params, batch):
     emb = params["embedding"]
     x = emb[batch["tokens"].long()]
     if cfg.frontend == "vit_stub" and "patch_embeds" in batch:
-        patches = torch.matmul(batch["patch_embeds"],
-                               params["patch_proj"]).to(x.dtype)
+        patches = matmul(batch["patch_embeds"],
+                         params["patch_proj"]).to(x.dtype)
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if policy is not None:
+        x = policy.constrain(x, policy.act_hidden())
     return x
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg, params, batch, policy=None, *, remat: bool = True,
+            remat_policy=None, loss_chunk: int = 512,
+            aux_weight: float = 0.01):
+    """Causal-LM loss. batch: tokens (B,S), labels (B,S) (-1 = pad).
+    Returns (loss, metrics); with ``cfg.moe`` the loss adds
+    ``aux_weight`` times the load-balancing loss."""
+    x = embed_inputs(cfg, params, batch, policy)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    x, aux = blk.stack_forward(cfg, params["blocks"], x, positions, policy,
+                               params.get("shared"), remat=remat,
+                               remat_policy=remat_policy)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
+    constrain = ((lambda t: policy.constrain(
+        t, policy.act_logits(cfg.vocab_size))) if policy is not None
+        else None)
+    loss_sum, count = chunked_softmax_xent(
+        x, head_weights(cfg, params), batch["labels"], chunk=loss_chunk,
+        constrain=constrain, final_cap=cfg.final_softcap)
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    metrics = {"loss": loss, "tokens": count, "aux_loss": aux}
+    if cfg.moe is not None:
+        loss = loss + aux_weight * aux
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
 # Serve: prefill + decode
 # ---------------------------------------------------------------------------
 
-def _logits_last(cfg, params, x):
+def _logits_last(cfg, params, x, policy=None):
     """Final-position logits only (B,1,V), in float32."""
     h = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps,
                  plus_one=True)
     logits = torch.matmul(h.float(), head_weights(cfg, params).float())
-    return softcap(logits, cfg.final_softcap)
+    logits = softcap(logits, cfg.final_softcap)
+    if policy is not None:
+        logits = policy.constrain(logits, policy.act_logits(cfg.vocab_size))
+    return logits
 
 
 def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
@@ -96,13 +134,13 @@ def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
     are rolled/padded to ``cache_len`` slots. As in the reference, the
     final norm is applied to the whole sequence and once more to the
     last position in ``_logits_last``."""
-    no_policy(policy)
-    x = embed_inputs(cfg, params, batch)
+    x = embed_inputs(cfg, params, batch, policy)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     x, raw, raw_states = blk.stack_prefill(cfg, params["blocks"], x,
-                                           positions, params.get("shared"))
+                                           positions, policy,
+                                           params.get("shared"))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
     states = {key: SSMState(*(torch.stack([s[key][f] for s in raw_states])
                               for f in range(len(SSMState._fields))))
@@ -119,7 +157,7 @@ def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
             del c[key]           # free the per-layer K/V as they stack
         window = cfg.window if kind == "swa" and cfg.window else 0
         caches[key] = from_prefill(k, v, window=window, pad_to=cache_len)
-    logits = _logits_last(cfg, params, x)
+    logits = _logits_last(cfg, params, x, policy)
     return logits, {"caches": caches, "ssm": states, "pos": S}
 
 
@@ -129,8 +167,8 @@ def init_decode_state(cfg, batch: int, cache_len: int,
     """Fresh (empty) decode state, on ``device``.
 
     ``cache_impl``: "dense" (``dtype`` K/V) or "int8" (quantized
-    storage, half the bytes of bf16 and a quarter of float32)."""
-    no_policy(policy)
+    storage, half the bytes of bf16 and a quarter of float32). ``policy``
+    is accepted as in the reference, which does not read it here."""
     if cache_impl not in ("dense", "int8"):
         raise ValueError(f"cache_impl {cache_impl!r}: dense or int8")
     G = blk.n_groups(cfg)
@@ -161,11 +199,10 @@ def init_decode_state(cfg, batch: int, cache_len: int,
 def decode_step(cfg, params, tokens, state, policy=None):
     """tokens (B,1) integer; state from prefill/init_decode_state, whose
     caches and SSM states are updated in place. Returns (logits (B,1,V), new state)."""
-    no_policy(policy)
-    x = embed_inputs(cfg, params, {"tokens": tokens})
+    x = embed_inputs(cfg, params, {"tokens": tokens}, policy)
     cur_pos = state["pos"]
     x = blk.stack_decode(cfg, params["blocks"], x, state["caches"],
-                         state["ssm"], cur_pos, params.get("shared"))
-    logits = _logits_last(cfg, params, x)
+                         state["ssm"], cur_pos, policy, params.get("shared"))
+    logits = _logits_last(cfg, params, x, policy)
     return logits, {"caches": state["caches"], "ssm": state["ssm"],
                     "pos": cur_pos + 1}

@@ -16,8 +16,13 @@ def init_mlp_params(cfg, gen, dtype, d_ff=None):
     return p
 
 
-def mlp(cfg, p, x):
+def mlp(cfg, p, x, policy=None):
     act = activation(cfg.act)
     up = x @ p["w_up"]
     h = act(x @ p["w_gate"]) * up if "w_gate" in p else act(up)
-    return h @ p["w_down"]
+    if policy is not None:
+        h = policy.constrain(h, policy.act_mlp())
+    out = h @ p["w_down"]
+    if policy is not None:
+        out = policy.constrain(out, policy.act_hidden())
+    return out

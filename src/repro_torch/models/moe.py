@@ -5,8 +5,9 @@ Tokens sort by assigned expert, land in a static (E, C, D) capacity
 buffer (C = T·k/E·capacity_factor, rounded up to 128), the expert MLPs
 run as one batched matmul over the expert dim, and results gather back
 with the router's combine weights. Overflow drops, as in the reference.
-With no sharding policy there is one dispatch group (the reference's G
-is the data-parallel size).
+The reference splits the tokens into G = the policy's data-parallel
+size dispatch groups; the port executes on a one-rank mesh, where G is
+1 with a policy or without, and constrains where the reference does.
 
 Where the reference's XLA ops and PyTorch's differ, the port pins the
 reference's semantics: the sort by expert is stable (``jnp.argsort``
@@ -19,7 +20,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import no_policy
 from repro_torch.models.common import activation, dense_init
 
 
@@ -93,7 +93,6 @@ def _group_combine(out_buf, meta, T: int, K: int):
 
 def moe_mlp(cfg, p, x, policy=None):
     """x (B,S,D) -> (B,S,D), plus the load-balancing auxiliary loss."""
-    no_policy(policy)
     B, S, D = x.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     T = B * S
@@ -101,6 +100,8 @@ def moe_mlp(cfg, p, x, policy=None):
     act = activation(cfg.act)
 
     xt = x.reshape(T, D)
+    if policy is not None:     # the reference's (G, Tg, D) at G = 1
+        xt = policy.constrain(xt[None], (policy.batch(), None, None))[0]
     logits = xt.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)                      # (T, E)
     gate_vals, expert_ids = top_k(probs, K)                    # (T, K)
@@ -112,7 +113,14 @@ def moe_mlp(cfg, p, x, policy=None):
     aux_loss = E * torch.sum(density * probs.mean(dim=0))
 
     buf, meta = _group_dispatch(xt, expert_ids, gate_vals, C, E)
+    if policy is not None:
+        spec = (policy.batch(), policy.ep_axis, None, None)
+        buf = policy.constrain(buf[None], spec)[0]
     h = act(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
     out_buf = torch.bmm(h, p["moe_down"])
+    if policy is not None:
+        out_buf = policy.constrain(out_buf[None], spec)[0]
     out = _group_combine(out_buf, meta, T, K)
+    if policy is not None:
+        out = policy.constrain(out[None], (policy.batch(), None, None))[0]
     return out.reshape(B, S, D).to(x.dtype), aux_loss

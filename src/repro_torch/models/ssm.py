@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import _proj, no_policy
+from repro_torch.models.attention import _proj
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -166,8 +166,10 @@ def _gate_out(cfg, p, y, xh, z, x_dtype):
 def ssm_mixer(cfg, p, x, policy=None, *, want_state: bool = False):
     """Full-sequence Mamba2 mixer. x (B,S,D) -> (B,S,D) [, final
     SSMState]."""
-    no_policy(policy)
     z, xh, Bm, Cm, dt, A, tails = _inputs(cfg, p, x)
+    if policy is not None:
+        xh = policy.constrain(xh, policy.act_heads())
+        z = policy.constrain(z, policy.act_heads())
     S = xh.shape[1]
     Q = min(cfg.ssm.chunk, S)
     pad = (-S) % Q
@@ -181,6 +183,8 @@ def ssm_mixer(cfg, p, x, policy=None, *, want_state: bool = False):
     if pad:
         y = y[:, :S]
     out = _gate_out(cfg, p, y, xh, z, x.dtype)
+    if policy is not None:
+        out = policy.constrain(out, policy.act_hidden())
     if want_state:
         return out, SSMState(h_last, *tails)
     return out
@@ -199,8 +203,9 @@ def init_ssm_state(cfg, batch: int, dtype=torch.float32, *,
 
 
 def ssm_decode_step(cfg, p, x, state: SSMState, policy=None):
-    """Single-token recurrence. x (B,1,D) -> (B,1,D), new state."""
-    no_policy(policy)
+    """Single-token recurrence. x (B,1,D) -> (B,1,D), new state (the
+    reference constrains nothing here; ``policy`` is accepted as it is
+    there)."""
     di, H, Pd, G, N, K = dims(cfg)
     hg = H // G
     z, xh, Bm, Cm, dt, A, tails = _inputs(cfg, p, x, state)

@@ -500,6 +500,78 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):
         flash_attention.flash_attention(q, k, v, block_q=0)
 
 
+def test_flash_wrapper_raises_under_grad(gen):
+    """The kernel has no backward: a call that autograd would record
+    raises instead of returning an output with no gradient; under
+    no_grad, or on tensors that need none, it runs."""
+    q, k, v = _qkv(gen, 1, 128, 4, 2, 64)
+    out = flash_attention.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        assert torch.equal(flash_attention.flash_attention(q, k, v), out)
+
+
+def test_loss_under_a_policy_trains_attention_on_the_card(gen):
+    """The training path on CUDA: under a one-rank policy attention takes
+    the plain paths (no flash launch), and wq, wk and wv get nonzero
+    gradients equal to the CPU run's."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding.policy import make_policy
+    from repro_torch.tree_util import tree_leaves_with_path, tree_unflatten
+    cfg = registry.get_reduced("qwen3-4b")
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    grads = {}
+    for device in ("cuda", "cpu"):
+        moved = [(path, t.detach().to(device).requires_grad_())
+                 for path, t in tree_leaves_with_path(params)]
+        p = tree_unflatten(params, [t for _, t in moved])
+        pol = make_policy(make_host_mesh(device=device), global_batch=2)
+        before = flash_attention.flash_attention.launches
+        loss, _ = lm.loss_fn(cfg, p, {k: v.to(device)
+                                      for k, v in batch.items()}, pol,
+                             loss_chunk=16)
+        g = torch.autograd.grad(loss, [t for _, t in moved])
+        assert flash_attention.flash_attention.launches == before
+        grads[device] = {path: t for (path, _), t in zip(moved, g)}
+    for path, g in grads["cuda"].items():
+        if path.endswith(("['wq']", "['wk']", "['wv']")):
+            assert float(g.abs().max()) > 0, path
+        want = grads["cpu"][path]
+        scale = max(float(want.abs().max()), 1e-30)
+        assert float((g.cpu() - want).abs().max()) <= 1e-4 * scale, path
+
+
+def test_sharded_loader_places_pinned_batches_on_the_card(gen):
+    """The loader's CUDA branch: batches copied from pinned memory on the
+    worker's stream, ready for the consumer's stream, equal to the
+    stream's numpy batches, in step order."""
+    import numpy as np
+    from repro_torch.data import synthetic
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.policy import make_policy
+    pol = make_policy(make_host_mesh(device="cuda"), global_batch=4)
+    kw = dict(global_batch=4, seq_len=64, vocab=1000, seed=2)
+    loader = ShardedLoader(lambda s: synthetic.batch_at(s, **kw), pol,
+                           start_step=3, prefetch=2)
+    try:
+        for want in range(3, 8):
+            step, batch = next(loader)
+            assert step == want
+            for k, v in synthetic.batch_at(step, **kw).items():
+                assert batch[k].is_cuda
+                np.testing.assert_array_equal(batch[k].cpu().numpy(), v)
+    finally:
+        loader.close()
+
+
 # ---------------------------------------------------------------------------
 # The planner's real (r2c/c2r) plans, wires, tables and measured sweep
 # ---------------------------------------------------------------------------

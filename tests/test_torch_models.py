@@ -161,9 +161,22 @@ def test_attention_entry_point_matches_reference(arch, kind, S):
     want = jattn.attention(*map(jnp.asarray, (q, k, v)), kind=kind,
                            cfg=jcfg)
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="policy"):
-        attention.attention(*map(torch.from_numpy, (q, k, v)), kind=kind,
-                            cfg=cfg, policy=object())
+    # under a one-device policy (the training path) the reference's
+    # attention(..., policy=...) result, and no flash launch
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro.sharding.policy import make_policy as jmake_policy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.policy import make_policy
+    launches = flash_attention.launches
+    got = attention.attention(
+        *map(torch.from_numpy, (q, k, v)), kind=kind, cfg=cfg,
+        policy=make_policy(make_host_mesh(device="cpu"), global_batch=2))
+    want = jattn.attention(
+        *map(jnp.asarray, (q, k, v)), kind=kind, cfg=jcfg,
+        policy=jmake_policy(jmake_host_mesh((1, 1)), global_batch=2))
+    _close(got, want)
+    assert flash_attention.launches == launches
 
 
 def _leaves(tree):
@@ -221,7 +234,7 @@ def _forward_next_logits(cfg, params, tokens):
     x = lm.embed_inputs(cfg, params, {"tokens": tokens})
     B, S = tokens.shape
     h, _ = blocks.stack_forward(cfg, params["blocks"], x,
-                                torch.arange(S).expand(B, S),
+                                torch.arange(S).expand(B, S), None,
                                 params.get("shared"))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps, plus_one=True)
     return softcap(h[:, -1].float() @ lm.head_weights(cfg, params).float(),
