@@ -41,7 +41,10 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
     ``train/step.make_train_step`` under a one-rank sharding policy (no
     hand-written kernel runs there, as no Pallas kernel runs in the
     reference's), the 100m example, and ``launch/train.py``'s restart
-    and transit runs.
+    and transit runs;
+  * the LM substrate across ranks (phase 13): qwen3-4b served and
+    trained on a (2, 2) mesh of four ranks sharing the card, dbrx's MoE
+    layer with two dispatch groups.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -137,7 +140,7 @@ Phases, each printing one JSON line:
      before and after ``plan_cache_clear()``, which must free the tables;
   7. pipelined_and_engine — the pipelined Fig. 2 chain with the writer
      (``mode: "pipelined"``, depth 2) at complex 8192² and 10000² and
-     real 8192²: 8 fields after a warm-up, each bit-identical to the
+     real 8192²: 3 fields after a warm-up, each bit-identical to the
      insitu chain's on the same field and within 1e-4 of the float64
      oracle (mse1/mse0 < 0.5), the files in step order, the launches a
      field equal to an insitu step's, per-field wall ms and what the
@@ -146,7 +149,7 @@ Phases, each printing one JSON line:
      memory; a steady-state ``execute`` queued behind a 50 ms spin kernel
      must return while the spin still runs (the producer never waits on
      the device). The four ranks (4b) also run the chain pipelined on the
-     (4,) slab at 8192², 4 fields against depth 2, each bit-identical to
+     (4,) slab at 8192², 3 fields against depth 2, each bit-identical to
      insitu, the files on rank 0 in step order. The FFT serving engine
      on a CUDA host mesh: 96 requests from 4 client threads over
      (2048, 2048), (1000, 1000) and (128, 4096), each cycling c2c fft,
@@ -163,7 +166,7 @@ Phases, each printing one JSON line:
      the REPRO_* env contract (``init_cluster``: gloo, the ranks share
      cuda:0), ``make_transit_meshes(2, 2)``: the producers make seeded
      radiating-source fields at 8192^2 on their (2,) mesh, 2 go by
-     ``TransitBridge.send`` and 4 by ``send_async`` (depth 2), and the
+     ``TransitBridge.send`` and 3 by ``send_async`` (depth 2), and the
      consumers run the Fig. 2 chain (keep_frac 0.05, insitu) on their
      (2,) slab with the writer on the consumer mesh's first rank. Every
      delivered block bit-identical (sha256) to the producer's block at
@@ -232,10 +235,10 @@ Phases, each printing one JSON line:
      ``reduced``; 45.8 and 31.0 GB of weights), batch 2, a 2048-token
      prompt, 8 greedy tokens through ``lm.prefill``/``decode_step``;
      mamba2-1.3b (48 layers) and zamba2-2.7b (54) through ``serve.main``,
-     batch 4, 2048 + 32; whisper-medium (24 + 24) on seeded frames (4,
-     1500, 1024) and a 64-token decoder prompt, 32 tokens through
+     batch 4, 2048 + 16; whisper-medium (24 + 24) on seeded frames (4,
+     1500, 1024) and a 64-token decoder prompt, 16 tokens through
      ``encdec.prefill``/``decode_step``; internvl2-2b (24) on 256 seeded
-     patch embeddings and 1792 text tokens, 32 tokens. Each line: prefill
+     patch embeddings and 1792 text tokens, 16 tokens. Each line: prefill
      ms and decode ms/token (host clock to ``synchronize()``), peak
      ``max_memory_allocated``, launches by kernel (flash a prefill: 2, 2,
      0, 9 at head_dim 80, 72 = 24 encoder + 24 self + 24 cross, 24); the
@@ -272,15 +275,34 @@ Phases, each printing one JSON line:
      processes run (its threads, CPU seconds and load average beside the
      step time). ``train_procs``: six
      processes at once (``--job train_procs``):
-     ``launch/train.py`` at 100m for 40 steps straight and with
-     ``--fail-at 15 30 --ckpt-every 10``, with deterministic algorithms
+     ``launch/train.py`` at 100m for 30 steps straight and with
+     ``--fail-at 12 24 --ckpt-every 10``, with deterministic algorithms
      (bit-identical final checkpoints, held) and without (reported), and
      ``--transit-consumers 1 --transit-async`` on two ranks (spectra on
      the consumer only; both ranks' timelines: where each hop's time
      goes, and the producer's own overlap);
+  13. lm_ranks — the LM substrate across ranks: four ranks on the card
+     (``--job lm_ranks``, gloo over CUDA tensors) on the (2, 2)
+     ``("data", "model")`` mesh under ``make_policy`` (TP over model,
+     FSDP and DP over data). qwen3-4b at full width, 4 of 36 layers:
+     served in float32 (batch 4 x 512, 8 greedy tokens; the gathered
+     prefill logits and the teacher-forced decode logits within 1e-4 of
+     max |logit| of the same seeded model on one rank, the tokens
+     equal), trained 3 steps at bf16 (batch 8 x 512, ``ShardedLoader``);
+     the float32 check at 2 layers (batch 2 x 64, 4 loss chunks: the
+     loss within 1e-5, every gathered gradient leaf within 1e-4, against
+     one rank) with its parameters saved from (2, 2) and restored on one
+     rank (equal sha256s); dbrx's MoE layer at full width, experts over
+     the model axis, G = 2 dispatch groups, within 1e-4 of the one-rank
+     layer with groups=2 at a capacity where G = 1 lands far from it.
+     Times (prefill ms, decode ms a token, train ms a step, each the
+     median), the bytes each kind of collective moved, and each rank's
+     peak memory, beside the card's name and power limit; no kernel
+     launches on this path (under a policy, no flash);
 then one ``{"kernels": [...]}`` line (the flash kernel's row at the
 qwen3-4b shape, and a row at each of phase 11's two shapes; every row
-carries its phase-12 launches, ``train_launches``). The last line is ``{"ok": true,
+carries its phase-12 launches, ``train_launches``, and its phase-13
+ones, ``lm_ranks_launches``). The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
 anything.
@@ -432,7 +454,7 @@ RANK_MEASURE = (256, 256, 256)
 # producer's steady-state execute must not wait behind
 PIPE_CHAINS = (((8192, 8192), False), ((8192, 8192), True),
                ((10000, 10000), False))
-PIPE_FIELDS = 8
+PIPE_FIELDS = 3                   # still past the queue's depth
 PIPE_DEPTH = 2
 PIPE_SPIN_S = 0.05
 # threads making the fields (numpy releases the GIL in its array work;
@@ -442,7 +464,7 @@ PIPE_PRODUCERS = 4
 # row and 4 column passes, one bandpass
 PIPE_8192_LAUNCHES = {"fft_fourstep": 6, "bandpass_filter": 1}
 # the pipelined chain on four ranks: the (4,) slab at RANK_CHAIN_DIMS
-RANK_PIPE_FIELDS = 4
+RANK_PIPE_FIELDS = 3              # still past the queue's depth
 # the FFT serving engine's trace (the reference's bench_serve_fft shape,
 # benchmarks/run.py): ENGINE_REQUESTS requests from ENGINE_CLIENTS client
 # threads, request k on shape k % 3 and op (k // 3) % 3
@@ -475,7 +497,7 @@ TRANSIT_WORLD = 4
 TRANSIT_SPLIT = (2, 2)
 TRANSIT_DIMS = (8192, 8192)
 TRANSIT_SYNC_FIELDS = 2
-TRANSIT_ASYNC_FIELDS = 4
+TRANSIT_ASYNC_FIELDS = 3          # one past the queue's depth
 TRANSIT_DEPTH = 2
 # the transit serve: phase 5's serve on two ranks, rank 1 the consumer
 TRANSIT_SERVE_WORLD = 2
@@ -1457,13 +1479,17 @@ def spawn_ranks(job, world, out_dir, env=None, timeout=RANK_TIMEOUT_S):
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    results = []
+    results, failed = [], []
     for r, (p, (so, se)) in enumerate(zip(procs, outs)):
         lines = [ln for ln in so.splitlines() if ln.startswith("{")]
-        if p.returncode or not lines:
-            print(so[-4000:] + se[-4000:], file=sys.stderr)
-            raise AssertionError(f"{job} rank {r} exited {p.returncode}")
-        results.append(json.loads(lines[-1]))
+        if p.returncode or not lines:      # every failed rank's tail
+            print(f"--- {job} rank {r} exited {p.returncode}\n"
+                  + so[-4000:] + se[-4000:], file=sys.stderr)
+            failed.append(r)
+        else:
+            results.append(json.loads(lines[-1]))
+    if failed:
+        raise AssertionError(f"{job} ranks {failed} failed")
     return results, wall
 
 
@@ -3655,13 +3681,14 @@ def solver_phase(counters, gen):
 # and dbrx keep 2 of their layers (45.8 and 31.0 GB of weights; the full
 # depths, 1.26 TB and 528 GB, do not fit one card): batch 2, a 2048-token
 # prompt, 8 greedy tokens. mamba2 and zamba2 run serve.main at full depth
-# (batch 4, 2048 + 32); whisper takes seeded frames (4, 1500, 1024) and a
+# (batch 4, 2048 + 16); whisper takes seeded frames (4, 1500, 1024) and a
 # 64-token decoder prompt; internvl2 256 seeded patch embeddings and 1792
-# text tokens (batch 4), both decoding 32 tokens
+# text tokens (batch 4), both decoding 16 tokens (32 until phase 13 needed
+# the time)
 MOE_FAMILIES = ("grok-1-314b", "dbrx-132b")
 MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_TOKENS = 2, 2, 2048, 8
 SSM_FAMILIES = ("mamba2-1.3b", "zamba2-2.7b")
-FAMILY_BATCH, FAMILY_PROMPT, FAMILY_TOKENS = 4, 2048, 32
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_TOKENS = 4, 2048, 16
 WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64
 # teacher-forced bars, max |difference| over max |logit|: phase 5's for
 # whisper and internvl2; for mamba2 and zamba2 the reference's SSM bar
@@ -4262,8 +4289,8 @@ TRAIN_CHECK_CHUNK = 16          # 4 loss chunks: the chunked, recomputed path
 # its loss first rises and falls below the start only after ~90 steps
 # (an H100 read 10.53 -> 8.42 in 200)
 TRAIN_100M_STEPS = 200
-TRAIN_RESTART_STEPS = 40
-TRAIN_RESTART_FAILS = ("15", "30")
+TRAIN_RESTART_STEPS = 30
+TRAIN_RESTART_FAILS = ("12", "24")
 TRAIN_RESTART_CKPT_EVERY = 10
 TRAIN_TRANSIT_STEPS = 10
 TRAIN_TRANSIT_INSITU_EVERY = 5
@@ -4741,6 +4768,446 @@ def train_phase(counters):
             "100m": hundred, "procs": procs}
 
 
+# phase 13, the LM substrate across ranks: LM_RANKS_WORLD ranks on the
+# card (gloo over CUDA tensors, every rank on cuda:0) on the (2, 2)
+# ("data", "model") mesh, under make_policy as the reference's serve and
+# train build it (TP over model, FSDP and DP over data). Serve: qwen3-4b
+# at full width, depth cut to LM_RANKS_LAYERS of 36 for the card's time,
+# float32, batch LM_RANKS_BATCH x LM_RANKS_PROMPT + LM_RANKS_TOKENS greedy
+# tokens; held against the same seeded model on one rank of the card
+# under a one-rank policy (the same route: no flash under a policy),
+# computed by rank 0 while the others wait. Train: LM_RANKS_TRAIN_STEPS
+# steps at bf16 compute, batch 8 x 512, through make_train_step and
+# ShardedLoader; the float32 check at TRAIN_CHECK_LAYERS layers (batch
+# LM_RANKS_CHECK_BATCH x TRAIN_CHECK_SEQ, 4 loss chunks) against the same
+# step on one rank; that check's parameters saved from (2, 2) and
+# restored on one rank. MoE: dbrx's layer at full width, expert-parallel
+# (ep_mode), batch 4 x 256, float32, G = 2 dispatch groups, against the
+# one-rank layer with groups=2, at a capacity factor where G = 2 and
+# G = 1 differ
+LM_RANKS_WORLD = 4
+LM_RANKS_LAYERS = 4
+LM_RANKS_BATCH, LM_RANKS_PROMPT, LM_RANKS_TOKENS = 4, 512, 8
+LM_RANKS_PREFILL_REPS = 3
+LM_RANKS_TRAIN_BATCH, LM_RANKS_TRAIN_SEQ = 8, 512
+LM_RANKS_TRAIN_STEPS = 3
+LM_RANKS_CHECK_BATCH = 2
+LM_RANKS_TOL = 1e-4
+LM_RANKS_LOSS_TOL = 1e-5
+LM_RANKS_MOE_ARCH = "dbrx-132b"
+LM_RANKS_MOE_BATCH, LM_RANKS_MOE_SEQ = 4, 256
+# 1024 tokens, 4 picks each over 16 experts: 128 picks an expert on
+# average in each of the 2 groups, 256 in the one group of G = 1, and 128
+# slots either way at this factor, so the two drop different tokens
+LM_RANKS_MOE_CF = 0.5
+LM_RANKS_TIMEOUT_S = 600
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) \
+        / max(float(want.double().abs().max()), 1e-30)
+
+
+def _rank_rows(pol, t):
+    """This rank's rows of a global (B, ...) tensor."""
+    return pol.named(pol.act_rows(t.dim()))(t)
+
+
+def _lm_serve_ranks(rank, mesh, one, counters):
+    """Phase 13's serve on the (2, 2) mesh, then (rank 0) the one-rank
+    run of the same seeded model; returns the serve's numbers."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.policy import make_policy
+    cfg = dataclasses.replace(registry.get_config(SERVE_ARCH),
+                              num_layers=LM_RANKS_LAYERS)
+    B, S, T = LM_RANKS_BATCH, LM_RANKS_PROMPT, LM_RANKS_TOKENS
+    pol = make_policy(mesh, global_batch=B)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_params(cfg, gen, torch.float32, policy=pol)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda")
+
+    def whole(logits):
+        return pol.gather(logits, pol.act_logits(cfg.vocab_size))
+
+    zero_counts(counters)
+    collectives.reset_bytes()
+    prefill_ms = []
+    with torch.no_grad():
+        for _ in range(LM_RANKS_PREFILL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = lm.prefill(cfg, params,
+                                       {"tokens": _rank_rows(pol, prompts)},
+                                       pol, cache_len=S + T)
+            logits = whole(logits)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        prefill_bytes = {k: v // LM_RANKS_PREFILL_REPS
+                         for k, v in collectives.BYTES.items()}
+        collectives.reset_bytes()
+        first = logits
+        tok = logits[:, -1].argmax(-1)[:, None]
+        toks, steps, decode_ms = [tok], [], []
+        for _ in range(T):
+            t0 = time.perf_counter()
+            logits, state = lm.decode_step(cfg, params, _rank_rows(pol, tok),
+                                           state, pol)
+            logits = whole(logits)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits)
+            toks.append(tok)
+        decode_bytes = {k: v // T for k, v in collectives.BYTES.items()}
+    launches = launch_counts(counters)
+    del params, state
+    torch.cuda.empty_cache()
+    res = {"prefill_ms": statistics.median(prefill_ms),
+           "prefill_ms_runs": prefill_ms,
+           "decode_ms_per_token": statistics.median(decode_ms),
+           "decode_ms_runs": decode_ms,
+           "prefill_collective_bytes": prefill_bytes,
+           "decode_collective_bytes_per_token": decode_bytes,
+           "launches": launches,
+           "tokens": torch.cat(toks[:T], dim=1)[0].tolist()}
+    dist.barrier()
+    if rank == 0:
+        # the same seeded model whole, on one rank, under a one-rank
+        # policy; teacher-forced on the ranks' tokens
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        full = lm.init_params(cfg, gen, torch.float32)
+        pol1 = make_policy(one, global_batch=B)
+        with torch.no_grad():
+            want, st = lm.prefill(cfg, full, {"tokens": prompts}, pol1,
+                                  cache_len=S + T)
+            errs, same = [], []
+            for i in range(T):
+                w, st = lm.decode_step(cfg, full, toks[i], st, pol1)
+                errs.append(_rel(steps[i], w))
+                same.append(bool(torch.equal(w[:, -1].argmax(-1)[:, None],
+                                             toks[i + 1])))
+        res.update({"prefill_rel_err": _rel(first, want),
+                    "teacher_forced_rel_err": max(errs),
+                    "tokens_equal": all(same),
+                    "first_token_equal": bool(torch.equal(
+                        want[:, -1].argmax(-1)[:, None], toks[0]))})
+        del full, st
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _lm_train_ranks(rank, mesh, counters):
+    """Phase 13's training steps on the (2, 2) mesh through ShardedLoader;
+    each step timed to its loss's ``float()``, the bytes each kind of
+    collective moved in it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.policy import make_policy
+    from repro_torch.train import step as train_step
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                              num_layers=LM_RANKS_LAYERS)
+    B, S = LM_RANKS_TRAIN_BATCH, LM_RANKS_TRAIN_SEQ
+    pol = make_policy(mesh, global_batch=B)
+    opt = AdamW(warmup_cosine(TRAIN_LR, 1, LM_RANKS_TRAIN_STEPS))
+    step_fn = train_step.make_train_step(cfg, pol, opt, loss_chunk=S)
+    state = train_step.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0),
+        max_target=S, policy=pol)
+    loader = ShardedLoader(lambda s: synthetic.batch_at(
+        s, global_batch=B, seq_len=S, vocab=cfg.vocab_size, seed=0), pol)
+    zero_counts(counters)
+    losses, gnorms, ms, nbytes = [], [], [], []
+    try:
+        for _ in range(LM_RANKS_TRAIN_STEPS):
+            collectives.reset_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, batch = next(loader)
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(m["grad_norm"]))
+            nbytes.append(dict(collectives.BYTES))
+    finally:
+        loader.close()
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    launches = launch_counts(counters)
+    del state
+    torch.cuda.empty_cache()
+    return {"ms_per_step": statistics.median(ms), "step_ms": ms,
+            "loss": losses, "grad_norm": gnorms,
+            "collective_bytes_per_step": nbytes[-1], "launches": launches}
+
+
+def _lm_check_ranks(rank, mesh, one, out_dir):
+    """The float32 check's parameters saved from (2, 2) and restored on
+    one rank (rank 0) against their checksums; then the float32 step on
+    (2, 2) against the same step on one rank, every gradient leaf
+    gathered."""
+    import dataclasses
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding.policy import make_policy, spec_leaves
+    from repro_torch.train import step as train_step
+    from repro_torch.tree_util import tree_leaves
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_CHECK_LAYERS)
+    B = LM_RANKS_CHECK_BATCH
+    opt = AdamW(warmup_cosine(TRAIN_LR, 1, 10))
+    batch = synthetic.batch_at(0, global_batch=B, seq_len=TRAIN_CHECK_SEQ,
+                               vocab=cfg.vocab_size, seed=1)
+    shapes = train_step.train_state_shapes(cfg, opt)["params"]
+
+    def step(pol, params):
+        captured = {}
+
+        def hook(payload):
+            captured["grads"] = payload["grads"]
+            return {}
+        fn = train_step.make_train_step(
+            cfg, pol, opt, loss_chunk=TRAIN_CHECK_CHUNK,
+            compute_dtype=torch.float32, insitu_chain=hook)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        rows = {k: _rank_rows(pol, torch.from_numpy(v).cuda())
+                for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, m = fn(state, rows)
+        loss = float(m["loss"])
+        return loss, captured["grads"], time.perf_counter() - t0
+
+    pol = make_policy(mesh, global_batch=B)
+    pol1 = make_policy(one, global_batch=B)
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(1), torch.float32, policy=pol)
+    # saved from (2, 2): every rank gathers, rank 0 writes
+    t0 = time.perf_counter()
+    ckpt_dir = out_dir / "lm_ranks_ckpt"
+    ckpt.save(ckpt_dir, 0, {"params": params},
+              gather={"params": pol.tree_gathers(shapes)}, mesh=mesh)
+    res = {"ckpt_save_s": time.perf_counter() - t0}
+    full = None
+    if rank == 0:
+        full = lm.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(1), torch.float32)
+        manifest = json.loads((ckpt_dir / "step_00000000" / "manifest.json")
+                              .read_text())
+        host = [t.cpu().numpy() for t in tree_leaves({"params": full})]
+        shas = [hashlib.sha256(a.tobytes()).hexdigest()[:16] for a in host]
+        t0 = time.perf_counter()
+        back = ckpt.restore(ckpt_dir, 0, {"params": shapes}, place={
+            "params": pol1.tree_shardings(shapes)})
+        res.update({
+            "ckpt_leaves": len(shas),
+            "ckpt_bytes": int(sum(a.nbytes for a in host)),
+            "ckpt_sha256_equal": [x["sha256"] for x in manifest["leaves"]]
+            == shas,
+            "ckpt_restored_equal": all(
+                bool(torch.equal(t, w)) for t, w in
+                zip(tree_leaves(back), tree_leaves({"params": full}))),
+            "ckpt_restore_s": time.perf_counter() - t0})
+        del back, host
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dist.barrier()
+    loss, grads, ranks_s = step(pol, params)
+    del params
+    res.update({"loss_ranks": loss, "ranks_step_s": ranks_s})
+    want = None
+    if rank == 0:
+        wloss, wgrads, one_s = step(pol1, full)
+        want = tree_leaves(wgrads)
+        del full
+        res.update({"loss_one_rank": wloss, "one_rank_step_s": one_s,
+                    "loss_rel_err": abs(loss - wloss) / abs(wloss)})
+    dist.barrier()
+    errs = []
+    for i, (g, spec) in enumerate(zip(tree_leaves(grads),
+                                      spec_leaves(pol.tree_specs(shapes)))):
+        g = pol.gather(g, spec)
+        if rank == 0:
+            errs.append(_rel(g, want[i]))
+    del grads, want
+    if rank == 0:
+        res.update({"grad_leaves": len(errs),
+                    "max_grad_rel_err": max(errs)})
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _lm_moe_ranks(rank, mesh):
+    """dbrx's MoE layer at full width on (2, 2), experts over the model
+    axis, G = 2; rank 0 holds it against the one-rank layer with
+    groups=2, and reports how far G = 1 lands from it."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models.common import dense_init
+    from repro_torch.sharding.policy import make_policy, period_specs
+    base = registry.get_config(LM_RANKS_MOE_ARCH)
+    cfg = dataclasses.replace(base, num_layers=1, moe=dataclasses.replace(
+        base.moe, capacity_factor=LM_RANKS_MOE_CF))
+    pol = make_policy(mesh, global_batch=LM_RANKS_MOE_BATCH, ep_mode=True)
+    spec = period_specs(pol, cfg)["l0"]["moe"]
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    leaves = (("router", (d, e), d), ("moe_gate", (e, d, f), d),
+              ("moe_up", (e, d, f), d), ("moe_down", (e, f, d), f))
+
+    def draw(keep):
+        """init_moe_params's draws, one leaf whole at a time, each kept
+        as ``keep`` makes it; then x."""
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        out = {name: keep(name, dense_init(gen, shape, torch.float32,
+                                           fan_in=fan))
+               for name, shape, fan in leaves}
+        return out, torch.randn((LM_RANKS_MOE_BATCH, LM_RANKS_MOE_SEQ, d),
+                                generator=gen, device="cuda")
+    local, x = draw(lambda name, w: pol.named(spec[name])(w))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_mlp(cfg, pol.use_tree(local, spec),
+                             _rank_rows(pol, x), pol)
+        y = pol.gather(y, pol.act_hidden())
+        torch.cuda.synchronize()
+    # one call, its first: the FSDP gathers of the expert weights
+    # (3.2 GB a rank) set its time
+    res = {"first_call_ms": (time.perf_counter() - t0) * 1e3,
+           "aux_ranks": float(aux)}
+    del local
+    dist.barrier()
+    if rank == 0:        # the same draws, whole, once the ranks are done
+        full, _ = draw(lambda name, w: w)
+        with torch.no_grad():
+            y2, aux2 = moe.moe_mlp(cfg, full, x, groups=2)
+            y1, _ = moe.moe_mlp(cfg, full, x)
+        res.update({"rel_err_vs_one_rank_g2": _rel(y, y2),
+                    "aux_rel_err": abs(float(aux) - float(aux2))
+                    / abs(float(aux2)),
+                    "g1_vs_g2_rel": _rel(y1, y2)})
+        del full, y1, y2
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def lm_rank_worker(rank, world, store):
+    """One rank of phase 13 (see LM_RANKS_WORLD above). Rank 0's JSON line
+    carries the checks; every rank's its times, collective bytes, peak
+    memory and launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compat import make_mesh
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    _build.library()                # built by the parent
+    counters = {"fft_fourstep": ops.fft_fourstep,
+                "fft_stockham": ops.fft_stockham,
+                "bandpass_filter": ops.bandpass_filter,
+                "flash_attention": flash_attention}
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda:0")
+    one = make_mesh((1, 1), ("data", "model"), device="cuda:0")
+    out_dir = Path(store).parent
+    t0 = time.perf_counter()
+    res = {"rank": rank, "coordinate": mesh.coordinate}
+    res["serve"] = _lm_serve_ranks(rank, mesh, one, counters)
+    res["train"] = _lm_train_ranks(rank, mesh, counters)
+    res["check"] = _lm_check_ranks(rank, mesh, one, out_dir)
+    res["moe"] = _lm_moe_ranks(rank, mesh)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res["wall_s"] = time.perf_counter() - t0
+    dist.barrier()
+    print(json.dumps(res), flush=True)
+
+
+def lm_ranks_phase(smi):
+    """Phase 13: the LM substrate on LM_RANKS_WORLD ranks sharing the
+    card. Returns the ranks' lines (rank 0 first)."""
+    import torch
+    out_dir = ROOT / "build" / "chip_smoke_lm_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # what the earlier phases left cached goes back to the card first:
+    # the four ranks need ~60 GB of it
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    try:
+        ranks, wall = spawn_ranks("lm_ranks", LM_RANKS_WORLD, out_dir,
+                                  timeout=LM_RANKS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    serve, train, check, moe = (r0[k] for k in ("serve", "train", "check",
+                                                "moe"))
+    line = {
+        "phase": "lm_ranks", "card": smi, "arch": SERVE_ARCH,
+        "mesh": {"data": 2, "model": 2}, "ranks": LM_RANKS_WORLD,
+        "backend": "gloo (CUDA tensors staged through host memory)",
+        "layers": LM_RANKS_LAYERS, "wall_s": wall,
+        "card_free_bytes_before": free, "card_total_bytes": total,
+        "parent_reserved_bytes": torch.cuda.memory_reserved(),
+        "serve": {"batch": LM_RANKS_BATCH, "prompt": LM_RANKS_PROMPT,
+                  "tokens": LM_RANKS_TOKENS, **serve},
+        "train": {"batch": LM_RANKS_TRAIN_BATCH, "seq": LM_RANKS_TRAIN_SEQ,
+                  "compute_dtype": "bfloat16",
+                  "steps": LM_RANKS_TRAIN_STEPS, **train},
+        "check": {"layers": TRAIN_CHECK_LAYERS,
+                  "batch": LM_RANKS_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+                  "loss_chunks": TRAIN_CHECK_SEQ // TRAIN_CHECK_CHUNK,
+                  **check},
+        "moe": {"arch": LM_RANKS_MOE_ARCH, "batch": LM_RANKS_MOE_BATCH,
+                "seq": LM_RANKS_MOE_SEQ, "capacity_factor": LM_RANKS_MOE_CF,
+                "groups": 2, "ep_mode": True, **moe},
+        "by_rank": [{"rank": r["rank"], "coordinate": r["coordinate"],
+                     "peak_memory_bytes": r["peak_memory_bytes"],
+                     "prefill_ms": r["serve"]["prefill_ms"],
+                     "decode_ms_per_token":
+                         r["serve"]["decode_ms_per_token"],
+                     "train_ms_per_step": r["train"]["ms_per_step"],
+                     "train_collective_bytes_per_step":
+                         r["train"]["collective_bytes_per_step"],
+                     "wall_s": r["wall_s"]} for r in ranks],
+        "seconds": time.perf_counter() - t0}
+    emit(line)
+    assert serve["prefill_rel_err"] <= LM_RANKS_TOL, serve
+    assert serve["teacher_forced_rel_err"] <= LM_RANKS_TOL, serve
+    assert serve["tokens_equal"] and serve["first_token_equal"], serve
+    assert check["loss_rel_err"] <= LM_RANKS_LOSS_TOL, check
+    assert check["max_grad_rel_err"] <= LM_RANKS_TOL, check
+    assert check["ckpt_sha256_equal"] and check["ckpt_restored_equal"], check
+    assert moe["rel_err_vs_one_rank_g2"] <= LM_RANKS_TOL, moe
+    assert moe["aux_rel_err"] <= LM_RANKS_LOSS_TOL, moe
+    assert moe["g1_vs_g2_rel"] > 100 * LM_RANKS_TOL, moe
+    for r in ranks:   # no kernel on this path: under a policy, no flash
+        for part in ("serve", "train"):
+            assert all(v == 0 for v in r[part]["launches"].values()), r
+        assert r["serve"]["tokens"] == serve["tokens"], r
+    return ranks
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5080,6 +5547,11 @@ def main() -> int:
     # the 100m example, and launch/train.py's restart and transit runs
     training = train_phase(all_counters)
 
+    # 13. the LM substrate across ranks: qwen3-4b served and trained on
+    # the (2, 2) mesh of four ranks sharing the card, dbrx's MoE layer
+    # with G = 2 dispatch groups
+    lm_ranks = lm_ranks_phase(smi)
+
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
         (producers first) and the transit serve (rank 0 decodes)."""
@@ -5346,6 +5818,14 @@ def main() -> int:
         k["train_launches_from"] = (
             f"{TRAIN_ARCH} training main path ({TRAIN_STEPS} steps, "
             f"{TRAIN_LAYERS} layers): none by design")
+        # phase 13 launches none either: serve and train run under a
+        # policy across ranks, where attention takes the plain paths
+        k["lm_ranks_launches"] = {
+            part: [r[part]["launches"][k["name"]] for r in lm_ranks]
+            for part in ("serve", "train")}
+        k["lm_ranks_launches_from"] = (
+            f"phase 13, by rank: {SERVE_ARCH} served and trained on the "
+            f"(2, 2) mesh ({LM_RANKS_LAYERS} layers): none by design")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -5364,6 +5844,7 @@ if __name__ == "__main__":
                   "elastic": elastic_worker,
                   "elastic_solver": elastic_solver_worker,
                   "train_procs": train_proc_worker,
+                  "lm_ranks": lm_rank_worker,
                   }[args["--job"]]
         try:
             worker(int(args["--rank"]), int(args["--world"]),

@@ -18,6 +18,14 @@ numbered in ``jax.tree_util`` order, dict keys sorted
 ``save`` wrote restores here, and the reverse. Leaves are saved as the
 global arrays the caller hands in: torch tensors are copied to the host;
 a solver gathers its blocks first (``SpectralSolverBase._ckpt_tree``).
+
+Across ranks, ``save(gather=, mesh=)`` takes each rank's blocks: every
+rank of the mesh gathers each leaf whole (``train.step.state_gathers``;
+collective), the mesh's first rank writes the reference's full-array
+files, and the mesh waits for the write before any rank goes on; so the
+manifest's checksums are those of a one-rank save of the same state.
+``restore(place=)`` with a policy's ``named`` callables cuts the blocks
+for any mesh, the one at save time or another.
 """
 from __future__ import annotations
 
@@ -45,10 +53,29 @@ def _checksum(arr: np.ndarray) -> str:
     return hashlib.sha256(arr.tobytes()).hexdigest()[:16]
 
 
-def save(ckpt_dir, step: int, tree, *, keep: int = 3) -> Path:
+def save(ckpt_dir, step: int, tree, *, keep: int = 3, gather=None,
+         mesh=None) -> Path:
     """Write ``tree`` as step ``step`` under ``ckpt_dir`` (atomic), then
-    keep the newest ``keep`` steps."""
+    keep the newest ``keep`` steps. ``gather`` (a tree of ``tree``'s
+    structure holding per-leaf callables, block → whole leaf) makes each
+    leaf whole first; with ``mesh`` of more than one rank, every rank of
+    it calls ``save``, the first writes and all wait for it."""
     ckpt_dir = Path(ckpt_dir)
+    if gather is not None:
+        tree = tree_map(lambda leaf, fn: fn(leaf), tree, gather)
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+        if dist.get_rank() == mesh.first_rank:
+            _write(ckpt_dir, step, tree, keep)
+        # the wait: a one-element all-reduce on the mesh's device, the
+        # path the gathers took
+        dist.all_reduce(torch.zeros(1, device=mesh.device),
+                        group=mesh.mesh_group)
+        return ckpt_dir / f"step_{step:08d}"
+    return _write(ckpt_dir, step, tree, keep)
+
+
+def _write(ckpt_dir: Path, step: int, tree, keep: int) -> Path:
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
     if tmp.exists():
@@ -100,24 +127,34 @@ def restore(ckpt_dir, step: int, target_tree, *, place=None,
     per leaf, a callable (numpy array → the placed leaf) or None. A leaf
     without a callable comes back as a numpy array. A checksum that does
     not match raises ``IOError``; a leaf whose shape differs from the
-    target leaf's raises ``ValueError``."""
+    target leaf's, before placing and after, raises ``ValueError`` (the
+    target may hold the whole leaves or this rank's blocks of them)."""
     src = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((src / "manifest.json").read_text())
     leaves = tree_leaves(target_tree)
     if len(leaves) != len(manifest["leaves"]):
         raise ValueError(f"the target has {len(leaves)} leaves, step {step} "
                          f"holds {len(manifest['leaves'])}")
+    fns = [None] * len(leaves) if place is None else tree_leaves(
+        tree_map(lambda _, fn: _Fn(fn), target_tree, place))
     out = []
-    for i, (ref, meta) in enumerate(zip(leaves, manifest["leaves"])):
+    for i, (ref, meta, fn) in enumerate(zip(leaves, manifest["leaves"],
+                                            fns)):
         arr = np.load(src / meta["file"])
         if verify and _checksum(arr) != meta["sha256"]:
             raise IOError(f"checksum mismatch in {meta['file']}")
-        if hasattr(ref, "shape") and tuple(ref.shape) != arr.shape:
+        shapes = {tuple(arr.shape)}
+        if fn is not None and fn.fn is not None:
+            arr = fn.fn(arr)
+            shapes.add(tuple(arr.shape))
+        if hasattr(ref, "shape") and tuple(ref.shape) not in shapes:
             raise ValueError(f"shape mismatch leaf {i}: "
-                             f"{tuple(ref.shape)} vs {arr.shape}")
+                             f"{tuple(ref.shape)} vs {tuple(arr.shape)}")
         out.append(arr)
-    tree = tree_unflatten(target_tree, out)
-    if place is None:
-        return tree
-    return tree_map(lambda arr, fn: arr if fn is None else fn(arr), tree,
-                    place)
+    return tree_unflatten(target_tree, out)
+
+
+class _Fn:
+    """A placement callable held as one leaf (``None`` is a subtree)."""
+    def __init__(self, fn):
+        self.fn = fn

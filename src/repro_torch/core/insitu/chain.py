@@ -343,7 +343,10 @@ class InSituChain:
     def as_step_hook(self):
         """A callable over training tensors that runs the device prefix
         and returns its ``insitu_*`` products: spectral monitoring inside
-        a training step (the reference's ``train/step.py`` consumer)."""
+        a training step (the reference's ``train/step.py`` consumer).
+        ``hook.reads`` lists, per endpoint that says (``selected``), the
+        payload key it reads and the function naming the leaves it reads
+        there."""
         device_eps = self._device_prefix()
 
         def hook(payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -352,4 +355,6 @@ class InSituChain:
                 d = ep.execute(d)
             return {k: v for k, v in d.arrays.items()
                     if k.startswith("insitu_")}
+        hook.reads = [(ep.source, ep.selected) for ep in device_eps
+                      if hasattr(ep, "selected")]
         return hook

@@ -38,6 +38,15 @@ class SpectralMonitorEndpoint(Endpoint):
     def _sample(self, leaf):
         return leaf.reshape(-1, leaf.shape[-1])[: self.sample_rows]
 
+    def selected(self, tree) -> list:
+        """The paths (``tree_leaves_with_path``'s) of the leaves
+        ``execute`` reads from ``tree`` (tensors, ``meta`` ones
+        included): a caller holding blocks of sharded leaves gathers
+        these, judged by the whole leaves' shapes."""
+        return [p for p, l in tree_leaves_with_path(tree)
+                if torch.is_tensor(l) and l.dim() >= 2
+                and l.shape[-1] >= self.min_last_dim][: self.max_tensors]
+
     def execute(self, data: BridgeData) -> BridgeData:
         """Publish normalised per-tensor spectra
         (``insitu_grad_spectra``) and the mean high-frequency energy

@@ -2,18 +2,20 @@
 (counterpart of ``repro/data/pipeline.py``).
 
 ``ShardedLoader`` wraps the synthetic stream (or any step-indexed batch
-function), places each global batch on the policy's mesh device, and
-prepares the next ``prefetch`` batches on a worker thread while the
-current step runs — the standard overlap-input-with-compute pattern.
+function), places each global batch on the policy's mesh, and prepares
+the next ``prefetch`` batches on a worker thread while the current step
+runs — the standard overlap-input-with-compute pattern. Every rank
+builds the same global batch from ``batch_fn(step)`` and keeps its data
+rank's rows (``act_tokens``: the leading dim over the batch axes, the
+rest whole), as the reference's ``device_put`` to the batch sharding
+leaves each device its shard.
 
 On a CUDA mesh the worker copies each batch from pinned host memory
 with ``non_blocking=True`` on a stream of its own and records an event;
 ``__next__`` makes the consumer's current stream wait for that event
 (and marks the tensors as used there), so the copy overlaps the step
-that runs while it is in flight. On a CPU mesh the batch is taken as it
-is. The port places on one rank: a mesh of more than one rank (a batch
-split over data-parallel ranks) raises, naming ROADMAP queue 1 item 18
-part 5.
+that runs while it is in flight. On a CPU mesh the rows are taken as
+they are.
 """
 from __future__ import annotations
 
@@ -24,14 +26,23 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch.core.fft.distributed import _slices
+
+
+def place_rows(batch: Dict[str, np.ndarray], policy) -> Dict[str,
+                                                             torch.Tensor]:
+    """A global batch's arrays as this rank's rows (``act_tokens``'s
+    leading entry; the whole arrays on one rank), on the mesh's device,
+    without the prefetch thread."""
+    return {k: policy.named(policy.act_rows(np.ndim(v)))(np.asarray(v))
+            for k, v in batch.items()}
+
 
 class ShardedLoader:
     def __init__(self, batch_fn: Callable[[int], Dict[str, np.ndarray]],
                  policy, *, start_step: int = 0, prefetch: int = 2):
         if not policy.one_rank:
-            raise NotImplementedError(
-                f"ShardedLoader on mesh {dict(policy.mesh.shape)}: placing "
-                f"a batch across ranks is ROADMAP queue 1 item 18 part 5")
+            policy._live()
         self.batch_fn = batch_fn
         self.policy = policy
         self.device = torch.device(policy.mesh.device)
@@ -42,14 +53,26 @@ class ShardedLoader:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def rows(self, arr) -> np.ndarray:
+        """This rank's rows of one global array (the whole array on one
+        rank)."""
+        arr = np.asarray(arr)
+        if self.policy.one_rank:
+            return arr
+        mesh = self.policy.mesh
+        return arr[_slices(mesh, self.policy.act_rows(arr.ndim), arr.shape,
+                           mesh.coordinate)]
+
     def _place(self, batch: Dict[str, np.ndarray]):
         """(placed batch, ready event or None)."""
+        batch = {k: np.ascontiguousarray(self.rows(v))
+                 for k, v in batch.items()}
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device) for k, v in batch.items()}, None
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in batch.items()}, None
         stream = self._stream
         with torch.cuda.stream(stream):
-            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            out = {k: torch.from_numpy(v).pin_memory()
                    .to(self.device, non_blocking=True)
                    for k, v in batch.items()}
             ready = torch.cuda.Event()

@@ -7,9 +7,10 @@ positions are global ranks (``compat.make_mesh`` / ``make_explicit_mesh``),
 and building a mesh of more than one rank is collective on every rank of
 the world.
 
-* ``make_host_mesh`` — one process's mesh: every axis extent 1, on the
-  CUDA device unless the caller asks for the CPU (the reduced-config
-  entry points, the examples, the FFT serving engine's lazy default).
+* ``make_host_mesh`` — the mesh over the world's ranks ((2, 2)
+  ``("data", "model")`` on four), every axis extent 1 in one process,
+  on the CUDA device unless the caller asks for the CPU (the entry
+  points, the examples, the FFT serving engine's lazy default).
 * ``make_production_mesh`` — the full-fleet shapes, (16, 16) or
   (2, 16, 16): it needs a world of that many ranks.
 * ``make_multihost_mesh`` — explicit **DCN axes** (outer, crossing
@@ -44,19 +45,31 @@ def _world() -> int:
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"), *,
                    device=None) -> Mesh:
-    """Small mesh over the devices this process has (tests, examples,
-    the serving engine's default).
+    """The mesh over the world's ranks (tests, examples, the entry
+    points, the serving engine's default), as the reference's is over
+    its devices.
 
-    As in the reference, a requested shape that does not fit the
-    devices present falls back to a layout over however many there are,
-    so callers get *a* mesh, not an error: here that is one device, so
-    every axis has extent 1. ``device`` defaults to ``cuda:{LOCAL_RANK}``
-    and raises where that device does not exist; ``device="cpu"`` builds
-    the mesh on the CPU."""
+    A world of exactly ``prod(shape)`` ranks gets ``shape``. As in the
+    reference, a shape that does not fit falls back to a layout over
+    however many ranks there are, so callers get *a* mesh, not an
+    error: a smaller world of more than one rank spans its first axis
+    (the others of extent 1), one process gets every extent 1. A world
+    larger than ``shape`` raises. Building a mesh of more than one rank
+    is collective on every rank. ``device`` defaults to
+    ``cuda:{LOCAL_RANK}`` and raises where that device does not exist;
+    ``device="cpu"`` builds the mesh on the CPU."""
     if len(shape) != len(axes):
         raise ValueError(f"{len(shape)} axis extents for {len(axes)} axis "
                          f"names")
-    return make_mesh((1,) * len(axes), axes, device=device)
+    world, need = _world(), math.prod(shape)
+    if world == 1:
+        return make_mesh((1,) * len(axes), axes, device=device)
+    if world > need:
+        raise ValueError(f"host mesh {dict(zip(axes, shape))} spans {need} "
+                         f"ranks; the world has {world}")
+    if world < need:
+        shape = (world,) + (1,) * (len(axes) - 1)
+    return make_mesh(shape, axes, device=device)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:

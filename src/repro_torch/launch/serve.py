@@ -1,5 +1,6 @@
 """Serving entry point: prefill + batched greedy decode with the KV cache
-(counterpart of ``repro/launch/serve.py``), on one device.
+(counterpart of ``repro/launch/serve.py``), on one device or across the
+world's ranks.
 
     python -m repro_torch.launch.serve --arch qwen3-4b --reduced --device cpu
 
@@ -14,10 +15,17 @@ is given; a missing card is an error, never a move to the CPU. Times on
 the card are host clock around work that ends in
 ``torch.cuda.synchronize()``.
 
-No mesh and no sharding policy are built (one device). ``--wisdom FILE``
-(with ``--wisdom-mode off|read|readwrite``) installs the FFT planner's
-persistent wisdom store before anything is planned, as the reference
-does.
+One process builds no mesh and no sharding policy, so prefill takes
+the flash kernel on the card. A world of several ranks decodes on the
+mesh over them (``launch/mesh.make_host_mesh``: (2, 2) ``("data",
+"model")`` on four ranks) under ``make_policy(mesh,
+global_batch=--batch)``, as the reference does: TP over ``model``, the
+batch and FSDP over ``data``. Every rank draws the same seeded
+parameters and prompts and keeps its blocks, every rank decodes, the
+logits are gathered whole for the greedy pick, and rank 0 prints (and
+writes) the report. ``--wisdom FILE`` (with ``--wisdom-mode
+off|read|readwrite``) installs the FFT planner's persistent wisdom store
+before anything is planned, as the reference does.
 
 ``--monitor-every K`` attaches a **pipelined in-situ chain** to the
 decode loop (stats → FFT → bandpass on the last-token logits, host
@@ -41,9 +49,11 @@ win). ``--transit-consumers N`` is the M→N in-transit split: the world's
 last N ranks form the consumer mesh, the rest the producer mesh
 (``launch/mesh.make_transit_setup``), and the monitor's warm-up and
 every engine execute ride ``TransitBridge.send`` to the consumers, which
-run the monitor chain and write its files. Decoding stays on one rank:
-a producer mesh of more than one rank would need sharded serving
-(ROADMAP queue 1 item 18 part 5) and is refused. Consumer ranks do not
+run the monitor chain and write its files. The first world − N ranks
+decode, on a ``("data", "model")`` mesh of extent world − N along
+``data`` (one rank: no policy); each of them submits the gathered
+logits, so each sends. Without transit, across ranks, the mesh's first
+rank alone runs the monitor. Consumer ranks do not
 decode, yet each ``send`` is collective, so they call it exactly as
 often, and in the same order, as the producer's monitor executes: the
 warm-up, one per ``--monitor-batch`` snapshots, and the trailing flush,
@@ -70,12 +80,14 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.core.fft import plan as plan_mod
 from repro_torch.models import lm
 from repro_torch.runtime.cluster import (add_cluster_args, config_from_args,
                                          init_cluster)
+from repro_torch.sharding.policy import make_policy
 
 
 def _sync(device: torch.device) -> None:
@@ -313,12 +325,6 @@ def main(argv=None, *, params=None):
         if n >= world:
             raise SystemExit(f"--transit-consumers {n} leaves no decode "
                              f"ranks (have {world})")
-        if world - n > 1:
-            raise SystemExit(
-                f"--transit-consumers {n} of {world} ranks leaves "
-                f"{world - n} decode ranks: decoding across ranks needs "
-                f"sharded serving (ROADMAP queue 1 item 18 part 5); use "
-                f"{world - 1} consumers")
     if args.wisdom:
         # before any measured planning, so a restart warm-starts from it
         plan_mod.set_wisdom(args.wisdom, args.wisdom_mode)
@@ -335,20 +341,20 @@ def main(argv=None, *, params=None):
         raise SystemExit(f"{cfg.name} is an encoder-decoder: serve it "
                          f"through repro_torch.models.encdec.prefill and "
                          f"decode_step (frames and a decoder prompt)")
-    bridge = elastic = None
+    bridge = elastic = mesh = None
     if args.transit_consumers:
         from repro_torch.launch.mesh import (make_elastic_setup,
                                              make_transit_setup)
         if args.elastic:
             # the controller duck-types the bridge: the monitor's warm-up
             # and every engine execute route to the newest consumer mesh
-            _, elastic = make_elastic_setup(
+            mesh, elastic = make_elastic_setup(
                 args.transit_consumers, noun="decode",
                 lease=args.elastic_lease, device=device)
             bridge = elastic
         else:
-            _, bridge = make_transit_setup(args.transit_consumers,
-                                           noun="decode", device=device)
+            mesh, bridge = make_transit_setup(args.transit_consumers,
+                                              noun="decode", device=device)
         if not bridge.is_producer():
             report = _consume(args, cfg, bridge, device, elastic) \
                 if args.monitor_every else {"arch": cfg.name,
@@ -357,22 +363,38 @@ def main(argv=None, *, params=None):
                 bridge.report()
             print(json.dumps(report))
             return report
+    elif cluster.multiprocess:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(device=device)
+    policy = (make_policy(mesh, global_batch=args.batch)
+              if mesh is not None and mesh.size > 1 else None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if params is None:
-        params = lm.init_params(cfg, gen, torch.float32)
+        params = lm.init_params(cfg, gen, torch.float32, policy=policy)
     cache_len = args.prompt_len + args.tokens
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device)
+    lead = policy is None or bridge is not None or \
+        dist.get_rank() == mesh.first_rank
     monitor = engine = None
-    if args.monitor_every:
+    if args.monitor_every and lead:
         monitor = _build_monitor(args, cfg, device, bridge)
         engine = _attach_monitor_engine(args, monitor, bridge)
     snapshots = 0
 
+    def rows(t):       # this rank's rows of a global (B, ...) batch
+        return t if policy is None else policy.named(
+            policy.act_rows(t.dim()))(t)
+
+    def whole(logits):  # the logits of every row and the whole vocab
+        return logits if policy is None else policy.gather(
+            logits, policy.act_logits(cfg.vocab_size))
+
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = lm.prefill(cfg, params, {"tokens": prompts},
-                               cache_len=cache_len)
+    logits, state = lm.prefill(cfg, params, {"tokens": rows(prompts)},
+                               policy, cache_len=cache_len)
+    logits = whole(logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -381,7 +403,8 @@ def main(argv=None, *, params=None):
     t0 = time.perf_counter()
     for step in range(args.tokens):
         out_tokens.append(tok)
-        logits, state = lm.decode_step(cfg, params, tok, state)
+        logits, state = lm.decode_step(cfg, params, rows(tok), state, policy)
+        logits = whole(logits)
         tok = logits[:, -1].argmax(dim=-1)[:, None]
         if engine is not None and step % args.monitor_every == 0:
             # submit the last-token logits (still being computed) to the
@@ -413,6 +436,7 @@ def main(argv=None, *, params=None):
         "tokens": args.tokens,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "mesh": {} if policy is None else dict(mesh.shape),
         "prefill_ms": t_prefill * 1e3,
         "decode_ms_per_token": t_decode / args.tokens * 1e3,
         "tokens_per_s": args.batch * args.tokens / t_decode,
@@ -424,6 +448,8 @@ def main(argv=None, *, params=None):
     if bridge is not None:
         report["elastic" if elastic is not None else "transit"] = \
             bridge.report()
+    if policy is not None and dist.get_rank() != 0:
+        return report             # rank 0 reports
     if args.bench_out:
         _emit_report_rows(report, args.bench_out)
         print(f"serve: decode {report['decode_ms_per_token']} ms/token, "

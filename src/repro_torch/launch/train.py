@@ -13,23 +13,31 @@ defaults, progress lines, validation messages and JSON summary are the
 reference's; ``--device`` is the port's (``cuda`` unless ``cpu`` is
 given; a missing card is an error, never a move to the CPU).
 
-Meshes: one process trains on a one-rank host mesh. Training across
-ranks (data/tensor/FSDP parallel over a mesh of more than one rank) is
-ROADMAP queue 1 item 18 part 5, so a larger producer mesh — a cluster
-without ``--transit-consumers``, ``--transit-consumers N`` leaving more
-than one producer rank, or ``--production-mesh`` — raises
-``SystemExit`` naming it. ``--transit-consumers N`` trains on rank 0
-and ships each report's spectra to the last N ranks
-(``launch/mesh.make_transit_setup``, or ``make_elastic_setup`` under
-``--elastic``), where the writer chain runs. Consumer ranks do not
+Meshes: one process trains on a one-rank host mesh; a world of several
+ranks trains on the mesh over them (``make_host_mesh``: (2, 2)
+``("data", "model")`` on four ranks; ``--production-mesh`` the (16, 16)
+one), under ``make_policy(mesh, global_batch=--batch)``: TP over
+``model``, FSDP and DP over ``data`` (``train/step.py``). Each rank
+draws the same seeded init and keeps its blocks, and takes its rows of
+each global batch (``data/pipeline.place_rows``). ``--transit-consumers
+N`` trains on the first world − N ranks (a ``("data", "model")`` mesh
+of extent world − N along ``data``) and ships each report's spectra to
+the last N ranks (``launch/mesh.make_transit_setup``, or
+``make_elastic_setup`` under ``--elastic``), where the writer chain
+runs. Consumer ranks do not
 train: they call ``send`` (or ``send_async``) once per report,
 collectively, the count taken from ``--steps`` and ``--insitu-every``
 and the spectra's shapes from the monitor run on ``meta`` tensors of
 the model's shapes. Every rank renews the consumers' leases and ticks
 the elastic controller once per report (a report replayed after a
 restart sends nothing and ticks nothing, so producer and consumers
-stay in step). Checkpoints go to ``<ckpt-dir>/proc<rank>`` when the
-world has more than one rank.
+stay in step). A training mesh of several ranks checkpoints into
+``--ckpt-dir`` itself: every rank gathers each leaf, the mesh's first
+rank writes the whole arrays (a one-rank run's files), and a restart
+cuts every rank's blocks from them. A one-rank training mesh in a world
+of several ranks checkpoints into ``<ckpt-dir>/proc<rank>``. Without
+``--transit-consumers`` only the mesh's first rank writes
+``--insitu-spectra-dir``'s files.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from repro_torch.core.insitu.endpoints.spectral_monitor import (
     SpectralMonitorEndpoint)
 from repro_torch.core.insitu.endpoints.writer import WriterEndpoint
 from repro_torch.data import synthetic
+from repro_torch.data.pipeline import place_rows
 from repro_torch.launch.mesh import (make_elastic_setup, make_host_mesh,
                                      make_production_mesh, make_transit_setup)
 from repro_torch.models import lm
@@ -56,7 +65,7 @@ from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.runtime.cluster import (add_cluster_args, config_from_args,
                                          init_cluster)
 from repro_torch.runtime.fault import run_with_restarts
-from repro_torch.sharding.policy import PART5, make_policy
+from repro_torch.sharding.policy import make_policy
 from repro_torch.train import step as train_step_mod
 
 
@@ -196,13 +205,6 @@ def main(argv=None):
     if args.transit_consumers and args.transit_consumers >= world:
         raise SystemExit(f"--transit-consumers {args.transit_consumers} "
                          f"leaves no training ranks (have {world})")
-    if args.transit_consumers and world - args.transit_consumers > 1:
-        raise SystemExit(
-            f"--transit-consumers {args.transit_consumers} of {world} ranks "
-            f"leaves {world - args.transit_consumers} training ranks: "
-            f"{PART5}; use {world - 1} consumers")
-    if world > 1 and not args.transit_consumers:
-        raise SystemExit(f"training on {world} ranks: {PART5}")
     if args.wisdom:
         # before any measured planning (restarts warm-start from it)
         plan_mod.set_wisdom(args.wisdom, args.wisdom_mode)
@@ -212,10 +214,6 @@ def main(argv=None):
                            "the CPU")
     # multi-process bring-up (flags over env; one process: a no-op)
     init_cluster(cluster, device=device)
-    if world > 1:
-        # every process snapshots its own state: sharing one directory
-        # would race on the atomic tmp-dir rename
-        args.ckpt_dir = str(Path(args.ckpt_dir) / f"proc{_rank()}")
 
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
@@ -243,8 +241,10 @@ def main(argv=None):
     else:
         mesh = (make_production_mesh(device=device) if args.production_mesh
                 else make_host_mesh(device=device))
-    if mesh.size > 1:
-        raise SystemExit(f"a training mesh of {mesh.size} ranks: {PART5}")
+    if world > 1 and mesh.size == 1:
+        # a process training alone snapshots its own state: sharing one
+        # directory would race on the atomic tmp-dir rename
+        args.ckpt_dir = str(Path(args.ckpt_dir) / f"proc{_rank()}")
     policy = make_policy(mesh, global_batch=args.batch)
 
     insitu_chain = None
@@ -252,7 +252,8 @@ def main(argv=None):
         insitu_chain = InSituChain([_monitor()], mesh=mesh).initialize()
 
     spectra_chain = None
-    if args.insitu_spectra_dir and not args.no_insitu:
+    if args.insitu_spectra_dir and not args.no_insitu and (
+            transit_bridge is not None or _rank() == mesh.first_rank):
         spectra_chain = _spectra_chain(args)
 
     step_fn = train_step_mod.make_train_step(
@@ -265,11 +266,14 @@ def main(argv=None):
     def make_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
         return train_step_mod.init_train_state(
-            cfg, opt, gen, param_dtype=torch.float32, max_target=args.seq)
+            cfg, opt, gen, param_dtype=torch.float32, max_target=args.seq,
+            policy=policy)
 
-    state_place = train_step_mod.state_shardings(
-        policy, train_step_mod.train_state_shapes(cfg, opt,
-                                                  max_target=args.seq))
+    shapes = train_step_mod.train_state_shapes(cfg, opt,
+                                               max_target=args.seq)
+    state_place = train_step_mod.state_shardings(policy, shapes)
+    state_gather = (train_step_mod.state_gathers(policy, shapes)
+                    if not policy.one_rank else None)
 
     def batch_fn(step):
         b = synthetic.batch_at(
@@ -277,7 +281,7 @@ def main(argv=None):
             vocab=cfg.vocab_size, seed=args.seed, family=cfg.family,
             num_patches=min(cfg.num_patches, args.seq // 2),
             patch_dim=lm.VIT_STUB_DIM, frame_dim=cfg.d_model)
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return place_rows(b, policy)
 
     losses = []
     reported = [-1]
@@ -327,7 +331,8 @@ def main(argv=None):
         make_state=make_state, train_step=step_fn, batch_fn=batch_fn,
         total_steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, state_place=state_place,
-        fail_at=args.fail_at, on_metrics=on_metrics)
+        state_gather=state_gather, mesh=mesh, fail_at=args.fail_at,
+        on_metrics=on_metrics)
 
     out = {"arch": cfg.name, "steps": args.steps,
            "first_loss": losses[0] if losses else None,

@@ -21,7 +21,13 @@ Paths, as in the reference:
 Under a ``sharding.policy.Policy``, K/V are repeated up to the padded
 query heads where the KV heads do not divide the TP axis
 (``maybe_repeat_kv``), and q/k/v and the output are constrained to the
-policy's head layout, as in the reference.
+policy's head layout, as in the reference. Across ranks, each rank
+computes its own query heads (``wq``'s block of the heads), K/V heads
+where they divide the model axis and all of them otherwise (then
+repeated and cut to the local heads), and ``out_proj``'s product over
+the local heads is a partial sum, summed over the model axis at once.
+A KV cache sharded on its sequence (KV heads not dividing the model
+axis) is gathered for each decode step.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (apply_rope, dense_init, matmul,
                                        rms_norm, softcap)
+from repro_torch.sharding.policy import P, sharded
 
 
 # ---------------------------------------------------------------------------
@@ -59,11 +66,14 @@ def init_attn_params(cfg, gen, dtype):
     return p
 
 
-def head_mask(cfg, x):
-    """Zero the padded compute-only heads. x (..., Hp, hd)."""
+def head_mask(cfg, x, policy=None):
+    """Zero the padded compute-only heads. x (..., Hp, hd), or this
+    rank's block of the heads across ranks."""
     if cfg.heads_padded == cfg.num_heads:
         return x
-    mask = torch.arange(cfg.heads_padded, device=x.device) < cfg.num_heads
+    n = x.shape[-2]
+    first = policy.tp_index() * n if sharded(policy) else 0
+    mask = torch.arange(first, first + n, device=x.device) < cfg.num_heads
     return x * mask[:, None].to(x.dtype)
 
 
@@ -74,7 +84,7 @@ def maybe_repeat_kv(cfg, policy, k, v):
     if policy is None or policy.tp_axis is None:
         return k, v
     tp = policy.mesh.shape[policy.tp_axis]
-    kv = k.shape[2]
+    kv = cfg.num_kv_heads
     if kv % tp == 0:
         return k, v
     reps = cfg.heads_padded // kv
@@ -87,29 +97,58 @@ def _proj(x, w):
     return matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def project_qkv(cfg, p, x, positions, *, rope: bool = True):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope+qk_norm applied."""
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+def _local_heads(cfg, policy) -> bool:
+    """Whether K/V heads are this rank's block (else all of them)."""
+    if not sharded(policy):
+        return True
+    if cfg.heads_padded % policy.tp_size():
+        raise ValueError(f"{cfg.name}: {cfg.heads_padded} query heads do "
+                         f"not split over a model axis of "
+                         f"{policy.tp_size()}")
+    return policy.kv_heads_sharded(cfg.num_kv_heads)
+
+
+def project_qkv(cfg, p, x, positions, *, rope: bool = True, policy=None):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope+qk_norm applied.
+
+    Across ranks (``p`` holding this rank's blocks) q has the local
+    heads, k/v the local KV heads where they divide the model axis and
+    all of them otherwise; ``x`` enters the column-parallel products
+    through ``enter_tp``, and the norm scales used on local heads too."""
+    def tp(t, local=True):
+        return policy.enter_tp(t) if local and sharded(policy) else t
+
+    kv_local = _local_heads(cfg, policy)
+    q = _proj(tp(x), p["wq"])
+    xkv = tp(x, kv_local)
+    k = _proj(xkv, p["wk"])
+    v = _proj(xkv, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps, plus_one=True)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps, plus_one=True)
+        q = rms_norm(q, tp(p["q_norm"]), cfg.norm_eps, plus_one=True)
+        k = rms_norm(k, tp(p["k_norm"], kv_local), cfg.norm_eps,
+                     plus_one=True)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def out_proj(p, attn, cfg=None):  # (B,S,Hp,hd) -> (B,S,D)
+def out_proj(p, attn, cfg=None, policy=None):  # (B,S,Hp,hd) -> (B,S,D)
+    """Across ranks the product over the local heads is a partial sum,
+    summed over the model axis here (the reduction GSPMD places before
+    the next use of the hidden state)."""
     if cfg is not None:
-        attn = head_mask(cfg, attn)
+        attn = head_mask(cfg, attn, policy)
     wo = p["wo"]
-    return matmul(attn.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    out = matmul(attn.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    if sharded(policy):
+        out = policy.constrain(out, policy.act_hidden(),
+                               partial=policy.tp_axis)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +278,15 @@ def attention(q, k, v, *, kind: str, cfg, policy=None):
     if _use_flash_kernel(q, kind, policy):
         return flash_attention(q, k, v, causal=(kind == "full"),
                                softcap=cap or 0.0)
+    kv_local = _local_heads(cfg, policy)
     k, v = maybe_repeat_kv(cfg, policy, k, v)
     if policy is not None:
-        q, k, v = (policy.constrain(t, policy.act_heads()) for t in (q, k, v))
+        # across ranks: q is the local heads already; K/V are too, or
+        # (repeated from all KV heads) are cut to them
+        kv_src = None if kv_local else P(policy.batch(), None, None, None)
+        q = policy.constrain(q, policy.act_heads())
+        k, v = (policy.constrain(t, policy.act_heads(), src=kv_src)
+                for t in (k, v))
     if kind == "swa" and cfg.window is not None and S > cfg.window:
         out = attention_banded(q, k, v, window=cfg.window, cap=cap)
     elif kind == "bidir":
@@ -267,11 +312,28 @@ def decode_attention(q, k_cache, v_cache, kv_positions, cur_pos, *, cfg,
                      window: Optional[int] = None, policy=None):
     """q (B,1,H,hd); caches (B,S,KV,hd); kv_positions (B,S) holding the
     absolute position stored in each slot (-1 = unwritten). ``cur_pos``
-    is an int (every row at one position) or a (B,) tensor."""
+    is an int (every row at one position) or a (B,) tensor.
+
+    Across ranks q holds the local heads; caches sharded on the KV heads
+    hold the local ones, and caches sharded on the sequence (KV heads
+    not dividing the model axis) are gathered whole, repeated to the
+    query heads and cut to the local ones."""
     if policy is not None:
-        spec = policy.act_kv_cache(k_cache.shape[2])
+        kv_local = _local_heads(cfg, policy)
+        spec = policy.act_kv_cache(cfg.num_kv_heads)
         k_cache = policy.constrain(k_cache, spec)
         v_cache = policy.constrain(v_cache, spec)
+        if not kv_local:
+            whole = P(policy.batch(), None, None, None)
+            k_cache, v_cache = (policy.constrain(t, whole, src=spec)
+                                for t in (k_cache, v_cache))
+            kv_positions = policy.constrain(
+                kv_positions, P(policy.batch(), None), src=spec[:2])
+            k_cache, v_cache = maybe_repeat_kv(cfg, policy, k_cache,
+                                               v_cache)
+            k_cache, v_cache = (policy.constrain(t, policy.act_heads(),
+                                                 src=whole)
+                                for t in (k_cache, v_cache))
     if torch.is_tensor(cur_pos) and cur_pos.dim() == 1:
         q_pos = cur_pos[:, None]
     else:

@@ -16,6 +16,13 @@ layer as in the reference, which constrains the hidden state after each
 layer slot. ``stack_forward`` (the training forward) recomputes each
 period in the backward pass (``remat``, the reference's
 ``jax.checkpoint`` around the scan body).
+
+Across ranks a period's parameters are this rank's blocks; the period
+takes them through ``Policy.use`` at its start (``_use_period``): the
+FSDP axes all-gathered, one period at a time. Under remat that runs
+inside the recomputed body, so the backward gathers each period again,
+in the same order on every rank (every rank runs the same program), and
+the gathers' backward reduce-scatters the gradients.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.models.common import dense_init, matmul, rms_norm
 from repro_torch.models.common import remat as _remat
 from repro_torch.serve.kvcache import (cache_positions, cache_views, read_kv,
                                        update_any_cache)
+from repro_torch.sharding.policy import period_specs, sharded
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +122,8 @@ def _mlp_residual(cfg, p, x, policy=None):
     return x + out, aux
 
 
-def _attn_residual(cfg, p, x, attn):
-    out = attn_mod.out_proj(p["attn"], attn, cfg)
+def _attn_residual(cfg, p, x, attn, policy=None):
+    out = attn_mod.out_proj(p["attn"], attn, cfg, policy)
     if cfg.post_norm:
         out = _norm(cfg, out, p["post_attn_norm"])
     return x + out
@@ -142,18 +150,23 @@ def _shared_tail(cfg, shared, x, attn, policy=None):
 def _attn_layer(cfg, p, x, positions, kind, policy=None, *,
                 want_cache=False):
     h = _norm(cfg, x, p["pre_norm"])
-    q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, positions)
+    q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, positions,
+                                   policy=policy)
     out = attn_mod.attention(q, k, v, kind=("swa" if kind == "swa"
                                             else "full"), cfg=cfg,
                              policy=policy)
-    x, aux = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out), policy)
+    x, aux = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out, policy),
+                           policy)
     return x, aux, (_constrain_cache(k, v, policy) if want_cache else None)
 
 
 def _constrain_cache(k, v, policy):
     """Prefill-emitted K/V in the cache layout (the reference pins them
-    before its scan stacks them)."""
-    if policy is None:
+    before its scan stacks them). Across ranks, K/V sharded on their
+    heads are the local heads already; K/V of every head (KV heads not
+    dividing the model axis) stay whole here and ``lm.prefill`` cuts the
+    finished cache's sequence, after padding or rolling it."""
+    if policy is None or sharded(policy):
         return (k, v)
     spec = policy.act_kv_cache(k.shape[2])
     return (policy.constrain(k, spec), policy.constrain(v, spec))
@@ -180,11 +193,20 @@ def _shared_block(cfg, shared, p, x, x0, positions, policy=None, *,
     return x, (_constrain_cache(k, v, policy) if want_cache else None), st
 
 
+def _use_period(cfg, pparams, policy):
+    """The period's parameters as its layers use them: across ranks,
+    this rank's blocks with the FSDP axes gathered (``Policy.use``)."""
+    if not sharded(policy):
+        return pparams
+    return policy.use_tree(pparams, period_specs(policy, cfg))
+
+
 def period_forward(cfg, pparams, x, x0, positions, policy=None, shared=None,
                    *, want_cache: bool = False):
     """Apply one pattern period. Returns (x, aux, caches, states): caches
     maps f"l{i}" to an attention slot's (k, v), states an SSM or hybrid
     slot's final ``SSMState``, when ``want_cache``."""
+    pparams = _use_period(cfg, pparams, policy)
     aux_total = 0.0
     caches, states = {}, {}
     for i, kind in enumerate(cfg.layer_pattern):
@@ -258,9 +280,11 @@ def stack_prefill(cfg, blocks, x, positions, policy=None, shared=None):
 
 def _decode_attn(cfg, attn_p, h, cache, cur_pos, window=None, policy=None):
     """One token's attention against its cache, which gets the token's
-    K/V written in place first."""
-    q, k, v = attn_mod.project_qkv(cfg, attn_p, h, positions_of(cur_pos, h))
-    update_any_cache(cache, k, v, cur_pos)
+    K/V written in place first (across ranks, into the rank that holds
+    the slot where the cache's sequence is sharded)."""
+    q, k, v = attn_mod.project_qkv(cfg, attn_p, h, positions_of(cur_pos, h),
+                                   policy=policy)
+    update_any_cache(cache, k, v, cur_pos, seq_block=seq_block(cfg, policy))
     k_r, v_r = read_kv(cache, k.dtype)
     return attn_mod.decode_attention(q, k_r, v_r, cache_positions(cache),
                                      cur_pos, cfg=cfg, window=window,
@@ -283,6 +307,7 @@ def period_decode(cfg, pparams, x, x0, caches, ssm_states, cur_pos,
     """One-token step through a period. ``caches`` maps f"l{i}" to an
     attention or hybrid slot's cache, ``ssm_states`` an SSM or hybrid
     slot's ``SSMState``; both are updated in place."""
+    pparams = _use_period(cfg, pparams, policy)
     for i, kind in enumerate(cfg.layer_pattern):
         key, p = f"l{i}", pparams[f"l{i}"]
         if kind == "ssm":
@@ -299,8 +324,19 @@ def period_decode(cfg, pparams, x, x0, caches, ssm_states, cur_pos,
                            caches[key], cur_pos,
                            window=cfg.window if kind == "swa" else None,
                            policy=policy)
-        x, _ = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out), policy)
+        x, _ = _mlp_residual(cfg, p, _attn_residual(cfg, p, x, out, policy),
+                             policy)
     return x
+
+
+def seq_block(cfg, policy):
+    """(index, count) of this rank's block of a KV cache's sequence, or
+    None where the cache holds every slot (its KV heads shard over the
+    model axis, or one rank)."""
+    if not sharded(policy) or policy.tp_axis is None \
+            or policy.kv_heads_sharded(cfg.num_kv_heads):
+        return None
+    return policy.tp_index(), policy.tp_size()
 
 
 def positions_of(cur_pos, x):

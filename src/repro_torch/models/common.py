@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import collectives as C
+
 
 class ShapeOnly:
     """Stands in for a ``torch.Generator`` in the init functions: every
@@ -142,30 +144,54 @@ def remat(fn, *args):
 # ---------------------------------------------------------------------------
 
 def chunked_softmax_xent(hidden, head_w, labels, *, chunk: int,
-                         constrain=None, final_cap: Optional[float] = None):
+                         constrain=None, final_cap: Optional[float] = None,
+                         policy=None, vocab: Optional[int] = None):
     """Cross-entropy over a large vocab computed seq-chunk at a time.
 
     The (B, S, V) logits never exist whole: each chunk's float32 head
     product, softcap, logsumexp and gold gather run under ``remat``, so
     live memory stays at (B, chunk, V) and the backward recomputes them.
     Labels < 0 are padding. Returns the summed loss and the token count
-    (float32 scalars)."""
+    (float32 scalars), over this rank's rows.
+
+    Under a policy across ranks whose model axis shards the vocab
+    (``vocab`` the whole vocab, ``head_w`` this rank's (D, V/tp) block;
+    ``hidden`` is replicated over the model axis), each rank holds its
+    slice of the logits: ``lse`` takes the max and the sum of
+    exponentials across the model axis, and the gold logit comes from
+    the rank that owns the label's column."""
     B, S, D = hidden.shape
     n_chunks = max(S // chunk, 1)
     chunk = S // n_chunks
     if chunk * n_chunks != S:
         raise ValueError(f"chunked_softmax_xent: sequence {S} does not "
                          f"split into {n_chunks} chunks")
+    tp = vocab_sharded(policy, vocab or head_w.shape[-1])
+    group = policy._group(policy.tp_axis) if tp else None
 
     def chunk_loss(h_c, y_c):
+        if tp:
+            h_c = policy.enter_tp(h_c)
         logits = softcap(h_c.float() @ head_w.float(), final_cap)
         if constrain is not None:
             logits = constrain(logits)
-        lse = torch.logsumexp(logits, dim=-1)
+        n = logits.shape[-1]
+        vocab = n * policy.tp_size() if tp else n
         # a negative label indexes from the end, as take_along_axis
         # does; its term is masked out
-        idx = torch.where(y_c < 0, y_c + logits.shape[-1], y_c).long()
-        gold = logits.gather(-1, idx[..., None])[..., 0]
+        idx = torch.where(y_c < 0, y_c + vocab, y_c).long()
+        if tp:
+            m = C.reduce_max(logits.amax(dim=-1), group)
+            se = C.reduce_sum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                              group)
+            lse = m + torch.log(se)
+            local = idx - policy.tp_index() * n
+            own = (local >= 0) & (local < n)
+            gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+            gold = C.reduce_sum(torch.where(own, gold, 0.0), group)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, idx[..., None])[..., 0]
         mask = (y_c >= 0).float()
         return ((lse - gold) * mask).sum(), mask.sum()
 
@@ -175,3 +201,21 @@ def chunked_softmax_xent(hidden, head_w, labels, *, chunk: int,
         l, n = remat(chunk_loss, hidden[:, sl], labels[:, sl])
         loss, count = loss + l, count + n
     return loss, count
+
+
+def vocab_sharded(policy, vocab: int) -> bool:
+    """Whether the policy runs across ranks with the vocab (embedding
+    rows, head columns, logits) split over the model axis."""
+    return (policy is not None and not policy.one_rank
+            and policy.tp_axis is not None and policy.tp_size() > 1
+            and vocab % policy.tp_size() == 0)
+
+
+def embed_lookup(emb, tokens, policy=None, spec=None):
+    """``emb[tokens]``. Across ranks ``emb`` is this rank's block under
+    ``spec`` and ``tokens`` its rows: ``Policy.lookup`` finds them, and
+    the rows of a vocab split over the model axis sum over it."""
+    if policy is None or policy.one_rank:
+        return emb[tokens.long()]
+    rows = policy.lookup(emb, tokens, spec)
+    return policy.constrain(rows, policy.act_hidden(), partial=spec[0])

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.blocks import n_groups
+from repro_torch.sharding.policy import sharded
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -27,42 +28,55 @@ def _tensor(a, device) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
-def params_from_jax(cfg, tree: Dict[str, Any], *,
-                    device="cuda") -> Dict[str, Any]:
+def _host(a) -> torch.Tensor:
+    return _tensor(a, "cpu")
+
+
+def params_from_jax(cfg, tree: Dict[str, Any], *, device="cuda",
+                    policy=None) -> Dict[str, Any]:
     """The reference's ``lm.init_params`` or ``encdec.init_params`` tree
     (numpy leaves) → the port's parameters, on ``device`` (the CUDA
     device unless the caller passes ``"cpu"``): the leading depth axis
     of ``"blocks"`` (``n_groups``), ``"enc_layers"`` and
     ``"dec_layers"`` is unstacked into a list of per-period (per-layer)
     dicts; every other leaf (``shared``, ``patch_proj``, SSM and MoE
-    weights among them) is carried as it is."""
+    weights among them) is carried as it is. With a ``policy`` across
+    ranks, each leaf is this rank's block of it."""
     depth = {"blocks": n_groups(cfg) if cfg.family != "encdec" else 0,
              "enc_layers": cfg.encoder_layers,
              "dec_layers": cfg.decoder_layers}
     out = {}
     for key, sub in tree.items():
         if key in depth:
-            out[key] = [_map(sub, lambda a, g=g: _tensor(a[g], device))
+            out[key] = [_map(sub, lambda a, g=g: a[g])
                         for g in range(depth[key])]
         else:
-            out[key] = _map(sub, lambda a: _tensor(a, device))
-    return out
+            out[key] = sub
+    if sharded(policy):
+        out = policy.shard_tree(_map(out, _host))
+        return _map(out, lambda t: t.to(device))
+    return _map(out, lambda a: _tensor(a, device))
 
 
-def train_state_from_jax(cfg, state: Dict[str, Any], *,
-                         device="cuda") -> Dict[str, Any]:
+def train_state_from_jax(cfg, state: Dict[str, Any], *, device="cuda",
+                         policy=None) -> Dict[str, Any]:
     """The reference's train state ``{"params", "opt": {"m", "v",
     "count"}, "step"}`` (numpy leaves) → the port's: parameters and
-    moments on ``device`` in the port's layout, ``count`` and ``step``
-    as host int32 scalars (``train/step.py``)."""
+    moments on ``device`` in the port's layout (this rank's blocks with
+    a ``policy`` across ranks), ``count`` and ``step`` as host int32
+    scalars (``train/step.py``)."""
     def scalar(a):
         return torch.from_numpy(np.array(a, dtype=np.int32))
     opt = state["opt"]
-    return {"params": params_from_jax(cfg, state["params"], device=device),
-            "opt": {"m": params_from_jax(cfg, opt["m"], device=device),
-                    "v": params_from_jax(cfg, opt["v"], device=device),
+
+    def conv(tree):
+        return params_from_jax(cfg, tree, device=device, policy=policy)
+    return {"params": conv(state["params"]),
+            "opt": {"m": conv(opt["m"]), "v": conv(opt["v"]),
                     "count": scalar(opt["count"])},
             "step": scalar(state["step"])}

@@ -35,6 +35,7 @@ from repro_torch.models.common import (chunked_softmax_xent, dense_init,
                                        sinusoid_positions)
 from repro_torch.serve.kvcache import (cache_views, from_prefill,
                                        init_cache, split_rows, update_cache)
+from repro_torch.sharding.policy import require_dense
 
 
 def _ln_init(d, dtype, device):
@@ -98,6 +99,7 @@ def _positions(B, S, device):
 
 def encode(cfg, params, frames, policy=None):
     """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
+    require_dense(cfg, policy)
     B, T, D = frames.shape
     h = frames + sinusoid_positions(T, D, frames.dtype, frames.device)[None]
     if policy is not None:
@@ -178,6 +180,7 @@ def loss_fn(cfg, params, batch, policy=None, **_):
     Returns (loss, metrics). The reference's keywords (``remat``,
     ``loss_chunk``, ...) are accepted and, as there, not read: the
     layers always recompute and the loss runs in chunks of 512."""
+    require_dense(cfg, policy)
     enc_out = encode(cfg, params, batch["frames"], policy)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -241,6 +244,7 @@ def decode_step(cfg, params, tokens, state, policy=None):
     """One decoder token against the cached self and cross attention;
     the self-attention cache is written in place. Returns (logits
     (B,1,V), new state)."""
+    require_dense(cfg, policy)
     cur_pos = state["pos"]
     B = tokens.shape[0]
     n_pos = params["pos_embedding"].shape[0]

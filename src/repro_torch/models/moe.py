@@ -1,13 +1,27 @@
 """Capacity-based top-k mixture of experts (counterpart of
-``repro/models/moe.py``), on one device.
+``repro/models/moe.py``).
 
 Tokens sort by assigned expert, land in a static (E, C, D) capacity
 buffer (C = T·k/E·capacity_factor, rounded up to 128), the expert MLPs
 run as one batched matmul over the expert dim, and results gather back
 with the router's combine weights. Overflow drops, as in the reference.
-The reference splits the tokens into G = the policy's data-parallel
-size dispatch groups; the port executes on a one-rank mesh, where G is
-1 with a policy or without, and constrains where the reference does.
+As in the reference the tokens split into G = the policy's
+data-parallel size dispatch groups (1 without a policy, and where G
+does not divide the tokens), each with its own capacity; ``groups=``
+sets G on one rank (the reference's grouping, to hold a run across
+ranks against).
+
+Across ranks a group is one data rank's tokens, replicated over the
+model axis (the reference's ``xt`` spec), so routing and dispatch run
+on the rank without communication. Tensor-parallel experts (grok) take
+this rank's block of the expert hidden dim: the buffer enters the
+column-parallel gate/up products through ``enter_tp`` and the down
+product is a partial sum, summed over the model axis. Expert-parallel
+experts (dbrx, ``ep_mode``) take this rank's block of the experts: the
+buffer is cut to them and the outputs gathered back over the model
+axis, which is what the buffer specs (E over the model axis, tokens
+replicated on it) lower to; the load-balancing loss sums its token
+counts over the data axis.
 
 Where the reference's XLA ops and PyTorch's differ, the port pins the
 reference's semantics: the sort by expert is stable (``jnp.argsort``
@@ -21,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import activation, dense_init
+from repro_torch.sharding.policy import P, sharded
 
 
 def init_moe_params(cfg, gen, dtype):
@@ -91,36 +106,73 @@ def _group_combine(out_buf, meta, T: int, K: int):
     return unsorted.view(T, K, -1).sum(dim=1)
 
 
-def moe_mlp(cfg, p, x, policy=None):
-    """x (B,S,D) -> (B,S,D), plus the load-balancing auxiliary loss."""
+def moe_mlp(cfg, p, x, policy=None, *, groups=None):
+    """x (B,S,D) -> (B,S,D), plus the load-balancing auxiliary loss.
+    ``groups`` overrides G (one rank only)."""
     B, S, D = x.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
-    T = B * S
-    C = capacity(T, cfg)
+    multi = sharded(policy)
+    if groups is not None and multi:
+        raise ValueError("moe_mlp: groups= is for one rank; across ranks G "
+                         "is the data-parallel size")
+    T = B * S * (policy.dp_size if multi else 1)      # the global tokens
+    G = groups or (policy.dp_size if policy is not None else 1)
+    if T % G:
+        G = 1
+    Tg = T // G
+    local = (B * S) // Tg            # groups on this rank
+    C = capacity(Tg, cfg)
     act = activation(cfg.act)
 
-    xt = x.reshape(T, D)
-    if policy is not None:     # the reference's (G, Tg, D) at G = 1
-        xt = policy.constrain(xt[None], (policy.batch(), None, None))[0]
+    xt = x.reshape(local, Tg, D)
+    if policy is not None:
+        xt = policy.constrain(xt, (policy.batch(), None, None))
     logits = xt.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)                      # (T, E)
-    gate_vals, expert_ids = top_k(probs, K)                    # (T, K)
+    probs = torch.softmax(logits, dim=-1)                  # (G, Tg, E)
+    gate_vals, expert_ids = top_k(probs, K)                # (G, Tg, K)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     # load-balancing auxiliary loss (Switch eq. 4), over all tokens
-    density = torch.nn.functional.one_hot(expert_ids[:, 0], E).float() \
-        .mean(dim=0)
-    aux_loss = E * torch.sum(density * probs.mean(dim=0))
+    top1 = torch.nn.functional.one_hot(expert_ids[..., 0], E).float()
+    if multi:                  # token counts summed over the data axis
+        density = policy.reduce_batch(top1.sum(dim=(0, 1))) / T
+        router_mean = policy.reduce_batch(probs.sum(dim=(0, 1))) / T
+    else:
+        density, router_mean = top1.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+    aux_loss = E * torch.sum(density * router_mean)
 
-    buf, meta = _group_dispatch(xt, expert_ids, gate_vals, C, E)
+    parts = [_group_dispatch(xt[g], expert_ids[g], gate_vals[g], C, E)
+             for g in range(local)]
+    buf = torch.stack([b for b, _ in parts])               # (G, E, C, D)
+    spec = ((policy.batch(), policy.ep_axis, None, None)
+            if policy is not None else None)
+    whole = P(policy.batch(), None, None, None) if policy is not None \
+        else None
     if policy is not None:
-        spec = (policy.batch(), policy.ep_axis, None, None)
-        buf = policy.constrain(buf[None], spec)[0]
-    h = act(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
-    out_buf = torch.bmm(h, p["moe_down"])
+        if multi and policy.ep_axis:       # this rank's experts
+            buf = policy.constrain(buf, spec, src=whole)
+        else:
+            buf = policy.constrain(buf, spec)
+    if multi and not policy.ep_axis:       # TP experts: column-parallel
+        buf = policy.enter_tp(buf)
+    wg, wu, wd = p["moe_gate"], p["moe_up"], p["moe_down"]
+    h = act(_expert_mm(buf, wg)) * _expert_mm(buf, wu)
+    out_buf = _expert_mm(h, wd)
     if policy is not None:
-        out_buf = policy.constrain(out_buf[None], spec)[0]
-    out = _group_combine(out_buf, meta, T, K)
+        if multi and policy.ep_axis:       # every expert back
+            out_buf = policy.constrain(out_buf, whole, src=spec)
+        else:
+            out_buf = policy.constrain(out_buf, spec,
+                                       partial=None if policy.ep_axis
+                                       else policy.tp_axis)
+    out = torch.stack([_group_combine(out_buf[g], parts[g][1], Tg, K)
+                       for g in range(local)])
     if policy is not None:
-        out = policy.constrain(out[None], (policy.batch(), None, None))[0]
+        out = policy.constrain(out, (policy.batch(), None, None))
     return out.reshape(B, S, D).to(x.dtype), aux_loss
+
+
+def _expert_mm(buf, w):
+    """(G, E, C, a) · (E, a, b) -> (G, E, C, b), one batched matmul a
+    group."""
+    return torch.stack([torch.bmm(b, w) for b in buf])

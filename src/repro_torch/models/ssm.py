@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.attention import _proj
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.sharding.policy import require_dense
 
 
 class SSMState(NamedTuple):
@@ -166,6 +167,7 @@ def _gate_out(cfg, p, y, xh, z, x_dtype):
 def ssm_mixer(cfg, p, x, policy=None, *, want_state: bool = False):
     """Full-sequence Mamba2 mixer. x (B,S,D) -> (B,S,D) [, final
     SSMState]."""
+    require_dense(cfg, policy)
     z, xh, Bm, Cm, dt, A, tails = _inputs(cfg, p, x)
     if policy is not None:
         xh = policy.constrain(xh, policy.act_heads())
@@ -206,6 +208,7 @@ def ssm_decode_step(cfg, p, x, state: SSMState, policy=None):
     """Single-token recurrence. x (B,1,D) -> (B,1,D), new state (the
     reference constrains nothing here; ``policy`` is accepted as it is
     there)."""
+    require_dense(cfg, policy)
     di, H, Pd, G, N, K = dims(cfg)
     hg = H // G
     z, xh, Bm, Cm, dt, A, tails = _inputs(cfg, p, x, state)

@@ -15,6 +15,11 @@ gradients upcast before clipping, bias corrections ``1 - b ** count``
 in float32, decoupled weight decay, the result cast back to each
 parameter's dtype. ``count`` is a host int32 scalar, so the schedule
 and the corrections are computed on the host without a device sync.
+
+Across ranks every leaf is this rank's block and the update is
+elementwise on it; only the clipping norm needs the other ranks:
+``update(..., policy=, specs=)`` takes it as the sum of squares over
+every block, each leaf counted once (``global_norm``'s ``axes``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.policy import _names, spec_leaves
 from repro_torch.tree_util import tree_leaves, tree_map
 
 
@@ -60,12 +67,14 @@ class AdamW:
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32)}
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, *, policy=None, specs=None):
         """One step. ``grads`` and ``params`` are trees of one structure;
         ``state`` is ``init``'s. Returns (params, state, metrics), the
         first two being the inputs' tensors updated in place (``count``
         anew); metrics hold ``grad_norm`` (a device scalar, before
-        clipping) and ``lr``."""
+        clipping) and ``lr``. Across ranks ``policy`` and the leaves'
+        ``specs`` (a tree of the same structure) make the norm the
+        whole model's."""
         count = state["count"] + 1
         cf = count.to(torch.float32)
         lr = self.schedule(count - 1)
@@ -78,7 +87,9 @@ class AdamW:
         with torch.no_grad():
             gs, ps = tree_leaves(grads), tree_leaves(params)
             ms, vs = tree_leaves(state["m"]), tree_leaves(state["v"])
-            gnorm = global_norm(gs)
+            gnorm = global_norm(gs, policy=policy,
+                                specs=None if specs is None
+                                else spec_leaves(specs))
             scale = None if self.grad_clip is None else torch.clamp(
                 self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
             for idx in _groups(ps):
@@ -128,11 +139,28 @@ def _groups(leaves):
         yield group
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, policy=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, accumulated in float32
-    (each leaf's norm by one multi-tensor launch)."""
+    (each leaf's norm by one multi-tensor launch). Across ranks
+    (``policy`` off a one-rank mesh, ``specs`` the leaves' specs in
+    leaf order) each leaf is a block: the squares are summed over the
+    axes its spec shards it on, and nowhere else, so a leaf replicated
+    on an axis counts once."""
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     norms = torch._foreach_norm(leaves, 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if policy is None or policy.one_rank:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    by_axes = {}
+    for n, spec in zip(norms, specs):
+        axes = tuple(sorted({a for e in spec for a in _names(e)
+                             if policy.size(a) > 1}))
+        by_axes.setdefault(axes, []).append(n)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for axes, ns in sorted(by_axes.items()):
+        sq = torch.stack(ns).square().sum()
+        for a in axes:
+            sq = C._all_reduce(sq, policy._group(a))
+        total = total + sq
+    return torch.sqrt(total)

@@ -320,7 +320,7 @@ def run_with_restarts(*, make_state: Callable[[], Any],
                       batch_fn: Callable[[int], Any],
                       total_steps: int,
                       ckpt_dir, ckpt_every: int = 10,
-                      state_place=None,
+                      state_place=None, state_gather=None, mesh=None,
                       fail_at: Optional[List[int]] = None,
                       max_restarts: int = 10,
                       on_metrics: Optional[Callable] = None):
@@ -330,7 +330,10 @@ def run_with_restarts(*, make_state: Callable[[], Any],
     failure triggers restore-from-latest and replay, exactly as a real
     preemption/node-loss restart would. ``state_place`` is
     ``ckpt.restore``'s ``place`` (a tree of per-leaf callables; None
-    restores numpy leaves).
+    restores numpy leaves). Across ranks ``state_gather`` and ``mesh``
+    go to ``ckpt.save`` (``gather=``, ``mesh=``): every rank gathers,
+    the mesh's first rank writes, and every rank restores its blocks
+    from the one directory.
     """
     fail_at = set(fail_at or [])
     restarts = 0
@@ -359,7 +362,8 @@ def run_with_restarts(*, make_state: Callable[[], Any],
                 if on_metrics is not None:
                     on_metrics(step, metrics)
                 if step % ckpt_every == 0 or step == total_steps:
-                    ckpt.save(ckpt_dir, step, state)
+                    ckpt.save(ckpt_dir, step, state, gather=state_gather,
+                              mesh=mesh)
             return state, {"restarts": restarts,
                            "straggler": monitor.report()}
         except InjectedFailure:

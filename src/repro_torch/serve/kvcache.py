@@ -16,6 +16,13 @@ memory each step. Stacked caches (a leading depth axis, as
 the in-place writes reach the stack. ``QuantKVCache`` stores K/V as
 int8 with one absmax scale per (position, head), as the reference does;
 ``update_any_cache`` writes either kind and ``read_kv`` dequantizes.
+
+Across ranks (a sharding policy off a one-rank mesh) a cache holds this
+rank's block in the policy's layout (``act_kv_cache``): its batch rows,
+and its KV heads, or — where the KV heads do not divide the model axis —
+its block of the slots (``seq_block``, as ``cut_seq`` makes it). A
+write then lands on the rank that holds the slot; the slot is that of
+the whole cache (``p mod W`` of the whole width for a rolling one).
 """
 from __future__ import annotations
 
@@ -84,22 +91,8 @@ def update_cache(cache: KVCache, k_new, v_new, cur_pos) -> KVCache:
     ``cur_pos`` is an int (all rows at one position — plain batched
     decode) or a (B,) tensor (per-slot positions — the continuous
     batching engine)."""
-    S = cache.k.shape[1]
-    if not torch.is_tensor(cur_pos) or cur_pos.dim() == 0:
-        pos = int(cur_pos)
-        slot = pos % S if cache.window else pos
-        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-        cache.positions[:, slot] = pos
-        return cache
-    # per-row positions: one slot per batch row
-    cur_pos = cur_pos.long()
-    slot = cur_pos % S if cache.window else cur_pos
-    rows = torch.arange(cache.k.shape[0], device=cache.k.device)
-    cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.positions[rows, slot] = cur_pos.to(torch.int32)
-    return cache
+    return _write(cache, {"k": k_new[:, 0], "v": v_new[:, 0]}, cur_pos,
+                  None)
 
 
 def cache_positions(cache: KVCache) -> torch.Tensor:
@@ -157,29 +150,70 @@ def read_kv(cache, dtype=torch.bfloat16):
     return cache.k, cache.v
 
 
-def update_any_cache(cache, k_new, v_new, cur_pos):
-    """Write one token's K/V into a dense or an int8 cache, in place;
-    ``cur_pos`` an int or a (B,) tensor (see ``update_cache``)."""
-    if not isinstance(cache, QuantKVCache):
-        return update_cache(cache, k_new, v_new, cur_pos)
+def _seq_dim(name: str) -> int:
+    return -1 if name == "positions" else -3
+
+
+def cut_seq(cache, index: int, count: int):
+    """Block ``index`` of ``count`` of every tensor's slot dim (a cache
+    of the same kind)."""
+    def cut(name, t):
+        d = _seq_dim(name)
+        n = t.shape[d] // count
+        if t.shape[d] % count:
+            raise ValueError(f"a cache of {t.shape[d]} slots does not split "
+                             f"into {count} blocks")
+        return t.narrow(d, index * n, n).contiguous()
+    return type(cache)(**{
+        f.name: (cut(f.name, getattr(cache, f.name))
+                 if torch.is_tensor(getattr(cache, f.name))
+                 else getattr(cache, f.name))
+        for f in dataclasses.fields(cache)})
+
+
+def _write(cache, values: dict, cur_pos, seq_block):
+    """Write ``values`` (field name -> (B, ...) row for one slot) at the
+    slot of ``cur_pos`` (an int or a (B,) tensor), in place. With
+    ``seq_block`` = (index, count) the cache holds that block of the
+    slots and only rows whose slot lies in it are written."""
     S = cache.k.shape[1]
-    kq, ks = quantize_kv(k_new[:, 0])
-    vq, vs = quantize_kv(v_new[:, 0])
+    index, count = seq_block or (0, 1)
+    total = S * count
     if not torch.is_tensor(cur_pos) or cur_pos.dim() == 0:
         pos = int(cur_pos)
-        slot = pos % S if cache.window else pos
+        slot = (pos % total if cache.window else pos) - index * S
+        if not 0 <= slot < S:
+            return cache
         rows = slice(None)
+        values = dict(values, positions=pos)
     else:
         cur_pos = cur_pos.long()
-        slot = cur_pos % S if cache.window else cur_pos
+        slot = (cur_pos % total if cache.window else cur_pos) - index * S
         rows = torch.arange(cache.k.shape[0], device=cache.k.device)
-        pos = cur_pos.to(torch.int32)
-    cache.k[rows, slot] = kq
-    cache.v[rows, slot] = vq
-    cache.k_scale[rows, slot] = ks
-    cache.v_scale[rows, slot] = vs
-    cache.positions[rows, slot] = pos
+        values = dict(values, positions=cur_pos.to(torch.int32))
+        if seq_block is not None:
+            mine = (slot >= 0) & (slot < S)
+            rows, slot = rows[mine], slot[mine]
+            values = {k: (v[mine] if torch.is_tensor(v) and v.dim() else v)
+                      for k, v in values.items()}
+    for name, v in values.items():
+        t = getattr(cache, name)
+        t[rows, slot] = v.to(t.dtype) if torch.is_tensor(v) else v
     return cache
+
+
+def update_any_cache(cache, k_new, v_new, cur_pos, *, seq_block=None):
+    """Write one token's K/V into a dense or an int8 cache, in place;
+    ``cur_pos`` an int or a (B,) tensor (see ``update_cache``);
+    ``seq_block`` (index, count) for a cache holding a block of the
+    slots."""
+    if not isinstance(cache, QuantKVCache):
+        return _write(cache, {"k": k_new[:, 0], "v": v_new[:, 0]},
+                      cur_pos, seq_block)
+    kq, ks = quantize_kv(k_new[:, 0])
+    vq, vs = quantize_kv(v_new[:, 0])
+    return _write(cache, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs},
+                  cur_pos, seq_block)
 
 
 def split_rows(cache, G: int, batch: int):

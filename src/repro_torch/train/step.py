@@ -26,6 +26,22 @@ tensors, so the hook must be a function of its payload alone).
 
 State: ``{"params", "opt": {"m", "v", "count"}, "step"}``, the
 reference's tree; ``count`` and ``step`` are host int32 scalars.
+
+Across ranks (a policy off a one-rank mesh) the state's leaves are this
+rank's blocks (``init_train_state(..., policy=)``, ``state_shardings``)
+and the batch is this rank's rows of the global batch
+(``data.pipeline.ShardedLoader``). The gradient reductions run inside
+the backward, each where its forward collective stands
+(``Policy.use``, ``sharding/collectives.py``): the FSDP leaves'
+gradients reduce-scatter over the data axis, the leaves replicated over
+it all-reduce (DP), and a leaf replicated over the model axis but used
+on the local heads all-reduces over it (``enter_tp``); every gradient
+leaf is then this rank's block of the whole model's gradient. The
+microbatches are the reference's: microbatch i is rows [i·B/M,
+(i+1)·B/M) of the global batch, so the step gathers the rows and cuts
+each microbatch over the data ranks again. The in-step monitor reads
+the whole leaves it names (``hook.reads``), gathered for it; the
+optimizer's clipping norm sums over every block (``AdamW.update``).
 """
 from __future__ import annotations
 
@@ -36,7 +52,9 @@ import torch
 
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import ShapeOnly
-from repro_torch.tree_util import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.policy import require_dense, sharded, spec_leaves
+from repro_torch.tree_util import (tree_leaves, tree_leaves_with_path,
+                                   tree_map, tree_unflatten)
 
 
 def model_loss_fn(cfg):
@@ -67,6 +85,11 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
                     insitu_every: int = 1) -> Callable:
     loss_fn = model_loss_fn(cfg)
     skip_shapes = {}           # the hook's outputs, from its first skip
+    multi = sharded(policy)
+    if multi:
+        require_dense(cfg, policy)
+        shapes = train_state_shapes(cfg, opt)["params"]
+        specs = policy.tree_specs(shapes)
 
     def value_and_grad(params_c, mb):
         """(loss, metrics, grads) of ``loss_fn`` at ``params_c``; grads in
@@ -85,13 +108,31 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
 
     def split_micro(batch, i):
         def sp(x):
+            if multi:          # the global rows, cut again below
+                x = policy.gather(x, policy.act_rows(x.dim()))
             B = x.shape[0]
             if B % microbatches:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
             n = B // microbatches
-            return x[i * n:(i + 1) * n]
+            x = x[i * n:(i + 1) * n]
+            return policy.named(policy.act_rows(x.dim()))(x) if multi else x
         return {k: sp(v) for k, v in batch.items()}
+
+    def monitor_payload(grads, params):
+        """The hook's payload; across ranks each leaf it reads gathered
+        whole, the others left out (None)."""
+        payload = {"grads": grads, "params": params}
+        if not multi:
+            return payload
+        for source, selected in getattr(insitu_chain, "reads", ()):
+            keep = set(selected(shapes))
+            whole = [policy.gather(leaf, spec) if path in keep else None
+                     for (path, leaf), spec in
+                     zip(tree_leaves_with_path(payload[source]),
+                         spec_leaves(specs))]
+            payload[source] = tree_unflatten(shapes, whole)
+        return payload
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params_c = tree_map(lambda p: p.detach().requires_grad_(
@@ -119,8 +160,8 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
         if insitu_chain is not None:
             # the in-situ chain over the step's device tensors, every
             # `insitu_every` steps; zeros of its outputs otherwise
-            payload = {"grads": grads, "params": state["params"],
-                       "step": state["step"]}
+            payload = dict(monitor_payload(grads, state["params"]),
+                           step=state["step"])
             if int(state["step"]) % insitu_every == 0:
                 metrics["insitu"] = insitu_chain(payload)
             else:
@@ -132,7 +173,8 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
                     for k, (shape, dtype) in skip_shapes.items()}
 
         new_params, new_opt, opt_metrics = opt.update(
-            grads, state["opt"], state["params"])
+            grads, state["opt"], state["params"],
+            **({"policy": policy, "specs": specs} if multi else {}))
         metrics.update(opt_metrics)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
@@ -141,19 +183,21 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
     return train_step
 
 
-def _init_params(cfg, gen, param_dtype, max_target):
+def _init_params(cfg, gen, param_dtype, max_target, policy=None):
     if cfg.family == "encdec":
         return encdec.init_params(cfg, gen, param_dtype,
                                   max_target=max_target)
-    return lm.init_params(cfg, gen, param_dtype)
+    return lm.init_params(cfg, gen, param_dtype, policy=policy)
 
 
 def init_train_state(cfg, opt, gen, *, param_dtype=torch.float32,
-                     max_target: int = 448):
+                     max_target: int = 448, policy=None):
     """A fresh train state: parameters drawn from ``gen`` (a
     ``torch.Generator`` seeded by the caller) on its device, zero
-    optimizer moments, step 0."""
-    params = _init_params(cfg, gen, param_dtype, max_target)
+    optimizer moments, step 0. With a ``policy`` across ranks, this
+    rank's blocks of the one-rank init's values."""
+    require_dense(cfg, policy)
+    params = _init_params(cfg, gen, param_dtype, max_target, policy)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32)}
 
@@ -169,6 +213,23 @@ def train_state_shapes(cfg, opt, *, param_dtype=torch.float32,
 
 def _host_scalar(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
+
+
+def state_gathers(policy, state_shapes):
+    """The whole train state's gathers (a ``ckpt.save(gather=)`` tree of
+    per-leaf callables taking this rank's block to the whole leaf;
+    collective), the scalars as they are."""
+    def whole(x):
+        return x
+    return {
+        "params": policy.tree_gathers(state_shapes["params"]),
+        "opt": {
+            "m": policy.tree_gathers(state_shapes["opt"]["m"]),
+            "v": policy.tree_gathers(state_shapes["opt"]["v"]),
+            "count": whole,
+        },
+        "step": whole,
+    }
 
 
 def state_shardings(policy, state_shapes):

@@ -824,3 +824,111 @@ def test_solver_steps_on_the_kernels_match_plain(gen, solver, grid, decomp,
     (got, e_got), (want, e_want) = out["auto"], out["fourstep"]
     assert float(abs(got - want).max() / abs(want).max()) < 1e-4
     assert abs(e_got - e_want) / e_want < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate's collectives (sharding/collectives.py) on two ranks
+# sharing the card over gloo, forward and backward, against the same ops
+# on CPU tensors
+# ---------------------------------------------------------------------------
+
+COLLECTIVES_RANK = '''
+import datetime, faulthandler, json, os, sys
+faulthandler.dump_traceback_later(100, exit=True)   # a hang shows where
+import torch
+import torch.distributed as dist
+from repro_torch.sharding import collectives as C
+rank, dev = int(sys.argv[1]), sys.argv[4]
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 2),
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+g = dist.group.WORLD
+gen = torch.Generator().manual_seed(7 + rank)
+x = torch.randn((4, 6, 8), generator=gen).to(dev).requires_grad_(True)
+w = torch.randn((8, 6, 16), generator=torch.Generator().manual_seed(9))
+w = w.to(dev)
+ops = {
+    "reduce_sum": lambda t: C.reduce_sum(t, g),
+    "enter": lambda t: C.enter(t, g) * (rank + 1),
+    "gather_slice": lambda t: C.gather(t, 0, 2, rank, g, "slice"),
+    "gather_sum": lambda t: C.gather(t, 0, 2, rank, g, "sum") * (rank + 1),
+    "split": lambda t: C.split(t, 1, 2, rank, g),
+    "all_to_all": lambda t: C.all_to_all(t, 0, 2, 2, g),
+    "reduce_scatter": lambda t: C.reduce_scatter(t, 0, 2, g),
+}
+out = {}
+for name, op in ops.items():
+    y = op(x)
+    grad, = torch.autograd.grad((y * w[:y.shape[0], :y.shape[1],
+                                       :y.shape[2]]).sum(), x)
+    out[name] = [y.detach().cpu().tolist(), grad.cpu().tolist()]
+out["reduce_max"] = C.reduce_max(x, g).cpu().tolist()
+out["device"] = str(C.reduce_sum(x, g).device)
+if dev != "cpu":
+    # a checkpoint saved from a mesh whose axis is the world's group,
+    # after CUDA collectives on it: the save's wait must not hang
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.compat import make_mesh
+    from repro_torch.sharding.policy import make_policy
+    mesh = make_mesh((2,), ("data",), device=dev)
+    pol = make_policy(mesh, global_batch=2)
+    blk = pol.named(("data", None))(torch.arange(32.0).reshape(8, 4))
+    ckpt.save(sys.argv[3], 0, {"w": blk}, mesh=mesh,
+              gather={"w": lambda t: pol.gather(t, ("data", None))})
+    torch.cuda.synchronize()
+print(json.dumps(out), flush=True)
+dist.barrier()
+os._exit(0)
+'''
+
+
+def _two_ranks(tmp_path, dev):
+    """COLLECTIVES_RANK on two ranks with tensors on ``dev``; each
+    rank's results."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    store = str(tmp_path / f"store_{dev.replace(':', '')}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", COLLECTIVES_RANK, str(r), store,
+         str(tmp_path / "ckpt"), dev],
+        env=dict(os.environ, PYTHONPATH=src), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=150)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError("\n".join(p.communicate()[0] for p in procs))
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    return [json.loads(log.strip().splitlines()[-1]) for log in logs]
+
+
+def test_collectives_on_the_card_match_the_cpu(gen, tmp_path):
+    """Every collective helper on CUDA tensors over gloo (two ranks on
+    cuda:0; the reduce-scatter is staged as an all_to_all_single) equals
+    the same helper on CPU tensors over gloo (two ranks), forward and
+    backward; a checkpoint saved from a mesh over both ranks after CUDA
+    collectives on its group holds the whole array. The two devices run
+    in separate pairs of ranks: a pair that ran both on one group hung
+    at its last collective."""
+    import numpy as np
+    cpu = _two_ranks(tmp_path, "cpu")
+    card = _two_ranks(tmp_path, "cuda:0")
+    for want, got in zip(cpu, card):
+        assert got["device"] == "cuda:0" and want["device"] == "cpu"
+        pairs = [(name + part, got[name][i], want[name][i])
+                 for name in ("reduce_sum", "enter", "gather_slice",
+                              "gather_sum", "split", "all_to_all",
+                              "reduce_scatter")
+                 for i, part in enumerate((" forward", " backward"))]
+        pairs.append(("reduce_max", got["reduce_max"], want["reduce_max"]))
+        for name, g, w in pairs:
+            assert torch.allclose(torch.tensor(g, dtype=torch.float64),
+                                  torch.tensor(w, dtype=torch.float64),
+                                  rtol=1e-6, atol=1e-6), name
+    saved = np.load(tmp_path / "ckpt" / "step_00000000" / "arr_00000.npy")
+    np.testing.assert_array_equal(saved, np.arange(32.0).reshape(8, 4))

@@ -236,8 +236,11 @@ def test_sharded_loader_surfaces_a_failed_batch():
 
 
 def test_sharded_loader_refuses_a_mesh_of_many_ranks():
+    """A mesh of several positions but no ranks (shapes only) is refused
+    before the worker starts; a mesh over the world's ranks places each
+    rank's rows (``test_torch_lm_ranks.py``)."""
     import types
     pol = make_policy(types.SimpleNamespace(shape={"data": 2, "model": 1}),
                       global_batch=2)
-    with pytest.raises(NotImplementedError, match="item 18 part 5"):
+    with pytest.raises(ValueError, match="names no ranks"):
         ShardedLoader(lambda s: {}, pol)

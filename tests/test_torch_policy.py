@@ -170,10 +170,15 @@ def test_one_rank_mesh_constrains_to_identity_and_places_leaves():
 
 
 def test_larger_mesh_raises_naming_part_5():
+    """A larger mesh runs across ranks now (``test_torch_lm_ranks.py``);
+    one of shapes only, with no ranks behind it, serves the specs and
+    refuses to execute with ``ValueError``."""
     pol = policy.make_policy(_mesh(MESHES["16x16"]), global_batch=16)
-    with pytest.raises(NotImplementedError, match="item 18 part 5"):
+    assert pol.param_spec(("blocks", "w_up"), (2, 64, 128)) == \
+        (None, "data", "model")
+    with pytest.raises(ValueError, match="names no ranks"):
         pol.constrain(torch.zeros(16, 4, 8), pol.act_hidden())
-    with pytest.raises(NotImplementedError, match="item 18 part 5"):
+    with pytest.raises(ValueError, match="names no ranks"):
         pol.named(pol.act_hidden())
 
 

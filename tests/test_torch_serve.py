@@ -301,8 +301,15 @@ def test_serve_brings_the_cluster_up_from_flags_over_env(monkeypatch, flags,
     assert seen == [(want, torch.device("cpu"))]
 
 
-def test_serve_refuses_a_producer_mesh_of_several_ranks():
-    with pytest.raises(SystemExit, match="item 18 part 5"):
+def test_serve_refuses_a_producer_mesh_of_several_ranks(monkeypatch):
+    """No longer refused: three ranks with one consumer leave a two-rank
+    decode mesh, and serve goes on to bring the cluster up (the run
+    itself: ``test_torch_lm_ranks.py``)."""
+    def fake(cfg, device=None):
+        assert (cfg.num_processes, cfg.process_id) == (3, 0)
+        raise _BroughtUp
+    monkeypatch.setattr(serve, "init_cluster", fake)
+    with pytest.raises(_BroughtUp):
         serve.main(CPU + ["--coordinator", "localhost:1", "--num-processes",
                           "3", "--process-id", "0", "--transit-consumers",
                           "1"])

@@ -127,18 +127,18 @@ def test_launcher_summary_spectra_and_restart(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--num-processes", "3", "--process-id", "0", "--coordinator",
-      "localhost:1", "--transit-consumers", "1"], "item 18 part 5"),
-    (["--num-processes", "2", "--process-id", "0", "--coordinator",
-      "localhost:1"], "item 18 part 5"),
-    (["--num-processes", "2", "--process-id", "0", "--coordinator",
-      "localhost:1", "--transit-consumers", "2"], "leaves no training"),
-    (["--elastic"], "requires --transit-consumers"),
-    (["--transit-async"], "requires --transit-consumers"),
+    pytest.param(["--num-processes", "2", "--process-id", "0",
+                  "--coordinator", "localhost:1", "--transit-consumers",
+                  "2"], "leaves no training",
+                 id="argv2-leaves no training"),
+    pytest.param(["--elastic"], "requires --transit-consumers",
+                 id="argv3-requires --transit-consumers"),
+    pytest.param(["--transit-async"], "requires --transit-consumers",
+                 id="argv4-requires --transit-consumers"),
 ])
 def test_launcher_refusals(argv, match, tmp_path):
-    """A producer mesh of more than one rank is ROADMAP queue 1 item 18
-    part 5; the reference's flag checks, before any process group."""
+    """The reference's flag checks, before any process group. (A world
+    of several ranks trains on its mesh: ``test_torch_lm_ranks.py``.)"""
     with pytest.raises(SystemExit, match=match):
         train.main(CPU + ["--steps", "1", "--ckpt-dir",
                           str(tmp_path / "c")] + argv)

@@ -163,16 +163,16 @@ def a2a_input(rank):
             .reshape(A2A_LOCAL) + 1e4 * rank)
 
 
-def run_ranks(job, workdir, inputs):
+def run_ranks(job, workdir, inputs, world=WORLD):
     workdir = Path(workdir)
     np.savez(workdir / "inputs.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, __file__, job, str(r),
-                               str(WORLD), str(workdir)], env=env,
+                               str(world), str(workdir)], env=env,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(WORLD)]
+             for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -183,7 +183,7 @@ def run_ranks(job, workdir, inputs):
                 p.kill()
                 p.wait()
     codes = [p.returncode for p in procs]
-    assert codes == [0] * WORLD, "\n".join(
+    assert codes == [0] * world, "\n".join(
         f"--- rank {r} (exit {c})\n{log[-3000:]}"
         for r, (c, log) in enumerate(zip(codes, logs)))
     with np.load(workdir / "outputs.npz", allow_pickle=True) as f:
@@ -1092,6 +1092,344 @@ def job_solver(inputs, out, workdir):
                 out[f"solver_{cid}_{k}"] = v
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate across ranks: reduced qwen3-4b on three (data, model)
+# meshes, MoE dispatch groups, checkpoints, the entry points
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-4b"
+LM_MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
+LM_B, LM_S, LM_DECODE = 4, 16, 8
+LM_CACHE = LM_S + LM_DECODE
+LM_CHUNK = 8
+LM_LR, LM_CLIP = 1e-3, 0.05            # the clip binds on every step
+LM_STEPS = {"2x2": 3, "1x4": 1, "4x1": 1}
+LM_MICRO = {"2x2": 2, "1x4": 1, "4x1": 1}
+LM_MONITOR_EVERY = 2
+# MoE: a group of 512 tokens routes ~256 picks to each of 4 experts,
+# twice the 128 slots a capacity factor of 0.25 leaves, so G = 2 and
+# G = 1 drop different tokens
+MOE_ARCHS = ("grok-1-314b", "dbrx-132b")
+MOE_B, MOE_S, MOE_CF = 4, 256, 0.25
+# the other dense decoders on (2, 2): gemma2 (tied embeddings, softcaps,
+# post norms, sliding windows, KV heads over the model axis),
+# h2o-danube (sliding windows over a rolling cache whose slots shard over
+# the model axis) and qwen2.5 (qkv biases, 4 heads padded to 48): prefill
+# past the window, greedy decode that wraps the rolling cache; gemma2's
+# loss and gradients (the tied embedding takes both uses' gradients)
+DENSE_ARCHS = ("gemma2-27b", "h2o-danube-1.8b", "qwen2.5-14b")
+DENSE_S, DENSE_DECODE = 48, 4
+LM_SERVE = ["--reduced", "--device", "cpu", "--bench-out", "", "--batch",
+            "4", "--prompt-len", "16", "--tokens", "4", "--seed", "3"]
+LM_TRAIN = ["--reduced", "--device", "cpu", "--steps", "4", "--batch", "4",
+            "--seq", "16", "--ckpt-every", "2", "--insitu-every", "2",
+            "--seed", "5"]
+
+
+def lm_batch(vocab, step, batch=LM_B, seq=LM_S):
+    from repro_torch.data import synthetic
+    return synthetic.batch_at(step, global_batch=batch, seq_len=seq,
+                              vocab=vocab, seed=0)
+
+
+def moe_config(registry, arch):
+    import dataclasses
+    cfg = registry.get_reduced(arch)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CF))
+
+
+def flatten(tree, prefix):
+    """Nested dicts of arrays -> {prefix + "a/b": array}."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in flatten(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def unflatten(flat, prefix):
+    out = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node = out
+        parts = key[len(prefix):].split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return out
+
+
+def lm_state(params):
+    """The reference's fresh train state over ``params`` (numpy)."""
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return np.zeros_like(tree)
+    return {"params": params, "opt": {"m": zeros(params), "v": zeros(params),
+                                      "count": np.int32(0)},
+            "step": np.int32(0)}
+
+
+def job_lm(inputs, out, workdir):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import registry
+    from repro_torch.core.insitu.chain import InSituChain
+    from repro_torch.core.insitu.endpoints.spectral_monitor import (
+        SpectralMonitorEndpoint)
+    from repro_torch.data.pipeline import ShardedLoader, place_rows
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    from repro_torch.models.convert import (params_from_jax,
+                                            train_state_from_jax)
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding.policy import make_policy, spec_leaves
+    from repro_torch.train import step as tstep
+    from repro_torch.tree_util import tree_leaves
+
+    rank = dist.get_rank()
+    cfg = registry.get_reduced(LM_ARCH)
+    tree = unflatten(inputs, "params/")
+    prompts = inputs["prompts"]
+    shapes = tstep.train_state_shapes(
+        cfg, AdamW(warmup_cosine(LM_LR, 1, 10)))
+
+    def whole_leaves(pol, params):
+        return [pol.gather(t, s).numpy() for t, s in
+                zip(tree_leaves(params),
+                    spec_leaves(pol.tree_specs(shapes["params"])))]
+
+    for mkey, shape in LM_MESHES.items():
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        pol = make_policy(mesh, global_batch=LM_B)
+        params = params_from_jax(cfg, tree, device="cpu", policy=pol)
+
+        def rows(a):
+            return place_rows({"x": a}, pol)["x"]
+
+        def whole(logits):
+            return pol.gather(logits, pol.act_logits(cfg.vocab_size)).numpy()
+
+        with torch.no_grad():
+            logits, state = lm.prefill(cfg, params, {"tokens": rows(prompts)},
+                                       pol, cache_len=LM_CACHE)
+            out[f"{mkey}_prefill"] = whole(logits)
+            if mkey == "2x2":
+                steps, toks = [], []
+                tok = out[f"{mkey}_prefill"][:, -1].argmax(-1)[:, None]
+                for _ in range(LM_DECODE):
+                    toks.append(tok)
+                    logits, state = lm.decode_step(
+                        cfg, params, rows(tok.astype(np.int32)), state, pol)
+                    steps.append(whole(logits))
+                    tok = steps[-1][:, -1].argmax(-1)[:, None]
+                out["2x2_decode"] = np.stack(steps)
+                out["2x2_tokens"] = np.concatenate(toks, axis=1)
+                st = lm.init_decode_state(cfg, LM_B, LM_CACHE,
+                                          torch.float32, pol,
+                                          cache_impl="int8", device="cpu")
+                steps = []
+                for t in range(LM_DECODE):
+                    logits, st = lm.decode_step(
+                        cfg, params, rows(prompts[:, t:t + 1]), st, pol)
+                    steps.append(whole(logits))
+                out["2x2_int8"] = np.stack(steps)
+
+        if mkey == "2x2":
+            leaves = tree_leaves(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            batch = place_rows(lm_batch(cfg.vocab_size, 0), pol)
+            loss, _ = lm.loss_fn(cfg, params, batch, pol,
+                                 loss_chunk=LM_CHUNK)
+            grads = torch.autograd.grad(loss, leaves)
+            out["2x2_loss"] = np.asarray(float(loss.detach()))
+            specs = spec_leaves(pol.tree_specs(shapes["params"]))
+            for i, (g, s) in enumerate(zip(grads, specs)):
+                out[f"2x2_grad_{i:03d}"] = pol.gather(g, s).numpy()
+            for t in leaves:
+                t.requires_grad_(False)
+
+        opt = AdamW(warmup_cosine(LM_LR, 1, 10), grad_clip=LM_CLIP)
+        hook = None
+        if mkey == "2x2":
+            hook = InSituChain([SpectralMonitorEndpoint(
+                source="grads", nbins=8, max_tensors=4)],
+                mesh=mesh).initialize().as_step_hook()
+        step_fn = tstep.make_train_step(
+            cfg, pol, opt, microbatches=LM_MICRO[mkey], loss_chunk=LM_CHUNK,
+            compute_dtype=torch.float32, insitu_chain=hook,
+            insitu_every=LM_MONITOR_EVERY)
+        tstate = train_state_from_jax(cfg, lm_state(tree), device="cpu",
+                                      policy=pol)
+        for step in range(LM_STEPS[mkey]):
+            tstate, m = step_fn(tstate, place_rows(
+                lm_batch(cfg.vocab_size, step), pol))
+            out[f"{mkey}_train_loss_{step}"] = np.asarray(float(m["loss"]))
+            out[f"{mkey}_train_gnorm_{step}"] = np.asarray(
+                float(m["grad_norm"]))
+            if hook is not None:
+                out[f"{mkey}_train_spectra_{step}"] = \
+                    m["insitu"]["insitu_grad_spectra"].numpy()
+        for i, w in enumerate(whole_leaves(pol, tstate["params"])):
+            out[f"{mkey}_train_param_{i:03d}"] = w
+
+        loader = ShardedLoader(lambda s: lm_batch(cfg.vocab_size, s), pol)
+        try:
+            _, b = next(loader)
+        finally:
+            loader.close()
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, {k: v.numpy() for k, v in b.items()})
+        for r, blk in enumerate(got):
+            for k, v in blk.items():
+                out[f"{mkey}_loader_{k}_{r}"] = v
+
+        if mkey == "2x2":
+            _lm_checkpoints(out, workdir, cfg, tree, pol, mesh,
+                            whole_leaves)
+            _lm_moe(inputs, out, registry, mesh)
+            _lm_dense(inputs, out, registry, mesh)
+
+    # the entry points on the world's (2, 2) mesh
+    flags = ["--num-processes", str(dist.get_world_size()), "--process-id",
+             str(rank), "--coordinator", "localhost:1"]
+    rep = serve.main(LM_SERVE + flags)
+    out["serve_sample"] = np.asarray(rep["sample"])
+    out["serve_mesh"] = np.asarray(sorted(rep["mesh"].items()), dtype=object)
+    summ = train.main(LM_TRAIN + flags + [
+        "--ckpt-dir", str(workdir / "train_ckpt"), "--fail-at", "3"])
+    out["train_final_loss"] = np.asarray(summ["final_loss"])
+    out["train_restarts"] = np.asarray(summ["restarts"])
+
+
+def _lm_checkpoints(out, workdir, cfg, tree, pol, mesh, whole_leaves):
+    """A (2, 2) save of the fresh state, a restore of it and of the
+    reference's own checkpoint onto (2, 2)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.models.convert import train_state_from_jax
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train import step as tstep
+    state = train_state_from_jax(cfg, lm_state(tree), device="cpu",
+                                 policy=pol)
+    full = tstep.train_state_shapes(cfg, AdamW(warmup_cosine(LM_LR, 1, 10)))
+    ckpt.save(workdir / "ckpt22", 0, state,
+              gather=tstep.state_gathers(pol, full), mesh=mesh)
+    back = ckpt.restore(workdir / "ckpt22", 0, full,
+                        place=tstep.state_shardings(pol, full))
+    for i, w in enumerate(whole_leaves(pol, back["params"])):
+        out[f"ckpt_restored_{i:03d}"] = w
+    jtree = ckpt.restore(workdir / "jax_ckpt", 0, lm_state(tree))
+    jstate = train_state_from_jax(cfg, jtree, device="cpu", policy=pol)
+    for i, w in enumerate(whole_leaves(pol, jstate["params"])):
+        out[f"ckpt_jax_{i:03d}"] = w
+
+
+def _lm_moe(inputs, out, registry, mesh):
+    """moe_mlp and its gradient on (2, 2) for the TP and EP experts."""
+    import torch
+    from repro_torch.data.pipeline import place_rows
+    from repro_torch.models import moe
+    from repro_torch.sharding.policy import make_policy, period_specs
+    from repro_torch.tree_util import tree_leaves
+    for arch in MOE_ARCHS:
+        cfg = moe_config(registry, arch)
+        pol = make_policy(mesh, global_batch=MOE_B,
+                          ep_mode=cfg.moe.mode == "ep")
+        whole_p = unflatten(inputs, f"moe_{arch}/")
+        local = pol.shard_tree({"l0": {"moe": whole_p}}, ("blocks", 0))
+        spec = period_specs(pol, cfg)["l0"]["moe"]
+        leaves = tree_leaves(local)
+        for t in leaves:
+            t.requires_grad_(True)
+        x = place_rows({"x": inputs[f"moe_{arch}_x"]}, pol)["x"]
+        w = place_rows({"w": inputs[f"moe_{arch}_w"]}, pol)["w"]
+        y, aux = moe.moe_mlp(cfg, pol.use_tree(local["l0"]["moe"], spec),
+                             x, pol)
+        loss = pol.reduce_batch((y * w).sum()) + aux
+        grads = torch.autograd.grad(loss, leaves)
+        out[f"moe_{arch}_y"] = pol.gather(
+            y.detach(), pol.act_hidden()).numpy()
+        out[f"moe_{arch}_aux"] = np.asarray(float(aux))
+        names = sorted(whole_p)
+        for name, g in zip(names, grads):
+            out[f"moe_{arch}_grad_{name}"] = pol.gather(g, spec[name]).numpy()
+
+
+def _lm_dense(inputs, out, registry, mesh):
+    """DENSE_ARCHS on (2, 2): prefill and greedy decode (every arch),
+    loss and every gradient leaf (gemma2)."""
+    import torch
+    from repro_torch.data.pipeline import place_rows
+    from repro_torch.models import lm
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding.policy import make_policy, spec_leaves
+    from repro_torch.train import step as tstep
+    from repro_torch.tree_util import tree_leaves
+    for arch in DENSE_ARCHS:
+        cfg = registry.get_reduced(arch)
+        pol = make_policy(mesh, global_batch=LM_B)
+        params = params_from_jax(cfg, unflatten(inputs, f"dense_{arch}/"),
+                                 device="cpu", policy=pol)
+        prompts = inputs[f"dense_{arch}_prompts"]
+
+        def rows(a):
+            return place_rows({"x": a}, pol)["x"]
+
+        def whole(logits):
+            return pol.gather(logits, pol.act_logits(cfg.vocab_size)).numpy()
+        with torch.no_grad():
+            logits, state = lm.prefill(cfg, params, {"tokens": rows(prompts)},
+                                       pol, cache_len=DENSE_S + DENSE_DECODE)
+            steps = [whole(logits)]
+            for _ in range(DENSE_DECODE):
+                tok = steps[-1][:, -1].argmax(-1)[:, None].astype(np.int32)
+                logits, state = lm.decode_step(cfg, params, rows(tok), state,
+                                               pol)
+                steps.append(whole(logits))
+        out[f"dense_{arch}_logits"] = np.stack(steps)
+        if arch != "gemma2-27b":
+            continue
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = place_rows(lm_batch(cfg.vocab_size, 0), pol)
+        loss, _ = lm.loss_fn(cfg, params, batch, pol, loss_chunk=LM_CHUNK)
+        grads = torch.autograd.grad(loss, leaves)
+        out[f"dense_{arch}_loss"] = np.asarray(float(loss.detach()))
+        specs = spec_leaves(pol.tree_specs(tstep.train_state_shapes(
+            cfg, AdamW(warmup_cosine(LM_LR, 1, 10)))["params"]))
+        for i, (g, sp) in enumerate(zip(grads, specs)):
+            out[f"dense_{arch}_grad_{i:03d}"] = pol.gather(g, sp).numpy()
+
+
+def job_lm_transit(inputs, out, workdir):
+    """``serve`` and ``train`` with ``--transit-consumers 1`` on three
+    ranks: a (2, 1) decode / training mesh and one consumer."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve, train
+    rank = dist.get_rank()
+    flags = ["--num-processes", "3", "--process-id", str(rank),
+             "--coordinator", "localhost:1", "--transit-consumers", "1"]
+    rep = serve.main(LM_SERVE + flags + [
+        "--monitor-every", "2", "--monitor-batch", "2", "--monitor-dir",
+        str(workdir / f"monitor{rank}")])
+    summ = train.main(LM_TRAIN + flags + [
+        "--ckpt-dir", str(workdir / "ckpt"),
+        "--insitu-spectra-dir", str(workdir / f"spectra{rank}")])
+    got = [None] * 3
+    dist.all_gather_object(got, (rep.get("sample"), rep.get("monitor", {})
+                                 .get("files"), summ.get("final_loss"),
+                                 summ.get("spectra_files")))
+    for r, (sample, files, loss, spectra) in enumerate(got):
+        out[f"rank{r}"] = np.asarray([sample, files, loss, spectra],
+                                     dtype=object)
+
+
+
 def main():
     job, rank, world, workdir = sys.argv[1:5]
     rank, world, workdir = int(rank), int(world), Path(workdir)
@@ -1108,7 +1446,8 @@ def main():
         {"distributed": job_distributed, "schedule": job_schedule,
          "rfft": job_rfft, "wire": job_wire,
          "transit": job_transit, "elastic": job_elastic,
-         "solver": job_solver}[job](inputs, out, workdir)
+         "solver": job_solver, "lm": job_lm,
+         "lm_transit": job_lm_transit}[job](inputs, out, workdir)
         dist.barrier()
         if rank == 0:
             tmp = workdir / "outputs.tmp.npz"
