@@ -22,10 +22,15 @@ takes them through ``Policy.use`` at its start (``_use_period``): the
 FSDP axes all-gathered, one period at a time. Under remat that runs
 inside the recomputed body, so the backward gathers each period again,
 in the same order on every rank (every rank runs the same program), and
-the gathers' backward reduce-scatters the gradients.
+the gathers' backward reduce-scatters the gradients. Zamba2's shared
+block is gathered the same way at each use (the hybrid slot of every
+period), so its gradient sums over the uses; its attention and MLP run
+on the local heads and hidden block as the attention layers' do, and the
+SSM layers on the local SSD heads (``models/ssm.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -34,7 +39,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import dense_init, matmul, rms_norm
+from repro_torch.models.common import (ShapeOnly, dense_init, matmul,
+                                       rms_norm)
 from repro_torch.models.common import remat as _remat
 from repro_torch.serve.kvcache import (cache_positions, cache_views, read_kv,
                                        update_any_cache)
@@ -138,7 +144,7 @@ def _fused(cfg, p, shared, x, x0):
 
 def _shared_tail(cfg, shared, x, attn, policy=None):
     """The shared block after its attention: out-projection and MLP."""
-    x = x + attn_mod.out_proj(shared["attn"], attn, cfg)
+    x = x + attn_mod.out_proj(shared["attn"], attn, cfg, policy)
     return x + mlp_mod.mlp(cfg, shared["mlp"],
                            _norm(cfg, x, shared["pre_mlp_norm"]), policy)
 
@@ -186,19 +192,30 @@ def _shared_block(cfg, shared, p, x, x0, positions, policy=None, *,
     """Zamba2 hybrid slot: the shared attn+MLP on concat(x, x0), then the
     slot's own SSM layer."""
     q, k, v = attn_mod.project_qkv(cfg, shared["attn"],
-                                   _fused(cfg, p, shared, x, x0), positions)
+                                   _fused(cfg, p, shared, x, x0), positions,
+                                   policy=policy)
     out = attn_mod.attention(q, k, v, kind="full", cfg=cfg, policy=policy)
     x = _shared_tail(cfg, shared, x, out, policy)
     x, st = _ssm_layer(cfg, p, x, policy, want_state=want_cache)
     return x, (_constrain_cache(k, v, policy) if want_cache else None), st
 
 
-def _use_period(cfg, pparams, policy):
-    """The period's parameters as its layers use them: across ranks,
-    this rank's blocks with the FSDP axes gathered (``Policy.use``)."""
+@functools.lru_cache(maxsize=64)
+def _shared_specs(policy, cfg):
+    """The shared block's specs under ``policy``, from its shapes."""
+    return policy.tree_specs({"shared": init_shared_params(
+        cfg, ShapeOnly(), torch.float32)})["shared"]
+
+
+def _use_period(cfg, pparams, policy, shared=None):
+    """The period's parameters and the shared block as its layers use
+    them: across ranks, this rank's blocks with the FSDP axes gathered
+    (``Policy.use``)."""
     if not sharded(policy):
-        return pparams
-    return policy.use_tree(pparams, period_specs(policy, cfg))
+        return pparams, shared
+    if shared is not None and "hybrid" in cfg.layer_pattern:
+        shared = policy.use_tree(shared, _shared_specs(policy, cfg))
+    return policy.use_tree(pparams, period_specs(policy, cfg)), shared
 
 
 def period_forward(cfg, pparams, x, x0, positions, policy=None, shared=None,
@@ -206,7 +223,7 @@ def period_forward(cfg, pparams, x, x0, positions, policy=None, shared=None,
     """Apply one pattern period. Returns (x, aux, caches, states): caches
     maps f"l{i}" to an attention slot's (k, v), states an SSM or hybrid
     slot's final ``SSMState``, when ``want_cache``."""
-    pparams = _use_period(cfg, pparams, policy)
+    pparams, shared = _use_period(cfg, pparams, policy, shared)
     aux_total = 0.0
     caches, states = {}, {}
     for i, kind in enumerate(cfg.layer_pattern):
@@ -307,7 +324,7 @@ def period_decode(cfg, pparams, x, x0, caches, ssm_states, cur_pos,
     """One-token step through a period. ``caches`` maps f"l{i}" to an
     attention or hybrid slot's cache, ``ssm_states`` an SSM or hybrid
     slot's ``SSMState``; both are updated in place."""
-    pparams = _use_period(cfg, pparams, policy)
+    pparams, shared = _use_period(cfg, pparams, policy, shared)
     for i, kind in enumerate(cfg.layer_pattern):
         key, p = f"l{i}", pparams[f"l{i}"]
         if kind == "ssm":

@@ -15,9 +15,11 @@ Across ranks (a policy off a one-rank mesh) every argument and result
 is this rank's block: ``params`` as ``init_params(..., policy=)`` or
 ``Policy.shard_tree`` cut them, the batch's rows as ``act_tokens``
 cuts them, logits as ``act_logits`` lays them out (``Policy.gather``
-makes them whole), caches as ``act_kv_cache``. The dense and MoE
-decoders run so; the SSM, hybrid and VLM models raise
-``NotImplementedError`` (ROADMAP queue 1 item 18 part 7).
+makes them whole), caches as ``act_kv_cache``, SSM states as the
+mixer leaves them (rows over the batch axes; ``h`` and ``conv`` on the
+local SSD heads, ``conv_B``/``conv_C`` with every group). Every family
+of this module runs so: dense, MoE, SSM, hybrid and the VLM, whose
+patch positions come from this rank's rows of ``patch_embeds``.
 """
 from __future__ import annotations
 
@@ -31,9 +33,10 @@ from repro_torch.models.common import (chunked_softmax_xent, embed_init,
                                        embed_lookup, matmul, rms_norm,
                                        softcap, vocab_sharded)
 from repro_torch.models.ssm import SSMState, init_ssm_state
+from repro_torch.models.ssm import dims as ssm_dims
 from repro_torch.serve.kvcache import (cut_seq, from_prefill, init_cache,
                                        init_quant_cache, split_rows)
-from repro_torch.sharding.policy import require_dense, sharded
+from repro_torch.sharding.policy import sharded
 
 VIT_STUB_DIM = 4096  # InternVL2: pixel-shuffled InternViT feature width
 
@@ -95,15 +98,19 @@ def embed_inputs(cfg, params, batch, policy=None):
 
     For the VLM, the first P positions of the sequence are image
     positions: projected patch embeddings replace the token embeddings
-    there (the vision frontend is a stub, as in the reference)."""
-    require_dense(cfg, policy)
+    there (the vision frontend is a stub, as in the reference). Across
+    ranks ``patch_embeds`` is this rank's rows and ``patch_proj``, which
+    the policy replicates, enters as ``Policy.use`` gives it (its
+    gradient all-reduced over the batch axes)."""
     x = embed_lookup(params["embedding"], batch["tokens"], policy,
                      policy.param_spec(("embedding",),
                                        (cfg.vocab_size, cfg.d_model))
                      if sharded(policy) else None)
     if cfg.frontend == "vit_stub" and "patch_embeds" in batch:
-        patches = matmul(batch["patch_embeds"],
-                         params["patch_proj"]).to(x.dtype)
+        w = params["patch_proj"]
+        if sharded(policy):
+            w = policy.use(w, policy.param_spec(("patch_proj",), w.shape))
+        patches = matmul(batch["patch_embeds"], w).to(x.dtype)
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -231,13 +238,15 @@ def init_decode_state(cfg, batch: int, cache_len: int,
     otherwise ``policy`` is not read, as in the reference."""
     if cache_impl not in ("dense", "int8"):
         raise ValueError(f"cache_impl {cache_impl!r}: dense or int8")
-    require_dense(cfg, policy)
     G = blk.n_groups(cfg)
     n_kv, block = cfg.num_kv_heads, blk.seq_block(cfg, policy)
+    ssm_heads = None
     if sharded(policy):
         batch = policy.local_batch(batch)
         if block is None and policy.tp_axis:
             n_kv //= policy.tp_size()
+        if cfg.ssm is not None and policy.tp_axis:
+            ssm_heads = ssm_dims(cfg)[1] // policy.tp_size()
 
     def mk_cache(window=0):
         if cache_impl == "int8":
@@ -256,7 +265,8 @@ def init_decode_state(cfg, batch: int, cache_len: int,
         if kind in ("ssm", "hybrid"):
             states[key] = SSMState(*(t.unflatten(0, (G, batch)) for t in
                                      init_ssm_state(cfg, G * batch, dtype,
-                                                    device=device)))
+                                                    device=device,
+                                                    heads=ssm_heads)))
         if kind == "ssm":
             continue
         caches[key] = mk_cache(window=(cfg.window or cache_len)

@@ -16,6 +16,21 @@ reference builds the chunk states' product (B, nc, Q, H, N, P) and sums
 it over Q, which XLA fuses; eager PyTorch would materialise it (17 GB at
 mamba2-1.3b's full width, batch 4, 2048 tokens), so here Q is
 contracted inside the einsum.
+
+Across ranks (a policy off a one-rank mesh; the reference's GSPMD
+layout, executed by the port) a rank computes its block of the SSD heads,
+the model axis's share: ``wz``, ``wx_in``, ``wdt``, ``conv_x``,
+``ssm_norm`` and ``out_proj`` arrive as that block (``Policy.use``), and
+so do ``A_log``, ``ssm_D`` and ``dt_bias`` where the policy shards them
+(``Hs`` divisible by the model axis and at least 8); otherwise they arrive
+whole and are cut to the local heads here (their gradient gathered back).
+``wB``, ``wC``, ``conv_B`` and ``conv_C`` are replicated over the model
+axis, so every rank computes every group's B and C and picks the groups
+of its heads by their *global* index (``_local_groups``); B and C enter
+the per-head scan through ``enter_tp`` (their gradient summed over the
+model axis), the column products' input too. The gated RMSNorm reduces
+over P only, so it stays local; ``out_proj``'s contraction over the
+local heads is a partial sum, summed over the model axis.
 """
 from __future__ import annotations
 
@@ -27,7 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.attention import _proj
 from repro_torch.models.common import dense_init, rms_norm
-from repro_torch.sharding.policy import require_dense
+from repro_torch.sharding.policy import sharded
 
 
 class SSMState(NamedTuple):
@@ -141,34 +156,84 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     return y.reshape(B, S, H, Pd), h
 
 
-def _inputs(cfg, p, x, state=None):
-    """The mixer's projections and convolutions: (z, xh, Bm, Cm, dt, A,
-    conv tails); dt through softplus in float32."""
-    z = _proj(x, p["wz"])
-    xh, conv = _causal_conv(_proj(x, p["wx_in"]), p["conv_x"],
+def _local_heads(cfg, p, policy):
+    """(first, count) of the SSD heads this rank computes: all of them
+    on one rank, the model axis's block of them across ranks."""
+    H = dims(cfg)[1]
+    n = p["wz"].shape[1]
+    if not sharded(policy) or n == H:
+        return 0, H
+    if H % policy.tp_size():
+        raise ValueError(f"{cfg.name}: {H} SSD heads do not split over a "
+                         f"model axis of {policy.tp_size()}")
+    return policy.tp_index() * n, n
+
+
+def _head_vector(v, n, policy):
+    """An (Hs,) per-head leaf on this rank's ``n`` heads: as it is where
+    the policy shards it, else cut from the whole (backward: the
+    gradient gathered back to every head)."""
+    if v.shape[0] == n:
+        return v
+    return policy.constrain(v, (policy.tp_axis,), src=(None,))
+
+
+def _local_groups(cfg, t, first: int, n: int):
+    """B or C rows (..., G, N) for heads ``first`` .. ``first + n``:
+    the groups those heads read, by their global index (head h reads
+    group h // (H / G)). Heads a returned row serves = n / its rows."""
+    H, G = dims(cfg)[1], cfg.ssm.n_groups
+    if n == H:
+        return t
+    hg = H // G
+    g0, g1 = first // hg, (first + n - 1) // hg + 1   # the groups read
+    if (g1 - g0) * hg == n or g1 - g0 == 1:   # whole groups, or in one
+        return t[..., g0:g1, :]
+    idx = torch.arange(first, first + n, device=t.device) // hg
+    return t.index_select(-2, idx)   # a row a head
+
+
+def _inputs(cfg, p, x, state=None, policy=None):
+    """The mixer's projections and convolutions on this rank's heads:
+    (z, xh, Bm, Cm, dt, A, conv tails, local heads); dt through softplus
+    in float32. B and C hold the groups of the local heads; the conv
+    tails every group's."""
+    first, n = _local_heads(cfg, p, policy)
+    multi = n != dims(cfg)[1]
+    xt = policy.enter_tp(x) if multi else x    # the column products' input
+    z = _proj(xt, p["wz"])
+    xh, conv = _causal_conv(_proj(xt, p["wx_in"]), p["conv_x"],
                             None if state is None else state.conv)
     Bm, conv_B = _causal_conv(_proj(x, p["wB"]), p["conv_B"],
                               None if state is None else state.conv_B)
     Cm, conv_C = _causal_conv(_proj(x, p["wC"]), p["conv_C"],
                               None if state is None else state.conv_C)
     xh, Bm, Cm = F.silu(xh), F.silu(Bm), F.silu(Cm)
-    dt = F.softplus(_proj(x, p["wdt"]).float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())                   # (H,) < 0
-    return z, xh, Bm, Cm, dt, A, (conv, conv_B, conv_C)
+    if multi:
+        Bm, Cm = (_local_groups(cfg, policy.enter_tp(t), first, n)
+                  for t in (Bm, Cm))
+    dt = F.softplus(_proj(xt, p["wdt"]).float()
+                    + _head_vector(p["dt_bias"], n, policy).float())
+    A = -torch.exp(_head_vector(p["A_log"], n, policy).float())   # (H,) < 0
+    return z, xh, Bm, Cm, dt, A, (conv, conv_B, conv_C), n
 
 
-def _gate_out(cfg, p, y, xh, z, x_dtype):
-    y = y + xh.float() * p["ssm_D"].float()[:, None]
+def _gate_out(cfg, p, y, xh, z, x_dtype, n, policy=None):
+    y = y + xh.float() * _head_vector(p["ssm_D"], n, policy).float()[:, None]
     y = y.to(x_dtype) * F.silu(z)                         # gated
     y = rms_norm(y, p["ssm_norm"], cfg.norm_eps, plus_one=True)
-    return torch.matmul(y.flatten(-2), p["out_proj"].flatten(0, 1))
+    out = torch.matmul(y.flatten(-2), p["out_proj"].flatten(0, 1))
+    if n != dims(cfg)[1]:      # a partial sum over this rank's heads
+        out = policy.constrain(out, policy.act_hidden(),
+                               partial=policy.tp_axis)
+    return out
 
 
 def ssm_mixer(cfg, p, x, policy=None, *, want_state: bool = False):
     """Full-sequence Mamba2 mixer. x (B,S,D) -> (B,S,D) [, final
-    SSMState]."""
-    require_dense(cfg, policy)
-    z, xh, Bm, Cm, dt, A, tails = _inputs(cfg, p, x)
+    SSMState]; across ranks ``x`` and the output are this rank's rows
+    (replicated over the model axis), the state its rows and heads."""
+    z, xh, Bm, Cm, dt, A, tails, n = _inputs(cfg, p, x, policy=policy)
     if policy is not None:
         xh = policy.constrain(xh, policy.act_heads())
         z = policy.constrain(z, policy.act_heads())
@@ -184,7 +249,7 @@ def ssm_mixer(cfg, p, x, policy=None, *, want_state: bool = False):
     y, h_last = _ssd_chunked(xh_p, dt_p, A, Bm_p, Cm_p, Q)
     if pad:
         y = y[:, :S]
-    out = _gate_out(cfg, p, y, xh, z, x.dtype)
+    out = _gate_out(cfg, p, y, xh, z, x.dtype, n, policy)
     if policy is not None:
         out = policy.constrain(out, policy.act_hidden())
     if want_state:
@@ -193,8 +258,11 @@ def ssm_mixer(cfg, p, x, policy=None, *, want_state: bool = False):
 
 
 def init_ssm_state(cfg, batch: int, dtype=torch.float32, *,
-                   device="cuda") -> SSMState:
+                   device="cuda", heads=None) -> SSMState:
+    """A zero state of ``batch`` rows; ``heads`` (default: every SSD
+    head) the heads of a rank's block across ranks."""
     di, H, Pd, G, N, K = dims(cfg)
+    H = heads or H
     return SSMState(
         h=torch.zeros((batch, H, N, Pd), dtype=torch.float32,
                       device=device),
@@ -205,13 +273,16 @@ def init_ssm_state(cfg, batch: int, dtype=torch.float32, *,
 
 
 def ssm_decode_step(cfg, p, x, state: SSMState, policy=None):
-    """Single-token recurrence. x (B,1,D) -> (B,1,D), new state (the
-    reference constrains nothing here; ``policy`` is accepted as it is
-    there)."""
-    require_dense(cfg, policy)
-    di, H, Pd, G, N, K = dims(cfg)
-    hg = H // G
-    z, xh, Bm, Cm, dt, A, tails = _inputs(cfg, p, x, state)
+    """Single-token recurrence. x (B,1,D) -> (B,1,D), new state.
+
+    The reference constrains nothing here. Across ranks the port keeps
+    the layout prefill leaves (``ssm_mixer``'s final state): ``h`` and
+    ``conv`` this rank's rows and heads, ``conv_B``/``conv_C`` its rows
+    with every group (every rank computes every group's B and C). So a
+    step moves no state, and its one collective is ``out_proj``'s sum
+    over the model axis."""
+    z, xh, Bm, Cm, dt, A, tails, n = _inputs(cfg, p, x, state, policy)
+    hg = n // Bm.shape[-2]
     dt = dt[:, 0]                                         # (B,H)
     a = torch.exp(dt * A)                                 # (B,H)
 
@@ -222,5 +293,5 @@ def ssm_decode_step(cfg, p, x, state: SSMState, policy=None):
     h_new = (state.h * a[:, :, None, None]
              + (dt[:, :, None] * Bh)[..., None] * xf[:, :, None, :])
     y = torch.einsum("bhn,bhnp->bhp", Ch, h_new)
-    out = _gate_out(cfg, p, y[:, None], xh, z, x.dtype)
+    out = _gate_out(cfg, p, y[:, None], xh, z, x.dtype, n, policy)
     return out, SSMState(h_new, *tails)

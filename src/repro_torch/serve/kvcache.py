@@ -22,7 +22,12 @@ rank's block in the policy's layout (``act_kv_cache``): its batch rows,
 and its KV heads, or — where the KV heads do not divide the model axis —
 its block of the slots (``seq_block``, as ``cut_seq`` makes it). A
 write then lands on the rank that holds the slot; the slot is that of
-the whole cache (``p mod W`` of the whole width for a rolling one).
+the whole cache (``p mod W`` of the whole width for a rolling one). The
+enc-dec's self-attention cache is laid out so too, and its
+cross-attention K/V (plain tensors) hold this rank's rows and the KV
+heads of its query heads; an SSM layer's state (``models/ssm.SSMState``)
+holds this rank's rows and SSD heads. A stacked cache or state made for
+``G·batch`` rows is split over ``G`` (``split_rows``) as on one rank.
 """
 from __future__ import annotations
 

@@ -74,10 +74,6 @@ from repro_torch.sharding import collectives as C
 
 Spec = Tuple[Any, ...]
 
-PART7 = ("the SSM, hybrid, encoder-decoder and VLM models across ranks "
-         "(a policy off a one-rank mesh) are ROADMAP queue 1 item 18 "
-         "part 7")
-
 # parameter subtrees stacked over depth in the reference
 STACKED = ("layers", "blocks", "enc_layers", "dec_layers", "fuse_projs")
 
@@ -563,18 +559,6 @@ def spec_leaves(specs) -> list:
 def sharded(policy) -> bool:
     """Whether ``policy`` (a ``Policy`` or None) runs across ranks."""
     return policy is not None and not policy.one_rank
-
-
-def require_dense(cfg, policy) -> None:
-    """Raise ``NotImplementedError`` for a model family this slice does
-    not run across ranks, before any collective."""
-    if not sharded(policy):
-        return
-    kinds = set(cfg.layer_pattern)
-    if (cfg.family == "encdec" or cfg.frontend is not None
-            or kinds & {"ssm", "hybrid"}):
-        raise NotImplementedError(f"{cfg.name} on mesh "
-                                  f"{dict(policy.mesh.shape)}: {PART7}")
 
 
 @functools.lru_cache(maxsize=64)

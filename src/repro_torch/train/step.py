@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import ShapeOnly
-from repro_torch.sharding.policy import require_dense, sharded, spec_leaves
+from repro_torch.sharding.policy import sharded, spec_leaves
 from repro_torch.tree_util import (tree_leaves, tree_leaves_with_path,
                                    tree_map, tree_unflatten)
 
@@ -87,7 +87,6 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
     skip_shapes = {}           # the hook's outputs, from its first skip
     multi = sharded(policy)
     if multi:
-        require_dense(cfg, policy)
         shapes = train_state_shapes(cfg, opt)["params"]
         specs = policy.tree_specs(shapes)
 
@@ -186,7 +185,7 @@ def make_train_step(cfg, policy, opt, *, microbatches: int = 1,
 def _init_params(cfg, gen, param_dtype, max_target, policy=None):
     if cfg.family == "encdec":
         return encdec.init_params(cfg, gen, param_dtype,
-                                  max_target=max_target)
+                                  max_target=max_target, policy=policy)
     return lm.init_params(cfg, gen, param_dtype, policy=policy)
 
 
@@ -196,7 +195,6 @@ def init_train_state(cfg, opt, gen, *, param_dtype=torch.float32,
     ``torch.Generator`` seeded by the caller) on its device, zero
     optimizer moments, step 0. With a ``policy`` across ranks, this
     rank's blocks of the one-rank init's values."""
-    require_dense(cfg, policy)
     params = _init_params(cfg, gen, param_dtype, max_target, policy)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32)}

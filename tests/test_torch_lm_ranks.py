@@ -26,8 +26,9 @@ capacity where the reference's G = 2 and G = 1 differ; a (2, 2)
 checkpoint's manifest against a one-rank save, its restore onto (2, 2)
 and (1, 1), and the reference's checkpoint restored onto (2, 2);
 ``serve.main`` and ``train.main`` on four ranks against one, and with
-``--transit-consumers 1`` on three ranks (a two-rank producer mesh); the
-families this slice does not shard raise before any collective.
+``--transit-consumers 1`` on three ranks (a two-rank producer mesh). The
+SSM, hybrid, enc-dec and VLM families across ranks are
+``test_torch_lm_ranks_families.py``'s.
 """
 import json
 import os
@@ -52,7 +53,7 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import registry
 from repro_torch.launch import serve, train
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import encdec, lm, moe
+from repro_torch.models import lm, moe
 from repro_torch.models.convert import params_from_jax, train_state_from_jax
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.sharding.policy import make_policy
@@ -467,22 +468,6 @@ def _multi_rank_policy():
                 torch.device("cpu"), {"data": 0, "model": 0},
                 ranks=(0, 1, 2, 3))
     return make_policy(mesh, global_batch=4)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
-                                  "whisper-medium", "internvl2-2b"])
-def test_unsharded_families_raise_naming_part_7(arch):
-    cfg = registry.get_reduced(arch)
-    pol = _multi_rank_policy()
-    tokens = torch.zeros((4, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 18 part 7"):
-        if cfg.family == "encdec":
-            encdec.loss_fn(cfg, {}, {"tokens": tokens}, pol)
-        else:
-            lm.prefill(cfg, {"embedding": torch.zeros(1)},
-                       {"tokens": tokens}, pol)
-    with pytest.raises(NotImplementedError, match="item 18 part 7"):
-        tstep.make_train_step(cfg, pol, AdamW(warmup_cosine(1e-3, 1, 10)))
 
 
 def test_constrain_off_the_world_raises_value_error():

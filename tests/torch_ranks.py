@@ -1430,6 +1430,268 @@ def job_lm_transit(inputs, out, workdir):
 
 
 
+# ---------------------------------------------------------------------------
+# the SSM, hybrid, enc-dec and VLM families across ranks: each case is a
+# reduced config (with overrides) on one ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# case -> (arch, mesh shape, config overrides). (1, 4) keeps reduced
+# mamba2's 16 SSD heads at 4 a rank, and leaves reduced internvl2's 2 KV
+# heads not dividing the model axis (its cache shards its slots); a
+# vocab of 515 does not divide the model axis (the embedding and head
+# replicate it, as whisper's 51865 and internvl2's 92553 do at full
+# width); mamba2 with 2 groups puts a rank's heads in one group ((1, 4))
+# and in whole groups ((2, 2)); whisper with 2 KV heads on (1, 4) repeats
+# its cross K/V to the local query heads; mamba2 with 4 SSD heads (head
+# dim 32), fewer than the 8 the policy shards A_log, ssm_D and dt_bias
+# at, so a rank cuts its 2 heads from them
+FAM_CASES = {
+    "mamba2_2x2": ("mamba2-1.3b", (2, 2), {}),
+    "zamba2_2x2": ("zamba2-2.7b", (2, 2), {}),
+    "whisper_2x2": ("whisper-medium", (2, 2), {}),
+    "internvl2_2x2": ("internvl2-2b", (2, 2), {}),
+    "mamba2_1x4": ("mamba2-1.3b", (1, 4), {}),
+    "internvl2_1x4": ("internvl2-2b", (1, 4), {}),
+    "whisper_odd": ("whisper-medium", (2, 2), {"vocab_size": 515}),
+    "internvl2_odd": ("internvl2-2b", (2, 2), {"vocab_size": 515}),
+    "mamba2g2_2x2": ("mamba2-1.3b", (2, 2), {"n_groups": 2}),
+    "mamba2g2_1x4": ("mamba2-1.3b", (1, 4), {"n_groups": 2}),
+    "whisperkv2_1x4": ("whisper-medium", (1, 4), {"num_kv_heads": 2}),
+    "mamba2h4_2x2": ("mamba2-1.3b", (2, 2), {"ssm_head_dim": 32}),
+}
+# the cases that also take two AdamW steps
+FAM_TRAIN_CASES = ("mamba2_2x2", "zamba2_2x2", "whisper_2x2",
+                   "internvl2_2x2")
+# AdamW's eps for the trained cases' steps, 1e-2 instead of 1e-8: an
+# element's step is then nearly linear in its gradient where that is
+# small. At 1e-8 Adam divides each element's gradient by its own size,
+# so an element that float32 resolves only to its sign steps by the
+# learning rate either way: reduced zamba2's gradients are resolved to
+# ~1e-3 of a leaf's max (its SSM stack amplifies rounding), and the
+# reference's own one-device and mesh updates then differ by 0.45 of
+# the update
+FAM_TRAIN_EPS = 1e-2
+# the cases whose loader rows (frames, patch embeddings) are held
+FAM_LOADER_CASES = ("whisper_2x2", "internvl2_2x2")
+FAM_B, FAM_S, FAM_DECODE, FAM_FRAMES = 4, 16, 8, 24
+FAM_CHUNK, FAM_STEPS = 8, 2
+FAM_CKPT_CASE = "zamba2_2x2"
+FAM_SERVE = ["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
+             "--bench-out", "", "--batch", "4", "--prompt-len", "16",
+             "--tokens", "4", "--seed", "3"]
+FAM_TRAIN = ["--arch", "whisper-medium", "--reduced", "--device", "cpu",
+             "--steps", "3", "--batch", "4", "--seq", "16", "--ckpt-every",
+             "2", "--insitu-every", "2", "--seed", "5"]
+
+
+def fam_config(registry, key):
+    """A case's config from either package's registry."""
+    import dataclasses
+    arch, _, over = FAM_CASES[key]
+    cfg = registry.get_reduced(arch)
+    over = dict(over)
+    ssm = {k[4:] if k.startswith("ssm_") else k: over.pop(k)
+           for k in ("n_groups", "ssm_head_dim") if k in over}
+    if ssm:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **ssm)
+    return dataclasses.replace(cfg, **over)
+
+
+def fam_opt(adamw, warmup_cosine):
+    """The trained cases' optimizer, from either package's AdamW."""
+    return adamw(warmup_cosine(LM_LR, 1, 10), eps=FAM_TRAIN_EPS)
+
+
+def fam_batch(cfg, step):
+    """A case's training batch (numpy; the modality inputs with it)."""
+    from repro_torch.data import synthetic
+    return synthetic.batch_at(step, global_batch=FAM_B, seq_len=FAM_S,
+                              vocab=cfg.vocab_size, seed=0,
+                              family=cfg.family,
+                              num_patches=cfg.num_patches, patch_dim=4096,
+                              frame_dim=cfg.d_model)
+
+
+def fam_prompt(inputs, key, cfg):
+    """A case's prompt batch (numpy): tokens, and the VLM's patch
+    embeddings or the enc-dec's frames."""
+    b = {"tokens": inputs[f"{key}/prompts"]}
+    for name in ("patch_embeds", "frames"):
+        if f"{key}/{name}" in inputs:
+            b[name] = inputs[f"{key}/{name}"]
+    return b
+
+
+def _state_shapes(state):
+    """The shapes of a decode state's tensors, caches' fields included,
+    in a fixed order."""
+    import dataclasses
+    import torch
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in _state_shapes(state[k])]
+    if isinstance(state, (list, tuple)):
+        return [x for v in state for x in _state_shapes(v)]
+    if dataclasses.is_dataclass(state):
+        return _state_shapes({f.name: getattr(state, f.name)
+                              for f in dataclasses.fields(state)})
+    return [tuple(state.shape)] if torch.is_tensor(state) else []
+
+
+def _fam_one_rank(out, key, cfg, tree, model, opt):
+    """A case on one rank, where the reference also runs on one device
+    (the SSM stacks' gradients, the trained cases' steps): how far the
+    port's own float32 rounding lies from the reference's."""
+    import torch
+    from repro_torch.models.convert import (params_from_jax,
+                                            train_state_from_jax)
+    from repro_torch.train import step as tstep
+    from repro_torch.tree_util import tree_leaves
+
+    def batch(step):
+        return {k: torch.from_numpy(v) for k, v in
+                fam_batch(cfg, step).items()}
+    if cfg.ssm is not None:
+        params = params_from_jax(cfg, tree, device="cpu")
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = model.loss_fn(cfg, params, batch(0), loss_chunk=FAM_CHUNK)
+        for i, g in enumerate(torch.autograd.grad(loss, leaves)):
+            out[f"{key}_one_grad_{i:03d}"] = g.numpy()
+    if key in FAM_TRAIN_CASES:
+        step_fn = tstep.make_train_step(cfg, None, opt, loss_chunk=FAM_CHUNK,
+                                        compute_dtype=torch.float32)
+        state = train_state_from_jax(cfg, lm_state(tree), device="cpu")
+        for step in range(FAM_STEPS):
+            state, m = step_fn(state, batch(step))
+            out[f"{key}_one_train_loss_{step}"] = np.asarray(
+                float(m["loss"]))
+        for i, t in enumerate(tree_leaves(state["params"])):
+            out[f"{key}_one_train_param_{i:03d}"] = t.numpy()
+
+
+def job_lm_families(inputs, out, workdir):
+    """FAM_CASES on four ranks: prefill, greedy decode, loss and every
+    gradient leaf, AdamW steps (FAM_TRAIN_CASES), whisper's encoder
+    output; a (2, 2) checkpoint; serve and train entry points."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import ShardedLoader, place_rows
+    from repro_torch.launch import serve, train
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.convert import (params_from_jax,
+                                            train_state_from_jax)
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.sharding.policy import make_policy, spec_leaves
+    from repro_torch.train import step as tstep
+    from repro_torch.tree_util import tree_leaves
+
+    meshes = {}
+    for key in FAM_CASES:
+        cfg = fam_config(registry, key)
+        shape = FAM_CASES[key][1]
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"),
+                                      device="cpu")
+        mesh = meshes[shape]
+        pol = make_policy(mesh, global_batch=FAM_B)
+        tree = unflatten(inputs, f"{key}/params/")
+        params = params_from_jax(cfg, tree, device="cpu", policy=pol)
+        model = encdec if cfg.family == "encdec" else lm
+        opt = fam_opt(AdamW, warmup_cosine)
+        shapes = tstep.train_state_shapes(cfg, opt)
+        specs = spec_leaves(pol.tree_specs(shapes["params"]))
+
+        def whole(logits):
+            return pol.gather(logits, pol.act_logits(cfg.vocab_size)).numpy()
+
+        if key in FAM_LOADER_CASES:
+            loader = ShardedLoader(lambda s: fam_batch(cfg, s), pol)
+            try:
+                _, b = next(loader)
+            finally:
+                loader.close()
+            got = [None] * dist.get_world_size()
+            dist.all_gather_object(got, {k: v.numpy() for k, v in b.items()})
+            for r, blk in enumerate(got):
+                for k, v in blk.items():
+                    out[f"{key}_loader_{k}_{r}"] = v
+        prompt = place_rows(fam_prompt(inputs, key, cfg), pol)
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                enc = encdec.encode(cfg, params, prompt["frames"], pol)
+                out[f"{key}_encode"] = pol.gather(
+                    enc, pol.act_hidden()).numpy()
+            logits, state = model.prefill(cfg, params, prompt, pol,
+                                          cache_len=FAM_S + FAM_DECODE)
+            # an empty state made for the global batch: this rank's
+            # block in prefill's layout
+            if cfg.family == "encdec":
+                empty = encdec.init_decode_state(
+                    cfg, FAM_B, FAM_S + FAM_DECODE, FAM_FRAMES,
+                    torch.float32, pol, device="cpu")
+            else:
+                empty = lm.init_decode_state(
+                    cfg, FAM_B, FAM_S + FAM_DECODE, torch.float32, pol,
+                    device="cpu")
+            out[f"{key}_state_shapes"] = np.asarray(
+                _state_shapes(empty) == _state_shapes(state))
+            steps = [whole(logits)]
+            for _ in range(FAM_DECODE):
+                tok = steps[-1][:, -1].argmax(-1)[:, None].astype(np.int32)
+                logits, state = model.decode_step(
+                    cfg, params, place_rows({"t": tok}, pol)["t"], state,
+                    pol)
+                steps.append(whole(logits))
+        out[f"{key}_logits"] = np.stack(steps)
+
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = place_rows(fam_batch(cfg, 0), pol)
+        loss, _ = model.loss_fn(cfg, params, batch, pol,
+                                loss_chunk=FAM_CHUNK)
+        grads = torch.autograd.grad(loss, leaves)
+        out[f"{key}_loss"] = np.asarray(float(loss.detach()))
+        for i, (g, sp) in enumerate(zip(grads, specs)):
+            out[f"{key}_grad_{i:03d}"] = pol.gather(g, sp).numpy()
+        del grads, params, leaves
+        if dist.get_rank() == 0:
+            _fam_one_rank(out, key, cfg, tree, model, opt)
+
+        if key in FAM_TRAIN_CASES:
+            step_fn = tstep.make_train_step(cfg, pol, opt,
+                                            loss_chunk=FAM_CHUNK,
+                                            compute_dtype=torch.float32)
+            tstate = train_state_from_jax(cfg, lm_state(tree), device="cpu",
+                                          policy=pol)
+            if key == FAM_CKPT_CASE:
+                ckpt.save(workdir / "fam_ckpt", 0, tstate,
+                          gather=tstep.state_gathers(pol, shapes),
+                          mesh=mesh)
+            for step in range(FAM_STEPS):
+                tstate, m = step_fn(tstate, place_rows(fam_batch(cfg, step),
+                                                       pol))
+                out[f"{key}_train_loss_{step}"] = np.asarray(
+                    float(m["loss"]))
+            for i, (t, sp) in enumerate(zip(tree_leaves(tstate["params"]),
+                                            specs)):
+                out[f"{key}_train_param_{i:03d}"] = pol.gather(t, sp).numpy()
+
+    # the entry points on the world's (2, 2) mesh
+    flags = ["--num-processes", str(dist.get_world_size()), "--process-id",
+             str(dist.get_rank()), "--coordinator", "localhost:1"]
+    rep = serve.main(FAM_SERVE + flags)
+    out["serve_sample"] = np.asarray(rep["sample"])
+    out["serve_mesh"] = np.asarray(sorted(rep["mesh"].items()), dtype=object)
+    summ = train.main(FAM_TRAIN + flags + [
+        "--ckpt-dir", str(workdir / "train_ckpt")])
+    out["train_final_loss"] = np.asarray(summ["final_loss"])
+
+
 def main():
     job, rank, world, workdir = sys.argv[1:5]
     rank, world, workdir = int(rank), int(world), Path(workdir)
@@ -1447,7 +1709,8 @@ def main():
          "rfft": job_rfft, "wire": job_wire,
          "transit": job_transit, "elastic": job_elastic,
          "solver": job_solver, "lm": job_lm,
-         "lm_transit": job_lm_transit}[job](inputs, out, workdir)
+         "lm_transit": job_lm_transit,
+         "lm_families": job_lm_families}[job](inputs, out, workdir)
         dist.barrier()
         if rank == 0:
             tmp = workdir / "outputs.tmp.npz"
