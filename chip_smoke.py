@@ -165,7 +165,7 @@ Phases, each printing one JSON line:
   8. transit — this script started four times (``--job transit``) with
      the REPRO_* env contract (``init_cluster``: gloo, the ranks share
      cuda:0), ``make_transit_meshes(2, 2)``: the producers make seeded
-     radiating-source fields at 8192^2 on their (2,) mesh, 2 go by
+     radiating-source fields at 8192^2 on their (2,) mesh, 1 goes by
      ``TransitBridge.send`` and 3 by ``send_async`` (depth 2), and the
      consumers run the Fig. 2 chain (keep_frac 0.05, insitu) on their
      (2,) slab with the writer on the consumer mesh's first rank. Every
@@ -284,8 +284,8 @@ Phases, each printing one JSON line:
   13. lm_ranks — the LM substrate across ranks: four ranks on the card
      (``--job lm_ranks``, gloo over CUDA tensors) on the (2, 2)
      ``("data", "model")`` mesh under ``make_policy`` (TP over model,
-     FSDP and DP over data). qwen3-4b at full width, 4 of 36 layers:
-     served in float32 (batch 4 x 512, 8 greedy tokens; the gathered
+     FSDP and DP over data). qwen3-4b at full width, 2 of 36 layers:
+     served in float32 (batch 4 x 512, 4 greedy tokens; the gathered
      prefill logits and the teacher-forced decode logits within 1e-4 of
      max |logit| of the same seeded model on one rank, the tokens
      equal), trained 2 steps at bf16 (batch 8 x 512, ``ShardedLoader``);
@@ -303,8 +303,8 @@ Phases, each printing one JSON line:
      enc-dec and VLM models on the same (2, 2) mesh, float32, published
      width, depth cut: mamba2 (5 layers) and zamba2 (one period: five
      SSM layers and the hybrid slot with the shared block) served 4 x
-     512 + 8 greedy tokens, whisper (4 + 4 layers) 4 x 1500 frames with
-     a 64-token prompt, internvl2 (4 layers) 256 patch embeddings and
+     512 + 4 greedy tokens, whisper (2 + 2 layers) 4 x 1500 frames with
+     a 64-token prompt, internvl2 (2 layers) 256 patch embeddings and
      256 tokens; each against the same seeded model on one rank (logits
      1e-4 of max |logit|, the SSM stacks 2e-4, zamba2 on its period and
      on its first 5 SSM layers; the tokens equal); a float32 train step
@@ -319,11 +319,27 @@ Phases, each printing one JSON line:
      restored on one rank. Phase 13's serve and check are the same code
      as phase 14's. Prefill (first and median) and decode ms, each kind
      of collective's bytes a rank, each rank's peak; no flash;
+  15. launch — the launch tools on one rank (``launch_phase``):
+     ``launch/specs.build_cell``'s qwen3-4b cells on a one-rank
+     ``("data", "model")`` mesh at published width and dtypes:
+     prefill_32k at batch 1 x 8192 (bf16, 36 layers), decode_32k at
+     batch 4 against a full 32768-slot bf16 cache, 8 tokens, and
+     train_4k at batch 1 x 4096, 2 of 36 layers, float32 parameters,
+     ``remat_policy="dots_saveable"``; each its ms (median), peak, and
+     the roofline terms of the same cell and shape from
+     ``launch/roofline.trace_costs`` on fake CUDA tensors (depth 0 and
+     1, extrapolated) with bound / measured; FlopCounterMode over the
+     card's run counts exactly the fake trace's flops; the train step's
+     loss within 1e-5 of remat=False, every gradient leaf within 1e-4.
+     Then ``launch/fft_dryrun.build``'s fig2-chain-8192 and slab2d-16384
+     on the four-step kernels, against float64 (5e-5 of max |X|), device
+     ms queued behind the spin kernel against the cells' t_memory and
+     t_compute;
 then one ``{"kernels": [...]}`` line (the flash kernel's row at the
 qwen3-4b shape, and a row at each of phase 11's two shapes; every row
 carries its phase-12 launches, ``train_launches``, its phase-13
-ones, ``lm_ranks_launches``, and its phase-14 ones,
-``lm_families_launches``). The last line is ``{"ok": true,
+ones, ``lm_ranks_launches``, its phase-14 ones,
+``lm_families_launches``, and its phase-15 ones, ``launch_launches``). The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
 anything.
@@ -517,7 +533,7 @@ MONITOR_TURNS = (False, True, True, False)
 TRANSIT_WORLD = 4
 TRANSIT_SPLIT = (2, 2)
 TRANSIT_DIMS = (8192, 8192)
-TRANSIT_SYNC_FIELDS = 2
+TRANSIT_SYNC_FIELDS = 1          # 2 before phase 15 (the time limit)
 TRANSIT_ASYNC_FIELDS = 3          # one past the queue's depth
 TRANSIT_DEPTH = 2
 # the transit serve: phase 5's serve on two ranks, rank 1 the consumer
@@ -4809,8 +4825,9 @@ def train_phase(counters):
 # G = 1 differ. The serve and the float32 check are phase 14's
 # (_fam_serve, _fam_check), with qwen3-4b's depth and seed
 LM_RANKS_WORLD = 4
-LM_RANKS_LAYERS = 4
-LM_RANKS_BATCH, LM_RANKS_PROMPT, LM_RANKS_TOKENS = 4, 512, 8
+# (4 layers and 8 tokens before phase 15: cut for the script's time limit)
+LM_RANKS_LAYERS = 2
+LM_RANKS_BATCH, LM_RANKS_PROMPT, LM_RANKS_TOKENS = 4, 512, 4
 LM_RANKS_PREFILL_REPS = 2
 LM_RANKS_TRAIN_BATCH, LM_RANKS_TRAIN_SEQ = 8, 512
 LM_RANKS_TRAIN_STEPS = 2
@@ -4949,7 +4966,7 @@ def _lm_moe_ranks(rank, mesh):
 # model on one rank (rank 0, a one-rank policy: the same plain route),
 # then a float32 train step against one rank. FAM_RANKS_LAYERS: serve
 # depth (whisper: encoder and decoder layers each); FAM_RANKS_CHECK_LAYERS:
-# the train check's. mamba2 and zamba2 serve 4 x 512 + 8 greedy tokens,
+# the train check's. mamba2 and zamba2 serve 4 x 512 + 4 greedy tokens,
 # whisper 4 x 1500 frames with a 64-token prompt, internvl2 256 patch
 # embeddings and 256 tokens. Bars: logits 1e-4 of max |logit| (the SSM
 # stacks: phase 11's 2e-4, held on their first 5 SSM layers: mamba2's
@@ -4964,8 +4981,9 @@ def _lm_moe_ranks(rank, mesh):
 FAM_RANKS_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "whisper-medium",
                    "internvl2-2b")
 FAM_RANKS_SSM = ("mamba2-1.3b", "zamba2-2.7b")
+# (whisper 4 + 4 and internvl2 4 before phase 15: the time limit)
 FAM_RANKS_LAYERS = {"mamba2-1.3b": 5, "zamba2-2.7b": 6,
-                    "whisper-medium": 4, "internvl2-2b": 4}
+                    "whisper-medium": 2, "internvl2-2b": 2}
 FAM_RANKS_CHECK_LAYERS = {"mamba2-1.3b": 2, "zamba2-2.7b": 6,
                           "whisper-medium": 2, "internvl2-2b": 2}
 FAM_RANKS_SEED = 3
@@ -5494,6 +5512,317 @@ def lm_families_report(ranks, smi, wall):
             assert fr["tokens"] == serve["tokens"], (arch, r)
 
 
+# phase 15, the launch tools: launch/specs.build_cell's qwen3-4b cells on
+# a one-rank ("data", "model") mesh on the card at published width,
+# depth and dtypes (bf16 prefill and decode, float32 train parameters
+# with bf16 compute), cut in batch, sequence or depth only; each run on
+# seeded tensors beside the roofline terms of the same cell at the same
+# shape from launch/roofline.trace_costs on fake CUDA tensors (depth 0
+# and 1, extrapolated over depth as launch/dryrun.py does), and
+# FlopCounterMode over the card's run holding exactly the fake trace's
+# flops. Then launch/fft_dryrun.build's cells on the same mesh on the
+# four-step kernels
+LAUNCH_ARCH = "qwen3-4b"
+LAUNCH_SEED = 15
+LAUNCH_PREFILL = (1, 8192)            # batch, sequence (cell: 32 x 32768)
+LAUNCH_DECODE = (4, 32768, 8)         # batch, cache, tokens (cell: 128)
+LAUNCH_TRAIN = (1, 4096, 2)           # batch, sequence, layers (256, 36)
+LAUNCH_REMAT = "dots_saveable"
+LAUNCH_REPS = 2                     # a counted run, then a timed one
+# the train step with remat_policy against remat=False: the CPU tests'
+# bars (tests/test_torch_train.py), loss relative, each gradient leaf
+# over its max |entry|
+LAUNCH_LOSS_TOL = 1e-5
+LAUNCH_GRAD_TOL = 1e-4
+LAUNCH_FFT_CELLS = ("fig2-chain-8192", "slab2d-16384")
+LAUNCH_FFT_REPS = 5
+
+
+def _cell_roofline(cfg, shape, mesh, **overrides):
+    """The cell's roofline terms at this shape on this mesh: traced on
+    fake tensors of the mesh's device at depth 0 and 1 and extrapolated
+    over the cell's depth (launch/dryrun.py's method)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import specs
+    from repro_torch.models import blocks as blk
+    costs = []
+    for g in (0, 1):
+        built, _ = specs.build_cell(dryrun._with_groups(cfg, g), shape,
+                                    mesh, **overrides)
+        costs.append(rl.trace_costs(built["fn"], built["local_args"],
+                                    device=mesh.device, memory=False))
+    import torch
+    return rl.extrapolate(costs[0], costs[1], blk.n_groups(cfg),
+                          compute_dtype=torch.bfloat16)
+
+
+def _same_shapes(real, meta, what):
+    """Every tensor of ``real`` has the shape and dtype of ``meta``'s
+    tensor at its place (the cell's shape-only args)."""
+    from repro_torch.launch.roofline import _walk
+    got = [(tuple(t.shape), t.dtype) for t in _walk(real)]
+    want = [(tuple(t.shape), t.dtype) for t in _walk(meta)]
+    assert got == want, (what, len(got), len(want))
+
+
+def _roofline_line(cell, ms):
+    bound = max(cell.t_compute, cell.t_memory, cell.t_collective)
+    return {"flops": cell.flops, "hbm_bytes": cell.bytes_hbm,
+            "t_compute_ms": cell.t_compute * 1e3,
+            "t_memory_ms": cell.t_memory * 1e3,
+            "t_collective_ms": cell.t_collective * 1e3,
+            "dominant": cell.dominant, "bound_ms": bound * 1e3,
+            "bound_over_measured": bound * 1e3 / ms}
+
+
+def _counted(fn):
+    """fn() under FlopCounterMode, synchronized: (result, flops)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, fc.get_total_flops()
+
+
+def launch_prefill(cfg, mesh, gen, counters):
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    B, S = LAUNCH_PREFILL
+    shape = ShapeConfig("prefill_32k", S, B, "prefill")
+    built, _ = specs.build_cell(cfg, shape, mesh)
+    params = lm.init_params(cfg, gen, torch.bfloat16)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    _same_shapes((params, batch), built["args"], "prefill args")
+    fn = built["fn"]
+    fresh_peak()
+    zero_counts(counters)
+    (logits, state), flops = _counted(lambda: fn(params, batch))
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    assert logits.shape == (B, 1, cfg.vocab_size), logits.shape
+    assert torch.isfinite(logits).all()
+    del logits, state
+    times = []
+    for _ in range(LAUNCH_REPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    cell = _cell_roofline(cfg, shape, mesh)
+    ms = statistics.median(times)
+    res = {"cell": "prefill_32k", "batch": B, "seq": S,
+           "layers": cfg.num_layers, "dtype": "bfloat16", "ms": ms,
+           "peak_bytes": peak, "card_flops": flops, "launches": launches,
+           **_roofline_line(cell, ms)}
+    assert flops == cell.flops, (flops, cell.flops)
+    del params
+    return res
+
+
+def launch_decode(cfg, mesh, gen, counters):
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    B, S, T = LAUNCH_DECODE
+    shape = ShapeConfig("decode_32k", S, B, "decode")
+    built, _ = specs.build_cell(cfg, shape, mesh)
+    params = lm.init_params(cfg, gen, torch.bfloat16)
+    state = lm.init_decode_state(cfg, B, S, torch.bfloat16, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    _same_shapes((params, tokens, state), built["args"], "decode args")
+    # a full cache: every slot written, the T tokens in its last T slots
+    for c in state["caches"].values():
+        c.k.normal_(generator=gen)
+        c.v.normal_(generator=gen)
+        c.positions.copy_(torch.arange(S, dtype=torch.int32,
+                                       device="cuda").expand_as(c.positions))
+    state["pos"] = S - T
+    fn = built["fn"]
+    fresh_peak()
+    zero_counts(counters)
+    (logits, state), flops = _counted(lambda: fn(params, tokens, state))
+    assert logits.shape == (B, 1, cfg.vocab_size), logits.shape
+    assert torch.isfinite(logits).all()
+    times = []
+    for _ in range(T - 1):
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = fn(params, tok, state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    assert torch.isfinite(logits).all() and state["pos"] == S
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    cell = _cell_roofline(cfg, shape, mesh)
+    ms = statistics.median(times)
+    res = {"cell": "decode_32k", "batch": B, "cache": S, "tokens": T,
+           "layers": cfg.num_layers, "dtype": "bfloat16",
+           "ms_per_token": ms, "peak_bytes": peak, "card_flops": flops,
+           "launches": launches, **_roofline_line(cell, ms)}
+    assert flops == cell.flops, (flops, cell.flops)
+    del params, state, logits
+    return res
+
+
+def _loss_grads(cfg, params, batch, policy, **kw):
+    """The loss and every gradient leaf at ``params`` cast as the train
+    step casts them (bf16 compute)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.train.step import cast_params
+    from repro_torch.tree_util import tree_leaves, tree_map
+    pc = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()),
+                  cast_params(params, torch.bfloat16))
+    leaves = tree_leaves(pc)
+    with torch.enable_grad():
+        loss, _ = lm.loss_fn(cfg, pc, batch, policy, **kw)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def launch_train(cfg, mesh, gen, counters):
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train import step as train_step
+    B, S, L = LAUNCH_TRAIN
+    cfg = dataclasses.replace(cfg, num_layers=L)
+    shape = ShapeConfig("train_4k", S, B, "train")
+    built, policy = specs.build_cell(cfg, shape, mesh,
+                                     remat_policy=LAUNCH_REMAT)
+    fresh_peak()
+    state = train_step.init_train_state(
+        cfg, AdamW(warmup_cosine(3e-4, 2000, 100_000)), gen,
+        param_dtype=torch.float32, max_target=S)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    _same_shapes((state, batch), built["args"], "train args")
+    # the step's loss and gradients with the policy against remat=False
+    loss_plain, g_plain = _loss_grads(cfg, state["params"], batch, policy,
+                                      remat=False)
+    loss_pol, g_pol = _loss_grads(cfg, state["params"], batch, policy,
+                                  remat=True, remat_policy=LAUNCH_REMAT)
+    grad_err = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(g_pol, g_plain))
+    del g_plain, g_pol
+    fn = built["fn"]
+    zero_counts(counters)
+    (out, flops) = _counted(lambda: fn(state, batch))
+    state, metrics = out
+    step_loss = float(metrics["loss"])
+    loss_err = abs(step_loss - loss_plain) / max(abs(loss_plain), 1e-30)
+    launches = launch_counts(counters)
+    times = []
+    for _ in range(LAUNCH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch)
+        float(metrics["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    cell = _cell_roofline(cfg, shape, mesh, remat_policy=LAUNCH_REMAT)
+    ms = statistics.median(times)
+    res = {"cell": "train_4k", "batch": B, "seq": S, "layers": L,
+           "param_dtype": "float32", "compute_dtype": "bfloat16",
+           "remat_policy": LAUNCH_REMAT,
+           "microbatches": built["meta"]["microbatches"], "ms": ms,
+           "peak_bytes": peak, "card_flops": flops, "launches": launches,
+           "loss": step_loss, "loss_remat_policy": loss_pol,
+           "loss_err_vs_no_remat": loss_err,
+           "grad_err_vs_no_remat": grad_err,
+           **_roofline_line(cell, ms)}
+    assert flops == cell.flops, (flops, cell.flops)
+    assert math.isfinite(step_loss), step_loss
+    assert loss_err <= LAUNCH_LOSS_TOL, res
+    assert abs(loss_pol - loss_plain) <= LAUNCH_LOSS_TOL * abs(loss_plain), \
+        res
+    assert grad_err <= LAUNCH_GRAD_TOL, res
+    del state
+    return res
+
+
+def launch_fft(kind, mesh, gen, counters):
+    """One fft_dryrun cell on the card's one-rank mesh, on the kernels:
+    the launches of its checked run, its error against float64
+    (torch.fft in complex128), device ms queued behind the spin kernel
+    against the cell's byte and flop times."""
+    import torch
+    from repro_torch.core.fft.filters import lowpass_mask
+    from repro_torch.launch import fft_dryrun
+    from repro_torch.launch import roofline as rl
+    fn, args, _, mf, nbytes = fft_dryrun.build(kind, mesh)
+    re = torch.randn(tuple(args[0].shape), generator=gen, device="cuda")
+    im = torch.randn(tuple(args[1].shape), generator=gen, device="cuda")
+    zero_counts(counters)
+    out_re, out_im = fn(re, im)
+    torch.cuda.synchronize()
+    launches = launch_counts(counters)
+    z = torch.complex(re.double(), im.double())
+    want = torch.fft.fft2(z)
+    if kind.startswith("fig2-chain"):
+        mask = lowpass_mask(tuple(re.shape), KEEP_FRAC).to("cuda").double()
+        want = torch.fft.ifft2(want * mask)
+    del z
+    err = float((torch.complex(out_re.double(), out_im.double())
+                 - want).abs().max() / want.abs().max())
+    del want, out_re, out_im
+    ms = queued_device_ms(lambda: fn(re, im), LAUNCH_FFT_REPS)
+    cell = rl.CellCost(flops=mf, bytes_hbm=nbytes, coll_bytes=0.0,
+                       coll_by_kind={}, compute_dtype=torch.float32)
+    res = {"cell": kind, "shape": list(re.shape), "device_ms": ms,
+           "max_rel_err_vs_f64": err, "launches": launches,
+           "t_memory_ms": cell.t_memory * 1e3,
+           "t_compute_ms": cell.t_compute * 1e3,
+           "bound_over_measured": max(cell.t_memory, cell.t_compute)
+           * 1e3 / ms}
+    assert launches["fft_fourstep"] > 0, res
+    assert err <= FFT_TOL_F64, res
+    del re, im
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_phase(counters, smi):
+    """Phase 15: the launch tools' cells on the card (see LAUNCH_ARCH
+    above). Returns the cells' lines by name."""
+    import torch
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    cfg = registry.get_config(LAUNCH_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(LAUNCH_SEED)
+    cells = {}
+    for run in (launch_prefill, launch_decode, launch_train):
+        res = run(cfg, mesh, gen, counters)
+        torch.cuda.empty_cache()
+        emit({"phase": "launch_cell", "arch": LAUNCH_ARCH,
+              "nvidia_smi": smi, **res})
+        cells[res["cell"]] = res
+    for kind in LAUNCH_FFT_CELLS:
+        res = launch_fft(kind, mesh, gen, counters)
+        emit({"phase": "launch_fft_cell", "nvidia_smi": smi, **res})
+        cells[kind] = res
+    emit({"phase": "launch_seconds", "seconds": time.perf_counter() - t0})
+    return cells
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5839,6 +6168,11 @@ def main() -> int:
     # zamba2, whisper and internvl2 served and train-checked on it
     lm_ranks = lm_ranks_phase(smi)
 
+    # 15. the launch tools: qwen3-4b's dry-run cells (launch/specs.py) at
+    # published width on a one-rank mesh against their fake traces
+    # (launch/roofline.py), and fft_dryrun's cells on the kernels
+    launch = launch_phase(all_counters, smi)
+
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
         (producers first) and the transit serve (rank 0 decodes)."""
@@ -6120,6 +6454,16 @@ def main() -> int:
         k["lm_families_launches_from"] = (
             "phase 14, by rank: mamba2, zamba2, whisper and internvl2 "
             "served on the (2, 2) mesh: none by design")
+        # phase 15: the LM cells run under a policy (no flash); the FFT
+        # cells run the four-step kernels
+        k["launch_launches"] = {c: r["launches"][k["name"]]
+                                for c, r in launch.items()}
+        k["launch_launches_from"] = (
+            f"phase 15: {LAUNCH_ARCH}'s prefill_32k, decode_32k ("
+            f"{LAUNCH_DECODE[2]} tokens) and train_4k cells from "
+            f"launch/specs.py on a one-rank mesh (under a policy: no "
+            f"flash), and launch/fft_dryrun.py's "
+            f"{', '.join(LAUNCH_FFT_CELLS)} on the kernels")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

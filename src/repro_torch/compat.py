@@ -218,7 +218,12 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
             if me in ring:
                 groups[name] = g
     mesh_group = None if whole else dist.new_group(sorted(ranks))
-    host_group = dist.new_group(sorted(ranks), backend="gloo")
+    # the host tail's group is gloo's; a world of the "fake" backend
+    # (one process standing in for every rank: the dry run) has no gloo
+    # store, so its host group is a fake one too
+    host_group = dist.new_group(
+        sorted(ranks),
+        backend="fake" if dist.get_backend() == "fake" else "gloo")
     if pos is None:
         groups, mesh_group, host_group = {}, None, None
     elif device.type == "cuda":

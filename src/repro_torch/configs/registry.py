@@ -13,7 +13,7 @@ import dataclasses
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 ARCH_MODULES: Dict[str, str] = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
@@ -45,6 +45,20 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def cells(arch: str) -> List[ShapeConfig]:
+    """The dry-run cells for one arch. ``long_500k`` runs only for
+    sub-quadratic archs (SSM / hybrid / SWA), as in the reference."""
+    cfg = get_config(arch)
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.subquadratic:
+        out.append(SHAPES["long_500k"])
+    return out
+
+
+def all_cells() -> List[tuple]:
+    return [(a, s.name) for a in list_archs() for s in cells(a)]
 
 
 def reduce_common(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -251,10 +251,12 @@ def slab_fft_3d(re, im, mesh: Mesh, axis_name: str = "data", *,
 
 def pencil_fft_3d(re, im, mesh: Mesh,
                   axes: Tuple[str, str] = ("data", "model"), *,
-                  backend: str = "auto") -> Pair:
+                  backend: str = "auto", wire_dtype=None) -> Pair:
     """3-D FFT: z-pencils P(..., a0, a1, None) → x-pencils
-    P(..., None, a0, a1)."""
-    sched = S.pencil_3d(mesh, tuple(axes), backend=backend)
+    P(..., None, a0, a1); ``wire_dtype`` one wire for both exchanges or
+    one a stage (``schedule._wire_tuple``)."""
+    sched = S.pencil_3d(mesh, tuple(axes), backend=backend,
+                        wire_dtype=wire_dtype)
     return execute_schedule(sched, mesh, re, im)
 
 

@@ -401,7 +401,8 @@ def half_mask(full_mask) -> torch.Tensor:
     return m[..., : half_bins(m.shape[-1])]
 
 
-def rfft_chain_2d(x, full_mask, mesh: Mesh, axis_name: str = "data"):
+def rfft_chain_2d(x, full_mask, mesh: Mesh, axis_name: str = "data", *,
+                  backend: str = "auto"):
     """The paper's fwd → bandpass → inv chain on the half-spectrum, on
     this rank's (..., N0, N1) block of P(..., ax, None); ``full_mask`` is
     the global (N0, N1) mask."""
@@ -410,6 +411,6 @@ def rfft_chain_2d(x, full_mask, mesh: Mesh, axis_name: str = "data"):
     hp = padded_half(n1, mesh.shape[axis_name])
     hm = distributed.shard(halfspec_mask(full_mask, hp).float(), mesh,
                            (None, axis_name))
-    re, im = rfft2_slab(x, mesh, axis_name)
+    re, im = rfft2_slab(x, mesh, axis_name, backend=backend)
     re, im = re * hm, im * hm
-    return irfft2_slab(re, im, n1, mesh, axis_name)
+    return irfft2_slab(re, im, n1, mesh, axis_name, backend=backend)

@@ -54,6 +54,7 @@ import torch.distributed as dist
 from repro_torch.compat import Mesh, axis_crosses_processes
 from repro_torch.core.fft import wire as wire_mod
 from repro_torch.core.fft.dft import cmul, fft_along
+from repro_torch.sharding import collectives as C
 
 # A wire spec entry is a dtype NAME ("bfloat16"), a wire CODEC name
 # ("int8", "int8_block64", "bf16"; see wire.py), or None (exact).
@@ -176,6 +177,8 @@ class AllToAll:
         send = payload.unflatten(s, (self.shards, n // self.shards))
         send = send.movedim(s, 0).contiguous()
         out = torch.empty_like(send)
+        C.record_wire("all-to-all", send.numel() * send.element_size(),
+                      self.shards)
         work = dist.all_to_all_single(out, send,
                                       group=mesh.group(self.axis_name),
                                       async_op=True)

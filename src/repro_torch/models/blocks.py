@@ -252,14 +252,10 @@ def stack_forward(cfg, blocks: List[Dict[str, Any]], x, positions,
                   policy=None, shared=None, *, remat: bool = True,
                   remat_policy=None):
     """All periods over depth; with ``remat``, each period's activations
-    are recomputed in the backward pass instead of kept. Returns (x,
-    summed aux loss, a float32 scalar). ``remat_policy`` (the reference's
-    ``jax.checkpoint`` saveable policies, which only ``launch/specs.py``
-    passes) is ROADMAP queue 1 item 19."""
-    if remat_policy is not None:
-        raise NotImplementedError(
-            "stack_forward: remat_policy (a checkpoint saveable policy) is "
-            "ROADMAP queue 1 item 19; pass None")
+    are recomputed in the backward pass instead of kept, but for what
+    ``remat_policy`` saves (``common.checkpoint_policy``: the counterpart
+    of the reference's ``jax.checkpoint`` saveable policy). Returns (x,
+    summed aux loss, a float32 scalar)."""
     x0 = x
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -270,7 +266,7 @@ def stack_forward(cfg, blocks: List[Dict[str, Any]], x, positions,
 
     for gparams in blocks:
         if remat:
-            x, a = _remat(body, x, gparams)
+            x, a = _remat(body, x, gparams, policy=remat_policy)
         else:
             x, a = body(x, gparams)
         aux = aux + a

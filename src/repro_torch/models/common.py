@@ -5,16 +5,19 @@ The init functions draw from an explicit ``torch.Generator`` and make
 the tensor on that generator's device; a ``ShapeOnly`` in its place
 makes shapes only (tensors on the ``meta`` device, the counterpart of
 ``jax.eval_shape``). ``remat`` is ``jax.checkpoint``'s counterpart:
-activation checkpointing while autograd records.
+activation checkpointing while autograd records, with an optional
+saveable policy (``checkpoint_policy``) for selective checkpointing.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.sharding import collectives as C
 
@@ -130,13 +133,59 @@ def matmul(a, b):
     return a @ b
 
 
-def remat(fn, *args):
+_aten = torch.ops.aten
+# the products ``dots_saveable`` keeps: what ``jax.checkpoint_policies.
+# dots_saveable`` keeps (dot_general outputs) as they reach the dispatcher
+DOT_OPS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
+           _aten.baddbmm.default)
+
+
+def dots_saveable(ctx, op, *args, **kwargs):
+    """Keep every matrix product's output; recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def nothing_saveable(ctx, op, *args, **kwargs):
+    """Keep nothing; recompute every intermediate (plain ``remat``)."""
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+CHECKPOINT_POLICIES = {"dots_saveable": dots_saveable,
+                       "nothing_saveable": nothing_saveable}
+
+
+def checkpoint_policy(policy):
+    """A saveable policy in the form ``create_selective_checkpoint_
+    contexts`` takes: a name of ``CHECKPOINT_POLICIES`` (the counterparts
+    of ``jax.checkpoint_policies.dots_saveable`` / ``nothing_saveable``),
+    or a list of ops to save, or a callable ``(ctx, op, *args, **kwargs)
+    -> CheckpointPolicy``, taken as they are."""
+    if isinstance(policy, str):
+        if policy not in CHECKPOINT_POLICIES:
+            raise ValueError(f"remat policy {policy!r}: one of "
+                             f"{sorted(CHECKPOINT_POLICIES)}, a list of "
+                             f"ops or a callable")
+        return CHECKPOINT_POLICIES[policy]
+    if callable(policy) or isinstance(policy, (list, tuple)):
+        return policy
+    raise TypeError(f"remat policy {policy!r}: a name, a list of ops or a "
+                    f"callable")
+
+
+def remat(fn, *args, policy=None):
     """``fn(*args)``, its intermediates recomputed in the backward pass
     instead of kept (``jax.checkpoint``) when autograd records; a plain
-    call otherwise."""
-    if torch.is_grad_enabled():
+    call otherwise. ``policy`` (``checkpoint_policy``) names what is
+    kept instead of recomputed (``jax.checkpoint(policy=...)``)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if policy is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          checkpoint_policy(policy)))
 
 
 # ---------------------------------------------------------------------------

@@ -318,6 +318,9 @@ def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
     x = _ln(x, _use(policy, cfg, params["dec_final"], "dec_final"),
             cfg.norm_eps)
 
+    if not caches:       # no decoder layer (a dry run's depth 0)
+        return _last_logits(cfg, params, x, policy), {"pos": S}
+
     def stacked(i, j):   # ((k, v), (kc, vc))[i][j] over the layers
         return torch.stack([c[i][j] for c in caches])
 

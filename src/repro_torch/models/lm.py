@@ -206,12 +206,12 @@ def prefill(cfg, params, batch, policy=None, *, cache_len: int = 0):
                  plus_one=True)
     states = {key: SSMState(*(torch.stack([s[key][f] for s in raw_states])
                               for f in range(len(SSMState._fields))))
-              for key in raw_states[0]}
+              for key in (raw_states[0] if raw_states else ())}
     del raw_states
     caches = {}
     for i, kind in enumerate(cfg.layer_pattern):
         key = f"l{i}"
-        if key not in raw[0]:
+        if not raw or key not in raw[0]:     # no period, or no cache
             continue
         k = torch.stack([c[key][0] for c in raw])
         v = torch.stack([c[key][1] for c in raw])

@@ -77,7 +77,11 @@ def _group_dispatch(xt, expert_ids, gate_vals, C: int, E: int):
 
     # rank of each pick among its expert's picks (the reference's
     # cumsum of one-hots): its place in the sorted run of that expert
-    counts = torch.bincount(sorted_expert, minlength=E)
+    # (a scatter of ones, not bincount: its E bins are a static shape,
+    # so the dispatch traces on fake tensors, launch/dryrun.py)
+    counts = torch.zeros(E, dtype=sorted_expert.dtype,
+                         device=dev).scatter_add_(
+        0, sorted_expert, torch.ones_like(sorted_expert))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_expert = (torch.arange(T * K, device=dev)
                      - starts[sorted_expert])

@@ -35,6 +35,14 @@ and a local sum (``_reduce_scatter``), which every backend takes.
 
 ``BYTES`` counts the bytes each kind of collective sent from this rank
 (payload bytes, not wire bytes), for the per-step accounting.
+
+``WIRE`` counts each collective's per-rank wire bytes by kind, from its
+result bytes and its group size n with a ring algorithm's factors (the
+reference's roofline, ``launch/roofline.py``): all-reduce 2(n-1)/n of
+its bytes, all-gather (n-1)/n of its result, reduce-scatter (n-1) times
+its result, all-to-all (n-1)/n of its bytes; ``"total"`` sums them. The
+FFT schedules' exchanges (``core/fft/schedule.py``) count there too.
+``launch/roofline.trace_costs`` reads it.
 """
 from __future__ import annotations
 
@@ -46,19 +54,46 @@ import torch.distributed as dist
 BYTES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                          "reduce_scatter": 0, "all_to_all": 0}
 
+WIRE: Dict[str, float] = {}
+
+# per-rank wire bytes over result bytes of a ring over n ranks
+RING_FACTORS = {"all-reduce": lambda n: 2 * (n - 1) / n,
+                "all-gather": lambda n: (n - 1) / n,
+                "reduce-scatter": lambda n: float(n - 1),
+                "all-to-all": lambda n: (n - 1) / n}
+
 
 def reset_bytes() -> None:
     for k in BYTES:
         BYTES[k] = 0
 
 
+def reset_wire() -> None:
+    WIRE.clear()
+
+
+def record_wire(kind: str, result_bytes: int, n: int) -> None:
+    """Count one collective of ``kind`` over ``n`` ranks whose result
+    holds ``result_bytes`` on this rank (nothing moves for n <= 1)."""
+    if n <= 1:
+        return
+    wire = RING_FACTORS[kind](n) * result_bytes
+    WIRE[kind] = WIRE.get(kind, 0.0) + wire
+    WIRE["total"] = WIRE.get("total", 0.0) + wire
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _count(kind: str, t: torch.Tensor) -> None:
-    BYTES[kind] += t.numel() * t.element_size()
+    BYTES[kind] += _nbytes(t)
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
     out = x.contiguous().clone()
     _count("all_reduce", out)
+    record_wire("all-reduce", _nbytes(out), dist.get_world_size(group))
     dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -67,6 +102,7 @@ def _all_gather(x: torch.Tensor, dim: int, n: int, group):
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     _count("all_gather", x)
+    record_wire("all-gather", n * _nbytes(x), n)
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -79,6 +115,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, n: int, group):
     send = send.contiguous()
     recv = torch.empty_like(send)
     _count("reduce_scatter", send)
+    record_wire("reduce-scatter", _nbytes(send) // n, n)
     dist.all_to_all_single(recv, send, group=group)
     return recv.sum(dim=0)
 
@@ -89,6 +126,7 @@ def _all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, n: int,
     send = send.movedim(split_dim, 0).contiguous()
     recv = torch.empty_like(send)
     _count("all_to_all", send)
+    record_wire("all-to-all", _nbytes(send), n)
     dist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=cat_dim)   # block j from rank j
 

@@ -329,12 +329,32 @@ def test_train_state_from_jax_and_shapes(qwen):
         assert torch.equal(a, b)
 
 
-def test_remat_policy_is_item_19(qwen):
-    _, cfg, tree = qwen
-    with pytest.raises(NotImplementedError, match="item 19"):
-        lm.loss_fn(cfg, params_from_jax(cfg, tree, device="cpu"),
-                   {k: torch.from_numpy(v) for k, v in _batch(cfg).items()},
-                   remat_policy=object())
+def test_remat_policy_matches_reference_policy(qwen):
+    """``remat_policy="dots_saveable"`` (the products kept, the rest
+    recomputed) against the reference's ``loss_fn`` under
+    ``jax.checkpoint_policies.dots_saveable``: loss and every gradient
+    leaf at this file's bars."""
+    jcfg, cfg, tree = qwen
+    jpol, tpol = _policies()
+    batch = _batch(cfg)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jlm.loss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in
+                                         batch.items()}, jpol,
+                              loss_chunk=CHUNK,
+                              remat_policy=jax.checkpoint_policies
+                              .dots_saveable), has_aux=True))(
+        jax.tree.map(jnp.asarray, tree))
+    params = params_from_jax(cfg, tree, device="cpu")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tl, _ = lm.loss_fn(cfg, params, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()}, tpol,
+                       loss_chunk=CHUNK, remat_policy="dots_saveable")
+    grads = torch.autograd.grad(tl, leaves)
+    assert abs(float(tl.detach()) - float(jl)) <= LOSS_TOL * abs(float(jl))
+    for g, w in zip(grads, _port_leaves(cfg, jg)):
+        _rel_close(g.numpy(), w.numpy(), GRAD_TOL)
 
 
 def test_every_family_trains_one_step():
