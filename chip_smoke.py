@@ -44,7 +44,11 @@ Four main paths (and the real, r2c/c2r, variants of the first two):
     and transit runs;
   * the LM substrate across ranks (phase 13): qwen3-4b served and
     trained on a (2, 2) mesh of four ranks sharing the card, dbrx's MoE
-    layer with two dispatch groups.
+    layer with two dispatch groups;
+  * the entry points outside the package (phase 16): the four examples,
+    the wisdom CLI and the cluster launcher, among them h2o-danube-1.8b
+    served from its rolling cache under the logits monitor at published
+    width.
 
 Phases, each printing one JSON line:
   1. device  — card name, power limit, TF32 switched off;
@@ -116,9 +120,10 @@ Phases, each printing one JSON line:
      endpoints at 8192² and 10000² in both modes (run in phase 4, beside
      the complex chain, against the same float64 oracle; the energies
      are the half-spectrum's stored bins', as the reference sums them),
-     with a profiled step of each; ``examples/insitu_rfft_batched.py``
-     at full width (4 fields of 8192², ``batch_ndim=1``, two steps, the
-     second from the plan cache); ``plan_rfft`` on a one-rank mesh:
+     with a profiled step of each; the batched example's
+     ``examples/insitu_rfft_batched_torch.denoise`` at full width (4
+     fields of 8192², ``batch_ndim=1``, two steps, the second from the
+     plan cache); ``plan_rfft`` on a one-rank mesh:
      pencil, slab3d, pencil_tf at 512³, slab and pencil2d at 8192², each
      forward and back against float64 with host ms, device busy ms and
      the idle share; ``backend="measure"`` on the 8192² slab and the 512³
@@ -209,9 +214,10 @@ Phases, each printing one JSON line:
      solvers gave the kernels (recorded at ``kernels.ops``; the batched
      (4, 8192, 4097) columns and (9, 512, 512, 257) along axes 0 and 1
      among them) against the plain versions, torch.fft and float64;
-  10. elastic — this script started four times (``--job elastic``) by
-     the REPRO_* env contract, ``make_elastic_setup(2)`` (2 producers, a
-     pool of 2 consumers) and the reference's chaos scenario
+  10. elastic — ``tools/launch_multihost_torch.py --nprocs 4 --demo
+     elastic --grid 8192 8192`` (its four ranks by the REPRO_* env
+     contract, each printing its record), ``make_elastic_setup(2)`` (2
+     producers, a pool of 2 consumers) and the reference's chaos scenario
      (tests/test_elastic.py:497-600) at 8192^2 complex on a fresh wisdom
      file: a measured slab plan on the (2,) consumer mesh (cold: its
      seconds, candidates timed), 3 pending 2048^2 c2c engine requests,
@@ -253,7 +259,7 @@ Phases, each printing one JSON line:
      kernel run's routing, replayed; reported for the SSM stacks). grok-1
      also runs one MoE layer at full width on 512 tokens, nothing
      dropped, against a loop over its experts (1e-4), twice,
-     bit-identical; zamba2 the continuous batcher (4 slots, 6 requests),
+     bit-identical; zamba2 the continuous batcher (4 slots, 5 requests),
      each request's tokens equal to its run alone in the same engine;
      internvl2 decodes 64 tokens from an empty int8 cache and a dense one
      (max |dlogit| under 0.05 / 0.544 of max |logit|, the reference's
@@ -261,7 +267,7 @@ Phases, each printing one JSON line:
      caches' bytes reported);
   12. train — qwen3-4b at full width, depth cut to 8 of 36 layers
      (``dataclasses.replace(cfg, num_layers=8)``), batch 8 x 512, bf16
-     compute, 10 steps of ``make_train_step`` with the gradient monitor
+     compute, 6 steps of ``make_train_step`` with the gradient monitor
      every 5: losses, grad norms, ms a step, device busy ms (the
      kernels' device time in one profiled step) and share, the profiled
      kernels, peak memory, the monitor's spectra, and every kernel's launches
@@ -275,8 +281,8 @@ Phases, each printing one JSON line:
      processes run (its threads, CPU seconds and load average beside the
      step time). ``train_procs``: six
      processes at once (``--job train_procs``):
-     ``launch/train.py`` at 100m for 30 steps straight and with
-     ``--fail-at 12 24 --ckpt-every 10``, with deterministic algorithms
+     ``launch/train.py`` at 100m for 20 steps straight and with
+     ``--fail-at 7 13 --ckpt-every 5``, with deterministic algorithms
      (bit-identical final checkpoints, held) and without (reported), and
      ``--transit-consumers 1 --transit-async`` on two ranks (spectra on
      the consumer only; both ranks' timelines: where each hop's time
@@ -335,11 +341,40 @@ Phases, each printing one JSON line:
      on the four-step kernels, against float64 (5e-5 of max |X|), device
      ms queued behind the spin kernel against the cells' t_memory and
      t_compute;
+  16. entry_points — the entry points outside the package, each through
+     its ``main`` (``entry_points_phase``; one JSON line a call with its
+     wall time, peak memory and launches by kernel). In process, one at
+     a time: ``examples/quickstart_torch.py`` at 200² and 8192² (its
+     asserts, the 4 PGM panels and the .npy dump, the denoised field
+     within 1e-4 of phase 4's float64 oracle, the energies within 1e-5,
+     each stage's host ms); the 3-D FFT example at 256³ on one rank; the
+     bandpass kernel at the monitor's (4, 32000) plane against its plain
+     version (device ms also from 100 runs queued behind the spin
+     kernel); h2o-danube-1.8b through
+     ``examples/serve_bandpass_monitor_torch.py --full`` (24 layers, d
+     2560, float32, the example's seeded weights; batch 4, a 4160-token
+     prompt past the 4096 window, so prefill rolls the cache, and 40
+     tokens, a probe of the logits every 8 through stats → torch.fft →
+     the bandpass kernel): the tokens equal to an unmonitored decode's
+     on the same weights, prefill(4159) + one decode step within 1e-4 of
+     prefill(4160), 5 probes and 5 bandpass launches, every
+     high-frequency fraction finite in [0, 1], 4096 cache slots a layer,
+     prefill ms, ms a token and the peak. Then two subprocess calls side
+     by side (their walls taken so): the launcher's passthrough
+     (``--nprocs 4 -- python3 chip_smoke.py --entry
+     examples/distributed_fft_3d_torch.py --n 64``: the example on a (2,
+     2) mesh of four ranks sharing the card, each rank's launches and
+     peak from this script's ``--entry`` harness), and
+     ``tools/wisdom_warmup_torch.py`` on a fresh file (it populates it)
+     and then with ``--require-hits --require-zero-timed`` (rc 0), each
+     a process of its own through the same harness;
 then one ``{"kernels": [...]}`` line (the flash kernel's row at the
 qwen3-4b shape, and a row at each of phase 11's two shapes; every row
 carries its phase-12 launches, ``train_launches``, its phase-13
 ones, ``lm_ranks_launches``, its phase-14 ones,
-``lm_families_launches``, and its phase-15 ones, ``launch_launches``). The last line is ``{"ok": true,
+``lm_families_launches``, its phase-15 ones, ``launch_launches``, and
+its phase-16 ones, ``entry_points_launches``; the bandpass row its
+check at the monitor's plane, ``monitor_plane``). The last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero. Without a CUDA device it exits non-zero before printing
 anything.
@@ -582,23 +617,21 @@ SOLVER_RANK_SEED = {"ns2d": 3, "bq3d": 5}
 SOLVER_LAUNCH_WORLD = 3
 SOLVER_LAUNCH_ARGS = ("--solver", "ns2d", "--grid", "2048", "2048",
                       "--steps", "10", "--monitor-every", "5")
-# phase 10, the elastic consumer mesh: ELASTIC_WORLD ranks on the card by
-# the REPRO_* env contract (2 producers, a pool of 2 consumers), the
-# reference's chaos scenario (tests/test_elastic.py:497-600) at
-# ELASTIC_DIMS complex on a fresh wisdom file: a measured slab plan, a
-# heartbeat drop of pool rank 0 from step 2 (detected at step 3, the lease
-# 1 step, 2 misses), the engine's ELASTIC_PENDING pending requests at
-# ELASTIC_ENGINE_SHAPE c2c failed by the shrink, a resubmit, the grow
-# planned from wisdom; each transform within ELASTIC_TOL of max |X| of
-# the float64 oracle. Then launch/solver.py --elastic on three ranks
-# (phase 9's size, one solver rank, two consumers) against one rank here
+# phase 10, the elastic consumer mesh: tools/launch_multihost_torch.py
+# --demo elastic on ELASTIC_WORLD ranks sharing the card (2 producers, a
+# pool of 2 consumers), the reference's chaos scenario
+# (tests/test_elastic.py:497-600) at ELASTIC_DIMS complex on a fresh
+# wisdom file: a measured slab plan, a heartbeat drop of pool rank 0 from
+# step 2 (detected at step 3, the lease 1 step, 2 misses), the engine's 3
+# pending 2048^2 c2c requests (the grid capped at 2048 a side) failed by
+# the shrink, a resubmit, the grow planned from wisdom; each transform
+# within ELASTIC_TOL of max |X| of the float64 oracle. Then
+# launch/solver.py --elastic on three ranks (phase 9's size, one solver
+# rank, two consumers) against one rank here
 ELASTIC_WORLD = 4
 ELASTIC_DIMS = (8192, 8192)
 ELASTIC_PENDING = 3
-ELASTIC_ENGINE_SHAPE = (2048, 2048)
 ELASTIC_TOL = 1e-4
-ELASTIC_CHAOS_STEPS = 8
-ELASTIC_FFT_CALLS = 3
 ELASTIC_SOLVER_WORLD = 3
 
 
@@ -920,10 +953,7 @@ def run_chain(dims, mode, mesh, expected, out_dir, real=False, shapes=None):
     import torch
     from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
     from repro_torch.core.insitu.config import build_chain
-    from repro_torch.kernels import ops
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter}
+    counters = kernel_counters()
     noisy, clean, want = (expected[k] for k in ("noisy", "clean",
                                                 "denoised"))
     kept64, total64 = expected["half_energies" if real else "energies"]
@@ -1338,6 +1368,16 @@ def layout_oracle(z, decomp, p0, inverse):
     return take(y, D.cyclic_order(n0, p0)) if cyclic else y
 
 
+def kernel_counters():
+    """The four kernels' wrappers by name, each counting its launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"fft_fourstep": ops.fft_fourstep,
+            "fft_stockham": ops.fft_stockham,
+            "bandpass_filter": ops.bandpass_filter,
+            "flash_attention": flash_attention}
+
+
 def launch_counts(counters):
     out = {k: fn.launches for k, fn in counters.items()}
     for k in ("fft_fourstep", "fft_stockham"):
@@ -1562,15 +1602,13 @@ def rank_worker(rank, world, store):
     from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
     from repro_torch.core.insitu.bridge import BridgeData, GridMeta
     from repro_torch.core.insitu.config import build_chain
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     _build.library()                # built by the parent
     dev = "cuda:0"
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter}
+    counters = kernel_counters()
     meshes = {"(4,)": make_mesh((4,), ("data",), device=dev),
               "(2, 2)": make_mesh((2, 2), ("data", "model"), device=dev)}
     checks = []
@@ -2009,23 +2047,15 @@ def batched_fields(gen, shape):
 
 
 def batched_real_chain(mesh, gen, counters, shapes):
-    """The ``insitu_rfft_batched`` workload at full width: BATCH_FIELDS
-    real fields a step through one batched r2c/c2r plan pair
-    (``real=True``, ``batch_ndim=1``), two steps; every field's MSE must
-    improve, and the second step must be served from the plan cache."""
+    """The ``insitu_rfft_batched`` workload at full width:
+    ``examples/insitu_rfft_batched_torch.denoise`` on BATCH_FIELDS real
+    fields a step, one batched r2c/c2r plan pair (``real=True``,
+    ``batch_ndim=1``), two steps; every field's MSE must improve, and the
+    second step must be served from the plan cache."""
     import torch
     from repro_torch.core.fft.plan import plan_cache_stats
-    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
-    from repro_torch.core.insitu.config import build_chain
+    denoise = _entry("examples/insitu_rfft_batched_torch.py").denoise
     clean, fields = batched_fields(gen, BATCH_FIELDS)
-    grid = GridMeta(BATCH_FIELDS[1:])
-    cfg = {"mode": "insitu", "chain": [
-        {"endpoint": "fft", "array": "field", "direction": "forward",
-         "real": True, "batch_ndim": 1},
-        {"endpoint": "bandpass", "array": "field",
-         "keep_frac": BATCH_KEEP_FRAC, "use_kernel": False},
-        {"endpoint": "fft", "array": "field", "direction": "backward",
-         "real": True, "batch_ndim": 1}]}
     steps = []
     for step in (0, 1):
         before = plan_cache_stats()
@@ -2033,15 +2063,12 @@ def batched_real_chain(mesh, gen, counters, shapes):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        chain = build_chain(cfg, mesh=mesh, grid=grid)
         with recording_fft_shapes(shapes):
-            out = chain.execute(BridgeData(arrays={"field": fields},
-                                           grid=grid))
+            den, _ = denoise(fields, mesh, BATCH_KEEP_FRAC)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         after = plan_cache_stats()
-        den = out.arrays["field"]
         mse0 = ((fields - clean) ** 2).mean(dim=(1, 2)).tolist()
         mse1 = ((den - clean) ** 2).mean(dim=(1, 2)).tolist()
         steps.append({"step": step, "wall_s": wall,
@@ -2050,7 +2077,7 @@ def batched_real_chain(mesh, gen, counters, shapes):
                       "plan_hits": after["hits"] - before["hits"],
                       "mse0": mse0, "mse1": mse1, "peak_memory_bytes": peak,
                       "finite": bool(torch.isfinite(den).all())})
-        del out, den
+        del den
     res = {"phase": "batched_real_chain", "fields": list(BATCH_FIELDS),
            "input_bytes": fields.numel() * 4, "keep_frac": BATCH_KEEP_FRAC,
            "steps": steps}
@@ -2680,29 +2707,6 @@ def cluster_env(world):
                       "REPRO_PROCESS_ID": str(r)}
 
 
-def fig2_checks(got, res, mesh, dims):
-    """A delivered field (``got``) and the consumers' Fig. 2 chain output
-    (``res``) against float64 (collective over ``mesh``): the denoised
-    field's max abs error, the kept and total energies' relative
-    errors, finiteness."""
-    import torch
-    from repro_torch.core.fft import distributed as D
-    from repro_torch.core.fft.filters import lowpass_mask
-    noisy = D.unshard(got.arrays["field"], mesh, got.spec).double()
-    out = D.unshard(res.arrays["field"], mesh, res.spec).double()
-    spec64 = torch.fft.fft2(noisy)
-    power = spec64.real ** 2 + spec64.imag ** 2
-    mask = lowpass_mask(dims, KEEP_FRAC).to(noisy.device)
-    kept64, total64 = float((power * mask).sum()), float(power.sum())
-    want = torch.fft.ifft2(spec64 * mask).real
-    kept = float(res.arrays["insitu_kept_energy"])
-    total = float(res.arrays["insitu_total_energy"])
-    return {"field_max_abs_err": float((out - want).abs().max()),
-            "kept_rel_err": abs(kept - kept64) / kept64,
-            "total_rel_err": abs(total - total64) / total64,
-            "finite": bool(torch.isfinite(out).all())}
-
-
 def transit_worker(rank, world, store):
     """One rank of phase 8's Fig. 2 in transit: ``init_cluster`` from the
     env contract (gloo: the ranks share the card), producer and consumer
@@ -2721,8 +2725,7 @@ def transit_worker(rank, world, store):
     from repro_torch.core.insitu.bridge import BridgeData, GridMeta
     from repro_torch.core.insitu.config import build_chain
     from repro_torch.core.insitu.transit import TransitBridge
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_transit_meshes
     from repro_torch.runtime.cluster import cluster_info, init_cluster
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2731,10 +2734,7 @@ def transit_worker(rank, world, store):
     assert info["backend"] == "gloo" and info["process_count"] == world, \
         info
     _build.library()                # built by the parent
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     dims = TRANSIT_DIMS
     pm, cm = make_transit_meshes(*TRANSIT_SPLIT)
     bridge = TransitBridge(pm, cm)
@@ -2774,7 +2774,8 @@ def transit_worker(rank, world, store):
         res = chain.execute(got)
         if got.step:
             return
-        checks.update(fig2_checks(got, res, cm, dims))
+        checks.update(_entry("tools/launch_multihost_torch.py").fig2_checks(
+            got, res, cm, dims, KEEP_FRAC))
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
@@ -2858,16 +2859,12 @@ def transit_serve_worker(rank, world, store):
     report, the launches, the monitor's files and the peak memory."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     from repro_torch.launch import serve
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     params = None
     if rank == 0:
         params = lm.init_params(
@@ -3180,17 +3177,13 @@ def solver_rank_worker(rank, world, store):
     import torch
     import torch.distributed as dist
     from repro_torch.compat import make_mesh
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     _build.library()                # built by the parent
     dev = "cuda:0"
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     meshes = {"(4,)": make_mesh((4,), ("data",), device=dev),
               "(2, 2)": make_mesh((2, 2), ("data", "model"), device=dev)}
     out_dir = Path(store).parent
@@ -3227,15 +3220,11 @@ def solver_launch_worker(rank, world, store, restore=False):
     directory of this rank's own, checkpoints every 5 steps; with
     ``restore``, ``--restore`` from those checkpoints."""
     import torch
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     from repro_torch.launch import solver
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()                # built by the parent
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     base = Path(store).parent
     spectra = base / f"spectra{'_restored' if restore else ''}_rank{rank}"
     argv = list(SOLVER_LAUNCH_ARGS) + [
@@ -3253,203 +3242,17 @@ def solver_launch_worker(rank, world, store, restore=False):
                      default=str), flush=True)
 
 
-def elastic_worker(rank, world, store):
-    """One rank of phase 10: the chaos scenario on the card (module
-    docstring; ELASTIC_* constants). Prints each rescale event, the cold
-    and warm plan seconds, the consumers' transform ms a call on the (2,)
-    and (1,) meshes, every error against float64, the launches, the FFT
-    shapes given to the kernels and the peak memory."""
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-    from repro_torch.core.fft import distributed as D
-    from repro_torch.core.fft import plan as P
-    from repro_torch.core.insitu.adaptors import RadiatingSourceAdaptor
-    from repro_torch.core.insitu.bridge import BridgeData, GridMeta
-    from repro_torch.core.insitu.config import build_chain
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.mesh import make_elastic_setup
-    from repro_torch.runtime.cluster import cluster_info, init_cluster
-    from repro_torch.runtime.fault import (HEARTBEAT_DROP, SLOW_RANK,
-                                           FaultSchedule, InjectedFault,
-                                           StragglerMonitor)
-    from repro_torch.serve.fft_engine import FFTServeEngine
-    torch.backends.cuda.matmul.allow_tf32 = False
-    init_cluster()                  # the REPRO_* env contract, on the card
-    info = cluster_info()
-    assert info["backend"] == "gloo" and info["process_count"] == world, \
-        info
-    _build.library()                # built by the parent
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
-    base = Path(store).parent
-    P.set_wisdom(base / "wisdom.json", "readwrite")   # fresh: see the phase
-    dims = ELASTIC_DIMS
-    shapes, res, events = set(), {"phase": "elastic_rank", "rank": rank}, []
-    zero_counts(counters)
-    torch.cuda.reset_peak_memory_stats()
-    recording = contextlib.ExitStack()
-    recording.enter_context(recording_fft_shapes(shapes))
-    step_box = [0]
-    pm, ctl = make_elastic_setup(
-        2, lease=1.0, max_misses=2, clock=lambda: float(step_box[0]),
-        plan_kwargs={"decomp": "slab", "backend": "measure",
-                     "allow_reduced_wire": False})
-    res["pool"] = {str(r): v["rank"] for r, v in ctl.consumer_ranks().items()}
-    field = oracle = None
-    if ctl.is_consumer():   # the same seeded field on every consumer
-        g = torch.Generator(device="cuda").manual_seed(11)
-        field = torch.randn(dims, generator=g, device="cuda",
-                            dtype=torch.complex64)
-        oracle = torch.fft.fft2(field.to(torch.complex128))
-        xmax = float(oracle.abs().max())
-
-    def transform(tag):
-        """Plan on the current consumer mesh (timed: cold or warm), run
-        ELASTIC_FFT_CALLS calls (host clock to synchronize), and hold
-        this rank's output block against the oracle's."""
-        mesh = ctl.consumer_mesh
-        t0 = time.perf_counter()
-        plan = ctl.plan(dims)
-        plan_s = time.perf_counter() - t0
-        stats = ctl.plan_stats()
-        args = plan.place(field)
-        ms = []
-        for _ in range(ELASTIC_FFT_CALLS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = plan.execute(*args)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        want = D.shard(oracle, mesh, plan.schedule().out_spec)
-        got = torch.complex(out[0].double(), out[1].double())
-        res[tag] = {"mesh": list(mesh.members), "plan_s": plan_s,
-                    "backend": plan.backend,
-                    "overlap_chunks": plan.overlap_chunks,
-                    "sweep_candidates_timed":
-                        stats["sweep_candidates_timed"],
-                    "wisdom_hits": stats["wisdom_hits"],
-                    "ms_per_call": statistics.median(ms), "ms": ms,
-                    "rel_err": float((got - want).abs().max()) / xmax}
-        return out
-
-    def engine_err(fut, payload):
-        want = np.fft.fft2(payload.astype(np.complex128))
-        got = np.asarray(fut.result(timeout=ENGINE_TIMEOUT_S))
-        return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
-
-    rng = np.random.default_rng(5)
-    payloads = [(rng.standard_normal(ELASTIC_ENGINE_SHAPE)
-                 + 1j * rng.standard_normal(ELASTIC_ENGINE_SHAPE))
-                .astype(np.complex64) for _ in range(ELASTIC_PENDING)]
-    dist.barrier()
-    t_start = time.perf_counter()
-    # generation 0: cold measured bring-up, the winner recorded to wisdom
-    out0 = transform("gen0") if ctl.is_consumer() else None
-    eng = FFTServeEngine(ctl.consumer_mesh, max_batch=4, linger_s=10.0,
-                         plan_kwargs={"decomp": "slab"})
-    ctl.attach_engine(eng)
-    pend = [eng.submit(x) for x in payloads] if ctl.is_consumer() else []
-    sched = FaultSchedule([
-        InjectedFault(mode=HEARTBEAT_DROP, step=2, rank=0),
-        InjectedFault(mode=SLOW_RANK, step=1, rank=1, duration=2,
-                      slow_factor=1.5)])
-    mon = StragglerMonitor()
-    ev = None
-    for step in range(1, ELASTIC_CHAOS_STEPS):
-        step_box[0] = step
-        for r in ctl.active_ranks():
-            mon.observe(step, 0.1 * sched.slow_factor(step, r), rank=r)
-        ctl.heartbeat_all(drop=[r for r in ctl.active_ranks()
-                                if sched.drops_heartbeat(step, r)])
-        ev = ctl.tick(straggler_report=mon.rank_report())
-        if ev is not None:
-            break
-    res["detected_at_step"] = step_box[0]
-    assert ev is not None, res
-    events.append(ev)
-    res["pending_errors"] = sorted({type(f.exception(60)).__name__
-                                    for f in pend})
-    # the resubmit and the shrunk (1,) mesh's plan, on the survivor
-    if ctl.is_consumer():
-        fut = eng.submit(payloads[0])
-    eng.step(force=True)
-    eng.drain(timeout=ENGINE_TIMEOUT_S)
-    if ctl.is_consumer():
-        res["resubmit_rel_err"] = engine_err(fut, payloads[0])
-        transform("gen1")
-    # grow back onto generation 0's topology: planning from wisdom alone
-    events.append(ctl.rescale(n=2, rejoin_ranks=[0], drain=True,
-                              reason="capacity rejoined"))
-    if ctl.is_consumer():
-        out2 = transform("gen2")
-        res["bit_identical"] = bool(torch.equal(out0[0], out2[0])
-                                    and torch.equal(out0[1], out2[1]))
-        del out0, out2
-    # the Fig. 2 chain on the grown mesh, fed through the controller
-    src = RadiatingSourceAdaptor(dims, mesh=pm, spec=("data", None)) \
-        if ctl.is_producer() else None
-    if src is not None:
-        data = src.produce(0)
-        data = data.replace(arrays={"field": data.arrays["field"]})
-    else:
-        data = BridgeData(arrays={"field": torch.empty(dims,
-                                                       device="meta")})
-    t0 = time.perf_counter()
-    got = ctl.send(data)
-    res["hop_s"] = time.perf_counter() - t0
-    if ctl.is_consumer():
-        chain = build_chain({"mode": "insitu", "chain": [
-            {"endpoint": "fft", "direction": "forward", "backend": "pallas",
-             "decomp": "slab"},
-            {"endpoint": "bandpass", "keep_frac": KEEP_FRAC},
-            {"endpoint": "fft", "direction": "backward", "backend": "pallas",
-             "decomp": "slab"}]}, mesh=ctl.consumer_mesh, grid=GridMeta(dims))
-        res["chain"] = fig2_checks(got, chain.execute(got),
-                                   ctl.consumer_mesh, dims)
-        chain.finalize()
-        # the engine across the grown mesh: one agreed batch of two
-        futs = [eng.submit(x) for x in payloads[1:]]
-        eng.step(force=True)
-        eng.drain(timeout=ENGINE_TIMEOUT_S)
-        res["engine_across_rel_err"] = max(
-            engine_err(f, x) for f, x in zip(futs, payloads[1:]))
-    eng.stop()
-    torch.cuda.synchronize()
-    recording.close()
-    res.update(
-        seconds=time.perf_counter() - t_start, cluster=info,
-        role=("producer" if ctl.is_producer() else "consumer"),
-        events=[{k: e[k] for k in (
-            "generation", "reason", "drain", "from_devices", "to_devices",
-            "excluded_ids", "consumer_span", "plans_evicted", "engine",
-            "wall_s")} for e in events],
-        state=ctl.state, generation=ctl.generation,
-        launches=launch_counts(counters),
-        peak_bytes=torch.cuda.max_memory_allocated(),
-        fft_shapes=sorted(shapes))
-    print(json.dumps(res), flush=True)
-    dist.barrier()
-
-
 def elastic_solver_worker(rank, world, store):
     """One rank of phase 10's ``launch/solver.py --elastic``
     (SOLVER_LAUNCH_ARGS with ``--decomp slab --transit-consumers 2
     --elastic``; the REPRO_* env contract, gloo, the ranks share the
     card)."""
     import torch
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     from repro_torch.launch import solver
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()                # built by the parent
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     spectra = Path(store).parent / f"spectra_rank{rank}"
     zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
@@ -3473,15 +3276,38 @@ def elastic_phase(gen):
     from repro_torch.launch import solver as solver_launch
     t_phase = time.perf_counter()
     out_dir = ROOT / "build" / "chip_smoke_elastic"
-    shutil.rmtree(out_dir, ignore_errors=True)     # a fresh wisdom file
-    ranks, wall = spawn_ranks("elastic", ELASTIC_WORLD, out_dir / "chaos",
-                              env=cluster_env(ELASTIC_WORLD))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # the chaos world: the launcher's elastic demo at ELASTIC_DIMS (its
+    # ranks share the card over gloo; a fresh wisdom file of its own),
+    # each rank's demo under rank_probe (its launches, peak and FFT
+    # shapes beside the demo's own record)
+    launcher = _entry("tools/launch_multihost_torch.py")
+    stdout, wall = run_entry(
+        [sys.executable, str(ROOT / "tools" / "launch_multihost_torch.py"),
+         "--nprocs", str(ELASTIC_WORLD), "--demo", "elastic", "--grid",
+         *map(str, ELASTIC_DIMS), "--timeout", str(RANK_TIMEOUT_S)],
+        RANK_TIMEOUT_S + 60,
+        env=dict(os.environ, REPRO_RANK_PROBE=str(Path(__file__).resolve())))
+    ranks = launcher.marked_records(stdout)
+    probes = launcher.marked_records(stdout, ENTRY_MARK)
+    assert [r["rank"] for r in ranks] == list(range(ELASTIC_WORLD)), ranks
+    assert [p["rank"] for p in probes] == list(range(ELASTIC_WORLD)), probes
+    for r, p in zip(ranks, probes):
+        r.update({k: p[k] for k in ("launches", "peak_bytes",
+                                    "fft_shapes")})
+    row = f"elastic_rescale_{ELASTIC_WORLD}x1"
+    bench = [line for line in stdout.splitlines()
+             if line.startswith(f"[p0] BENCHROW,{row},")]
+    assert len(bench) == 1 and "[launcher] elastic rescale:" in stdout, \
+        stdout[-4000:]
     shapes = set()
     for r in ranks:
         shapes.update(tuple(v) for v in r.pop("fft_shapes"))
     pool = ranks[2:]
     res = {"phase": "elastic", "ranks": ELASTIC_WORLD,
            "dims": list(ELASTIC_DIMS), "wall_s": wall,
+           "through": "tools/launch_multihost_torch.py --demo elastic",
+           "launcher_row": bench[0].split(",", 1)[1],
            "backend": ranks[0]["cluster"]["backend"],
            "rescale_wall_s": {"shrink": [r["events"][0]["wall_s"]
                                          for r in ranks],
@@ -3497,6 +3323,7 @@ def elastic_phase(gen):
            "results": ranks}
     emit(res)
     for r in ranks:
+        assert r["cluster"]["backend"] == "gloo", r
         assert r["detected_at_step"] == 3, r
         shrink, grow = r["events"]
         assert (shrink["generation"], shrink["to_devices"],
@@ -3787,7 +3614,7 @@ INT8_MAX_TV = 0.01
 # that request: a GEMM's row is bitwise the same whatever the other rows
 # hold, but not across batch sizes (cuBLAS picks its kernel by shape), and
 # the gated norms above turn a last-bit change into other tokens
-HYBRID_SLOTS, HYBRID_REQUESTS, HYBRID_NEW = 4, 6, 8
+HYBRID_SLOTS, HYBRID_REQUESTS, HYBRID_NEW = 4, 5, 8   # 6 requests before phase 16
 
 
 def rel_err(got, want) -> float:
@@ -4309,7 +4136,7 @@ def lm_families(counters, gen):
 TRAIN_ARCH = "qwen3-4b"
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
-TRAIN_STEPS = 10
+TRAIN_STEPS = 6                  # 10 before phase 16
 TRAIN_INSITU_EVERY = 5
 TRAIN_LR = 3e-4
 TRAIN_CHECK_LAYERS = 2
@@ -4325,11 +4152,15 @@ TRAIN_CHECK_CHUNK = 16          # 4 loss chunks: the chunked, recomputed path
 # example runs 100 of its 300 steps, for the script's time (200 before
 # phase 14 needed it): at lr 6e-3 its loss first rises and falls below
 # the start only after ~50 steps of a 100-step schedule (an H100 read
-# 10.53 -> 8.42 in 200 steps, 10.53 -> 9.58 in 100)
+# 10.53 -> 8.42 in 200 steps, 10.53 -> 9.58 in 100). The restart run
+# takes 20 steps, checkpointing every 5 and failing at 7 (restored from
+# step 5, which the first process wrote) and at 13 (restored from step
+# 10, which the resumed run wrote), for the script's time (30 steps,
+# every 10, failing at 12 and 24, before phase 16 needed it)
 TRAIN_100M_STEPS = 100
-TRAIN_RESTART_STEPS = 30
-TRAIN_RESTART_FAILS = ("12", "24")
-TRAIN_RESTART_CKPT_EVERY = 10
+TRAIN_RESTART_STEPS = 20
+TRAIN_RESTART_FAILS = ("7", "13")
+TRAIN_RESTART_CKPT_EVERY = 5
 TRAIN_TRANSIT_STEPS = 10
 TRAIN_TRANSIT_INSITU_EVERY = 5
 TRAIN_PROCS = 6                 # 4 restart runs, then the 2 transit ranks
@@ -4339,15 +4170,7 @@ CUBLAS_DETERMINISTIC = ":4096:8"
 def _example():
     """examples/train_insitu_torch.py as a module (its presets and the
     registration of their configs)."""
-    import importlib.util
-    name = "train_insitu_torch"
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(
-            name, ROOT / "examples" / "train_insitu_torch.py")
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod
-        spec.loader.exec_module(mod)
-    return sys.modules[name]
+    return _entry("examples/train_insitu_torch.py")
 
 
 def measure_train(counters, cfg, batch, seq, steps, lr, insitu_every):
@@ -4585,15 +4408,11 @@ def train_proc_worker(rank, world, store):
     and 5 are the two ranks of the transit run (REPRO_* env contract)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     from repro_torch.launch import train
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()                # built by the parent
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     cfg = _example().model_100m()
     _example().register(cfg)
     base = Path(store).parent
@@ -4728,7 +4547,8 @@ def start_train_procs(out_dir, box):
 
 def train_procs(box):
     """The six processes' line (``start_train_procs``), then its checks:
-    both restart runs end at step 40, the failed one after 2 restarts;
+    both restart runs end at step TRAIN_RESTART_STEPS, the failed one
+    after 2 restarts;
     the deterministic pair bit-identical; the consumer alone writes a
     file a report, its rows normalised."""
     if "error" in box:
@@ -5355,16 +5175,12 @@ def lm_rank_worker(rank, world, store, phases=(13, 14)):
     import torch
     import torch.distributed as dist
     from repro_torch.compat import make_mesh
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     _build.library()                # built by the parent
-    counters = {"fft_fourstep": ops.fft_fourstep,
-                "fft_stockham": ops.fft_stockham,
-                "bandpass_filter": ops.bandpass_filter,
-                "flash_attention": flash_attention}
+    counters = kernel_counters()
     mesh = make_mesh((2, 2), ("data", "model"), device="cuda:0")
     one = make_mesh((1, 1), ("data", "model"), device="cuda:0")
     out_dir = Path(store).parent
@@ -5823,6 +5639,342 @@ def launch_phase(counters, smi):
     return cells
 
 
+# phase 16, the entry points outside the package: the four examples,
+# tools/wisdom_warmup_torch.py and tools/launch_multihost_torch.py, each
+# driven through its main() as a user runs it; the subprocess ones
+# through this script's --entry harness (ENTRY_MARK lines: the entry
+# point's return code, output, launches and peak in that process)
+ENTRY_MARK = "ENTRY_RECORD "
+ENTRY_QUICKSTART = ((200, 200), (8192, 8192))
+ENTRY_D3D_ONE = 256                  # in process, one rank
+ENTRY_D3D_RANKS = (4, 64)            # ranks, grid: the launcher's passthrough
+ENTRY_TIMEOUT_S = 300
+DANUBE_ARCH = "h2o-danube-1.8b"
+DANUBE_BATCH = 4                     # the example's BATCH
+DANUBE_PROMPT = 4160                 # past the window of 4096: prefill rolls
+DANUBE_TOKENS = 40                   # decode writes slot p mod 4096
+DANUBE_PROBES = 5                    # one every 8 tokens
+DANUBE_PLANE = (DANUBE_BATCH, 32000)  # the monitor's (B, vocab) plane
+ENTRY_PLANE_REPS = 100               # its runs queued behind the spin
+
+
+def _entry(rel):
+    """A file of the repo outside the package (an example or a tool) as a
+    module, its ``main`` not run."""
+    import importlib.util
+    name = Path(rel).stem
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, ROOT / rel)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+@contextlib.contextmanager
+def rank_probe(**fields):
+    """Measures what runs inside it in this process: on leaving, prints
+    one ENTRY_MARK line with ``fields`` (and what the body added to the
+    dict it yields), this rank, the wall seconds, the kernels' launches,
+    the peak memory and the FFT shapes given to the kernels. The
+    ``--entry`` harness runs an entry point in it, and the launcher runs
+    a rank's demos in it when REPRO_RANK_PROBE names this file."""
+    import torch
+    counters = kernel_counters()
+    zero_counts(counters)
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rec, shapes = dict(fields), set()
+    t0 = time.perf_counter()
+    with recording_fft_shapes(shapes):
+        yield rec
+    if cuda:
+        torch.cuda.synchronize()
+    rec.update(rank=int(os.environ.get("REPRO_PROCESS_ID", 0)),
+               wall_s=time.perf_counter() - t0,
+               launches=launch_counts(counters),
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+               fft_shapes=sorted(shapes))
+    print(ENTRY_MARK + json.dumps(rec), flush=True)
+
+
+def entry_process(rel, argv):
+    """``python3 chip_smoke.py --entry REL ARGS...``: the entry point's
+    ``main(ARGS)`` in this process (a passthrough rank under the launcher
+    or a tool's own process) under ``rank_probe``, its output and return
+    code in the record. Returns the return code."""
+    import io
+    buf = io.StringIO()
+    with rank_probe(entry=rel, argv=argv) as rec:
+        with contextlib.redirect_stdout(buf):
+            out = _entry(rel).main(argv)
+        rec.update(rc=out if isinstance(out, int) else 0,
+                   stdout=buf.getvalue())
+    return rec["rc"]
+
+
+def run_entry(args, timeout=ENTRY_TIMEOUT_S, env=None):
+    """A subprocess to its end: its stdout, wall seconds; a non-zero exit
+    prints its tail and fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, capture_output=True, text=True,
+                          timeout=timeout, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(f"--- {' '.join(map(str, args))} exited {proc.returncode}\n"
+              + proc.stdout[-6000:] + proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"{args[1:3]} exited {proc.returncode}")
+    return proc.stdout, wall
+
+
+def entry_subprocesses(out_dir):
+    """The launcher's passthrough (the 3-D FFT example on
+    ENTRY_D3D_RANKS's four ranks sharing the card) and, beside it on a
+    thread, wisdom_warmup_torch.py on a fresh file and then warm with
+    --require-hits --require-zero-timed; each as (stdout, wall
+    seconds)."""
+    import threading
+    me = [sys.executable, str(Path(__file__).resolve()), "--entry"]
+    n, grid = ENTRY_D3D_RANKS
+    tool = [*me, "tools/wisdom_warmup_torch.py", "--file",
+            str(out_dir / "wisdom.json")]
+    out = {}
+
+    def wisdom():
+        try:
+            out["wisdom_cold"] = run_entry(tool)
+            out["wisdom_warm"] = run_entry(
+                tool + ["--require-hits", "--require-zero-timed"])
+        except BaseException as err:     # noqa: BLE001 — raised on join
+            out["error"] = err
+
+    thread = threading.Thread(target=wisdom)
+    thread.start()
+    try:
+        out["d3d_ranks"] = run_entry(
+            [sys.executable, str(ROOT / "tools" /
+                                 "launch_multihost_torch.py"),
+             "--nprocs", str(n), "--timeout", str(ENTRY_TIMEOUT_S), "--",
+             *me, "examples/distributed_fft_3d_torch.py", "--n", str(grid)],
+            ENTRY_TIMEOUT_S + 60)
+    finally:
+        thread.join()
+    if "error" in out:
+        raise out["error"]
+    return out
+
+
+def quickstart_entry(dims, want, counters):
+    """``examples/quickstart_torch.py --n N`` in process: the example's
+    own asserts, its four PGM panels and .npy dump, the denoised field
+    against phase 4's float64 oracle of the chain (``want``) and the
+    energies against its, each stage's host ms."""
+    import numpy as np
+    import torch
+    out_dir = ROOT / "build" / "chip_smoke_quickstart" / str(dims[0])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    os.environ["QUICKSTART_OUT"] = str(out_dir)
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            out = _entry("examples/quickstart_torch.py").main(
+                ["--n", str(dims[0])])
+    finally:
+        del os.environ["QUICKSTART_OUT"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = sorted(p.name for p in out_dir.iterdir())
+    kept64, total64 = want["energies"]
+    res = {"phase": "entry_quickstart", "dims": list(dims), "wall_s": wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launch_counts(counters),
+           "stage_host_ms": {k: v * 1e3 for k, v in
+                             out["report"]["timings_s"].items()},
+           "field_max_abs_err": float(np.abs(out["denoised"]
+                                             - want["denoised"]).max()),
+           "kept_rel_err": abs(out["kept_energy"] - kept64) / kept64,
+           "total_rel_err": abs(out["total_energy"] - total64) / total64,
+           "mse0": out["mse0"], "mse1": out["mse1"], "files": files}
+    emit(res)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    assert all(f"{s}_000000.pgm" in files for s in (
+        "a_noisy", "b_spectrum", "c_filtered", "d_denoised")), files
+    assert "field_000000.npy" in files, files
+    assert np.isfinite(out["denoised"]).all()
+    assert res["field_max_abs_err"] < FIELD_TOL, res
+    assert res["kept_rel_err"] < ENERGY_TOL, res
+    assert res["total_rel_err"] < ENERGY_TOL, res
+    assert res["launches"]["bandpass_filter"] == 1, res
+    return res
+
+
+def d3d_entry(counters):
+    """``examples/distributed_fft_3d_torch.py --n 256`` in process, one
+    rank ((1, 1) mesh): the example's asserts (1e-3) and its errors."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = _entry("examples/distributed_fft_3d_torch.py").main(
+            ["--n", str(ENTRY_D3D_ONE)])
+    torch.cuda.synchronize()
+    res = {"phase": "entry_distributed_fft_3d", "n": ENTRY_D3D_ONE,
+           "mesh": out["mesh"], "wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launch_counts(counters),
+           **{k: out[k] for k in ("roundtrip_err", "r2c_err",
+                                  "r2c_roundtrip_err", "pencil_tf_err",
+                                  "pencil_tf_roundtrip_err")}}
+    emit(res)
+    assert res["launches"]["fft_fourstep"] > 0, res
+    return res
+
+
+def danube_entry(counters):
+    """``examples/serve_bandpass_monitor_torch.py --full`` (module
+    docstring, phase 16): the monitored decode, then the same seeded
+    weights and prompt (the example's ``make_inputs``) decoded without
+    the monitor (tokens equal), and prefill(S - 1) + one decode step on
+    the rolling cache against that run's prefill(S)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    mod = _entry("examples/serve_bandpass_monitor_torch.py")
+    assert (mod.ARCH, mod.BATCH) == (DANUBE_ARCH, DANUBE_BATCH)
+    cfg = registry.get_config(DANUBE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        mon = mod.main(["--full", "--prompt-len", str(DANUBE_PROMPT),
+                        "--tokens", str(DANUBE_TOKENS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    params, prompt = mod.make_inputs(cfg, DANUBE_PROMPT, "cuda")
+    plain = mod.monitor(cfg, params, prompt, DANUBE_TOKENS, "cuda",
+                        probe=False)
+    S = DANUBE_PROMPT - 1
+    _, state = lm.prefill(cfg, params, {"tokens": prompt[:, :S]},
+                          cache_len=cfg.window)
+    step, _ = lm.decode_step(cfg, params, prompt[:, S:], state)
+    del state
+    full = plain["prefill_logits"]
+    torch.cuda.synchronize()
+    hf = mon["hf_frac"]
+    res = {"phase": "entry_danube", "arch": DANUBE_ARCH,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "window": cfg.window, "param_bytes": sum(
+               t.numel() * t.element_size() for t in _tensors(params)),
+           "batch": DANUBE_BATCH, "prompt_len": DANUBE_PROMPT,
+           "tokens": DANUBE_TOKENS, "wall_s": wall,
+           "prefill_ms": mon["prefill_ms"],
+           "decode_ms_per_token": mon["decode_ms_per_token"],
+           "unmonitored_prefill_ms": plain["prefill_ms"],
+           "unmonitored_decode_ms_per_token": plain["decode_ms_per_token"],
+           "peak_bytes": peak, "launches": launches,
+           "probes": len(mon["stats"]), "hf_frac": hf,
+           "logit_stats": mon["stats"], "marshal": mon["marshal"],
+           "cache_window": mon["cache_window"],
+           "tokens_equal": bool(torch.equal(mon["tokens"], plain["tokens"])),
+           "teacher_forced_rel_err": rel_err(step, full),
+           "teacher_forced_tol": TEACHER_TOL}
+    emit(res)
+    del params, step, full
+    torch.cuda.empty_cache()
+    assert res["tokens_equal"], res
+    assert res["teacher_forced_rel_err"] < TEACHER_TOL, res
+    assert res["probes"] == DANUBE_PROBES, res
+    assert launches["bandpass_filter"] == DANUBE_PROBES, res
+    assert all(math.isfinite(f) and 0.0 <= f <= 1.0 for f in hf), res
+    assert res["cache_window"] == cfg.window == 4096, res
+    return res
+
+
+def entry_points_phase(gen, fig2):
+    """Phase 16: the examples, the wisdom CLI and the launcher's
+    passthrough on the card (module docstring): the in-process calls one
+    at a time, then the two subprocess calls side by side. ``fig2`` holds
+    phase 4's
+    float64 oracle of the chain at the quickstart's grids. Returns the
+    calls' lines by name."""
+    import torch
+    from repro_torch.kernels.bandpass import bandpass_filter
+    t0 = time.perf_counter()
+    counters = kernel_counters()
+    calls = {f"quickstart_{d[0]}": quickstart_entry(d, fig2[d], counters)
+             for d in ENTRY_QUICKSTART}
+    calls["distributed_fft_3d"] = d3d_entry(counters)
+    # the monitor's bandpass plane, on the kernel against its plain
+    # version; its device ms also from runs queued behind the spin kernel
+    # (the profiler's trace can lose so short a kernel late in the script)
+    calls["monitor_plane"] = plane = check_bandpass(DANUBE_PLANE, gen, False)
+    re, im = (torch.randn(DANUBE_PLANE, generator=gen, device="cuda")
+              for _ in range(2))
+    mask = (torch.rand(DANUBE_PLANE, generator=gen, device="cuda")
+            > 0.3).float()
+    plane["busy_ms"] = queued_device_ms(
+        lambda: bandpass_filter(re, im, mask), ENTRY_PLANE_REPS)
+    emit({"phase": "monitor_plane_busy", "shape": list(DANUBE_PLANE),
+          "busy_ms": plane["busy_ms"], "bound_ms": plane["bound_ms"]})
+    del re, im, mask
+    calls["danube"] = danube_entry(counters)
+    torch.cuda.empty_cache()
+
+    out_dir = ROOT / "build" / "chip_smoke_entry"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    procs = entry_subprocesses(out_dir)
+    marked = _entry("tools/launch_multihost_torch.py").marked_records
+    # the four ranks of the passthrough (the example's asserts ran there)
+    stdout, wall = procs["d3d_ranks"]
+    ranks = marked(stdout, ENTRY_MARK)
+    n, grid = ENTRY_D3D_RANKS
+    calls["distributed_fft_3d_ranks"] = res = {
+        "phase": "entry_distributed_fft_3d_ranks", "ranks": n, "n": grid,
+        "wall_s": wall, "rank_wall_s": [r["wall_s"] for r in ranks],
+        "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "launcher_ok": f"[launcher] {n} process(es) x 1 device on cuda: OK"
+                       in stdout}
+    emit(res)
+    assert [r["rank"] for r in ranks] == list(range(n)), ranks
+    assert all(r["rc"] == 0 for r in ranks) and res["launcher_ok"], res
+    assert "mesh {'data': 2, 'model': 2}" in ranks[0]["stdout"], ranks[0]
+    assert ranks[0]["stdout"].rstrip().endswith("OK"), ranks[0]["stdout"]
+    assert all(r["launches"]["fft_stockham"] > 0 for r in ranks), res
+    # wisdom: the cold run populates the file, the warm one plans from it
+    for key in ("wisdom_cold", "wisdom_warm"):
+        stdout, wall = procs[key]
+        (rec,) = marked(stdout, ENTRY_MARK)
+        calls[key] = res = {
+            "phase": "entry_" + key, "argv": rec["argv"], "wall_s": wall,
+            "rank_wall_s": rec["wall_s"], "rc": rec["rc"],
+            "stats": json.loads(rec["stdout"]),
+            "peak_bytes": rec["peak_bytes"], "launches": rec["launches"]}
+        emit(res)
+        assert rec["rc"] == 0, res
+    cold, warm = calls["wisdom_cold"]["stats"], calls["wisdom_warm"]["stats"]
+    assert cold["sweep_candidates_timed"] > 0 and \
+        cold["store"]["writes"] > 0, cold
+    assert warm["wisdom_hits"] > 0 and warm["sweep_candidates_timed"] == 0, \
+        warm
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "entry_points_seconds",
+          "seconds": time.perf_counter() - t0})
+    return calls
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5832,14 +5984,11 @@ def main() -> int:
     from repro_torch.compat import make_mesh
     from repro_torch.core.fft import dft
     from repro_torch.kernels import _build
-    from repro_torch.kernels import ops
     from repro_torch.kernels.fft_fourstep import (fft_fourstep,
                                                   fft_fourstep_columns)
     from repro_torch.kernels.fft_stockham import (fft_stockham,
                                                   fft_stockham_columns)
-    from repro_torch.kernels.flash_attention import (BF16_HEAD_DIMS,
-                                                     HEAD_DIMS,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import BF16_HEAD_DIMS, HEAD_DIMS
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5963,12 +6112,12 @@ def main() -> int:
     real_launches = {}
     chains, real_chains = {}, {}
     real_shapes = set()
+    fig2 = {}          # phase 16's quickstart against the same oracle
     try:
         for dims, modes, must_run in sizes:
             expected = oracle(dims)
             launches[dims] = dict.fromkeys(
-                ("fft_fourstep", "fft_stockham", "bandpass_filter",
-                 "fft_fourstep_columns", "fft_stockham_columns"), 0)
+                launch_counts(kernel_counters()), 0)
             for mode in modes:
                 res = run_chain(dims, mode, mesh, expected, out_dir)
                 chains[(dims, mode)] = res
@@ -5988,6 +6137,9 @@ def main() -> int:
                         assert res["launches"][k] > 0, (dims, mode, k)
                     for k, v in res["launches"].items():
                         real_launches[dims][k] += v
+            if dims in ENTRY_QUICKSTART:
+                fig2[dims] = {k: expected[k] for k in ("denoised",
+                                                       "energies")}
             del expected
             shutil.rmtree(out_dir, ignore_errors=True)
         for dims in ((8192, 8192), (10000, 10000), (200, 200)):
@@ -6015,12 +6167,10 @@ def main() -> int:
 
     # 4b. the distributed path: one rank at full size, then four ranks
     # sharing the card
-    fft_counters = {"fft_fourstep": ops.fft_fourstep,
-                    "fft_stockham": ops.fft_stockham,
-                    "bandpass_filter": ops.bandpass_filter}
+    counters = kernel_counters()
     t0 = time.perf_counter()
     dist_shapes = set()
-    one_rank = distributed_one_rank(fft_counters, gen, dist_shapes)
+    one_rank = distributed_one_rank(counters, gen, dist_shapes)
     emit({"phase": "distributed_one_rank_seconds",
           "seconds": time.perf_counter() - t0})
     ranks = distributed_ranks(ROOT / "build" / "chip_smoke_ranks")
@@ -6039,8 +6189,8 @@ def main() -> int:
     # times; then every FFT shape they gave the kernels, and the
     # half-width column shapes timed on their own
     t0 = time.perf_counter()
-    batched = batched_real_chain(mesh, gen, fft_counters, real_shapes)
-    real_plans = real_one_rank(fft_counters, gen, real_shapes)
+    batched = batched_real_chain(mesh, gen, counters, real_shapes)
+    real_plans = real_one_rank(counters, gen, real_shapes)
     measured = measured_one_card(real_shapes)
     endcaps = endcap_times()
     half_cols = [check_fft_columns("fft_fourstep", fft_fourstep_columns,
@@ -6068,12 +6218,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # 5. serve main path
-    all_counters = {"fft_fourstep": ops.fft_fourstep,
-                    "fft_stockham": ops.fft_stockham,
-                    "bandpass_filter": ops.bandpass_filter,
-                    "flash_attention": flash_attention}
-    flash_launches, serve_report, serve_cfg, params = serve_path(
-        all_counters)
+    flash_launches, serve_report, serve_cfg, params = serve_path(counters)
 
     # 6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as
     # four mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26, four
@@ -6106,11 +6251,11 @@ def main() -> int:
     # serving engine's trace, and the monitored serve on phase 5's
     # parameters
     t0 = time.perf_counter()
-    pipelined = pipelined_chains(mesh, fft_counters,
+    pipelined = pipelined_chains(mesh, counters,
                                  ROOT / "build" / "chip_smoke_pipe")
-    engine = engine_trace(fft_counters)
+    engine = engine_trace(counters)
     monitored = monitored_serve(serve_cfg, params, serve_report,
-                                all_counters,
+                                counters,
                                 ROOT / "build" / "chip_smoke_monitor")
     del params
     torch.cuda.empty_cache()
@@ -6147,7 +6292,7 @@ def main() -> int:
 
     # 9. the spectral solvers: NS2D 8192^2 and Boussinesq 512^3 on one
     # card, four ranks on the card, launch/solver.py in transit
-    solvers = solver_phase(all_counters, gen)
+    solvers = solver_phase(counters, gen)
 
     # 10. the elastic consumer mesh: shrink and grow at 8192^2 on four
     # ranks, launch/solver.py --elastic on three
@@ -6155,12 +6300,12 @@ def main() -> int:
 
     # 11. the model families past the dense decoders: MoE (grok-1, dbrx),
     # SSM (mamba2), hybrid (zamba2), enc-dec (whisper), VLM (internvl2)
-    families = lm_families(all_counters, gen)
+    families = lm_families(counters, gen)
 
     # 12. the training path: qwen3-4b at full width (8 of 36 layers)
     # through make_train_step, the card's float32 step against the CPU's,
     # the 100m example, and launch/train.py's restart and transit runs
-    training = train_phase(all_counters)
+    training = train_phase(counters)
 
     # 13. the LM substrate across ranks: qwen3-4b served and trained on
     # the (2, 2) mesh of four ranks sharing the card, dbrx's MoE layer
@@ -6171,7 +6316,16 @@ def main() -> int:
     # 15. the launch tools: qwen3-4b's dry-run cells (launch/specs.py) at
     # published width on a one-rank mesh against their fake traces
     # (launch/roofline.py), and fft_dryrun's cells on the kernels
-    launch = launch_phase(all_counters, smi)
+    launch = launch_phase(counters, smi)
+
+    # 16. the entry points outside the package: the quickstart at 200^2
+    # and 8192^2, h2o-danube-1.8b's rolling cache under the logits
+    # monitor at published width, the 3-D FFT example on one rank and on
+    # four through the launcher's passthrough, the wisdom CLI cold and
+    # warm (phase 4c ran the batched example, phase 10 the launcher's
+    # elastic demo)
+    entry = entry_points_phase(gen, fig2)
+    del fig2
 
     def phase8_launches(name):
         """A kernel's launches on phase 8, by rank: Fig. 2 in transit
@@ -6390,6 +6544,10 @@ def main() -> int:
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
+             monitor_plane={k: entry["monitor_plane"][k] for k in (
+                 "shape", "max_abs_err", "max_rel_err", "kernel_ms",
+                 "device_ms", "busy_ms", "plain_ms", "bound_ms",
+                 "bound_by")},
              distributed_launches=dist_launches("bandpass_filter"),
              real_launches=real_path_launches("bandpass_filter"),
              **phase7_launches("bandpass_filter"),
@@ -6464,6 +6622,22 @@ def main() -> int:
             f"launch/specs.py on a one-rank mesh (under a policy: no "
             f"flash), and launch/fft_dryrun.py's "
             f"{', '.join(LAUNCH_FFT_CELLS)} on the kernels")
+        # phase 16: the entry points (the danube monitor's FFT is
+        # torch.fft's, as the reference's local endpoint is jnp's; danube
+        # is pure sliding-window attention, which never takes flash)
+        k["entry_points_launches"] = {
+            c: (r["launches"][k["name"]] if "launches" in r else
+                [x[k["name"]] for x in r["launches_by_rank"]])
+            for c, r in entry.items()
+            if "launches" in r or "launches_by_rank" in r}
+        k["entry_points_launches_from"] = (
+            "phase 16: examples/quickstart_torch.py at 200^2 and 8192^2, "
+            f"serve_bandpass_monitor_torch.py --full ({DANUBE_ARCH}, "
+            f"{DANUBE_BATCH} x {DANUBE_PROMPT} + {DANUBE_TOKENS}), "
+            f"distributed_fft_3d_torch.py at {ENTRY_D3D_ONE}^3 on one rank "
+            f"and at {ENTRY_D3D_RANKS[1]}^3 on {ENTRY_D3D_RANKS[0]} ranks "
+            f"(by rank) through the launcher's passthrough, "
+            f"wisdom_warmup_torch.py cold and warm")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -6471,6 +6645,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--entry"]:
+        sys.exit(entry_process(sys.argv[2], sys.argv[3:]))
     if "--rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         worker = {"ranks": rank_worker, "transit": transit_worker,
@@ -6479,7 +6655,6 @@ if __name__ == "__main__":
                   "solver_launch": solver_launch_worker,
                   "solver_restore": functools.partial(solver_launch_worker,
                                                       restore=True),
-                  "elastic": elastic_worker,
                   "elastic_solver": elastic_solver_worker,
                   "train_procs": train_proc_worker,
                   "lm_ranks": lm_rank_worker,

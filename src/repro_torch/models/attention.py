@@ -240,18 +240,20 @@ def attention_blockwise(q, k, v, *, causal: bool = True,
 def attention_banded(q, k, v, *, window: int, cap: Optional[float] = None,
                      q_block: int = 512):
     """Sliding-window attention: per q block, a static-length KV slice of
-    window+q_block positions, so compute scales as O(S·W)."""
+    window+q_block positions, so compute scales as O(S·W). The last
+    block takes what is left of S when q_block does not divide it (the
+    reference's reshape needs S a multiple of q_block)."""
     S = q.shape[1]
     q_block = min(q_block, S)
     L = min(window + q_block, S)
     outs = []
-    for i in range(S // q_block):
-        end = (i + 1) * q_block
+    for begin in range(0, S, q_block):
+        end = min(begin + q_block, S)
         start = min(max(end - L, 0), S - L)
-        q_pos = i * q_block + torch.arange(q_block, device=q.device)
+        q_pos = torch.arange(begin, end, device=q.device)
         kv_pos = start + torch.arange(L, device=q.device)
         outs.append(attention_direct(
-            q[:, i * q_block:end], k[:, start:start + L],
+            q[:, begin:end], k[:, start:start + L],
             v[:, start:start + L], causal=True, cap=cap, window=window,
             q_positions=q_pos, kv_positions=kv_pos))
     return torch.cat(outs, dim=1)

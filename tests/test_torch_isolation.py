@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
@@ -77,3 +79,32 @@ def test_port_sources_import_neither_jax_nor_reference():
             "repro_torch.configs.grok1_314b",
             "repro_torch.configs.zamba2_2_7b",
             "repro_torch.configs.whisper_medium"} <= set(_modules())
+
+
+# the entry points outside the package: each imported as a module (its
+# ``main`` not run) loads neither JAX nor the reference package
+ENTRY_POINTS = ["examples/quickstart_torch.py",
+                "examples/insitu_rfft_batched_torch.py",
+                "examples/serve_bandpass_monitor_torch.py",
+                "examples/distributed_fft_3d_torch.py",
+                "tools/wisdom_warmup_torch.py",
+                "tools/launch_multihost_torch.py"]
+
+
+@pytest.mark.parametrize("rel", ENTRY_POINTS)
+def test_entry_points_load_no_jax_and_no_reference(rel):
+    path = str(ROOT / rel)
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('m', {path!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "assert callable(mod.main)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr[-3000:]

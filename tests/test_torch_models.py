@@ -25,8 +25,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import kvcache
 
 ARCHS = ["qwen3-4b", "qwen2.5-14b", "gemma2-27b", "h2o-danube-1.8b"]
-# the archs of the reference that the port served as raises of ROADMAP
-# queue 1 item 18 until they were ported
+# the archs ported with ROADMAP queue 1 item 18: the VLM, MoE, SSM,
+# hybrid and enc-dec families
 NEW_ARCHS = ["internvl2-2b", "grok-1-314b", "dbrx-132b", "whisper-medium",
              "zamba2-2.7b", "mamba2-1.3b"]
 DECODERS = ARCHS + [a for a in NEW_ARCHS if a != "whisper-medium"]
@@ -89,11 +89,10 @@ def test_registry_lists_the_reference_archs():
     assert registry.list_archs() == jregistry.list_archs()
 
 
-# named for the raise these archs gave before they were ported: now each
-# config and reduced config is the reference's, and the reduced one
+# each config and reduced config is the reference's, and the reduced one
 # initialises
 @pytest.mark.parametrize("arch", NEW_ARCHS)
-def test_unported_archs_raise(arch):
+def test_new_arch_configs_match_the_reference_and_initialise(arch):
     assert arch in jregistry.ARCH_MODULES
     for get in ("get_config", "get_reduced"):
         assert (dataclasses.asdict(getattr(registry, get)(arch))
@@ -144,6 +143,21 @@ def test_attention_cpu_branches_match_reference(causal, cap):
                                       q_block=16),
            jattn.attention_banded(jq, jk, jv, window=24, cap=cap,
                                   q_block=16))
+
+
+@pytest.mark.parametrize("cap", [None, 50.0])
+def test_banded_attention_takes_a_ragged_last_block(cap):
+    """S = 40 in q blocks of 16: the last block takes the 8 positions left
+    (the reference's banded attention needs S a multiple of its block, so
+    it is held against the reference's direct sliding-window attention
+    over the whole sequence)."""
+    q, k, v = _qkv(40)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = attention.attention_banded(tq, tk, tv, window=24, cap=cap,
+                                     q_block=16)
+    assert got.shape == tq.shape
+    _close(got, jattn.attention_direct(*map(jnp.asarray, (q, k, v)),
+                                       causal=True, cap=cap, window=24))
 
 
 @pytest.mark.parametrize("arch,kind,S", [

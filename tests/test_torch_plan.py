@@ -105,10 +105,10 @@ def test_plan_refuses_a_block_of_another_shape():
     ({"real": True}, "item 9"),
     ({"wire_dtype": "bfloat16"}, "item 12"),
 ])
-def test_unported_planning_raises(kw, item):
-    """The planning options that raised while their ROADMAP item was
-    unported (the name is kept from then) now plan on a one-device mesh
-    and transform as the reference's plan with the same options does."""
+def test_planning_options_match_the_reference(kw, item):
+    """The measured, real and reduced-wire planning options (ROADMAP items
+    9, 10 and 12) plan on a one-device mesh and transform as the
+    reference's plan with the same options does."""
     x = RNG.standard_normal((16, 16)).astype(np.float32)
     p = plan.plan_dft((16, 16), plan.FORWARD, _mesh(),
                       allow_reduced_wire=False, **kw)

@@ -119,15 +119,13 @@ def test_serve_main_runs_on_cpu_and_reports(tmp_path, capsys):
         "sample"] == report["sample"]
 
 
-# explicit ids: the ones these cases had while the list still held the
-# monitor flag (flags0), the transit and cluster flags (flags1, flags4-6),
-# the wisdom flag (flags3), the elastic flag (flags2) and the MoE arch
-# (flags7), all now ported; the name is kept from when they raised. The
-# MoE case serves a reduced dbrx; the other flags are tested below
+# the MoE arch (ROADMAP item 18) through serve.main: a reduced dbrx (the
+# id is the one the case had in an earlier list of flags); the wisdom and
+# elastic flags are tested below
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--arch", "dbrx-132b"], "item 18", id="flags7-item 18"),
 ])
-def test_serve_flags_not_ported_raise(flags, item):
+def test_serve_main_serves_the_moe_arch(flags, item):
     report = serve.main(["--reduced", "--device", "cpu", "--bench-out", "",
                          "--batch", "2", "--prompt-len", "12", "--tokens",
                          "3", *flags])
