@@ -67,9 +67,16 @@ Phases, each printing one JSON line:
      time from torch.profiler (``device_ms``) stands beside the CUDA-event
      time, so launch and host time show apart. The four-step kernel is
      held at every route (radix rows and columns, mixed radix in one CTA
-     and in passes through a scratch buffer, Bluestein) against the
-     float64 oracle too, and against its plain version only where that
-     version's float32 angles hold. The flash kernel is held
+     (rows of 13824 on the composite radices; of 10000 on the row
+     register kernel, one shared buffer, two CTAs an SM), in one pass on
+     a thread-block cluster (columns of 1000, and the r2c half width
+     (1, 1000, 501)) and in passes through a
+     scratch buffer, Bluestein) against the float64 oracle too, and
+     against its plain version only where that version's float32 angles
+     hold; first of all, on a card that holds nothing else, (1, 5^13)
+     in five mixed-radix passes (about 29 GB) against the exact
+     spectrum of a seeded sum of tones, with its time, torch.fft's and
+     its peak. The flash kernel is held
      at the qwen3-4b prefill shape in float32 (three TF32 products on the
      tensor cores: bounded by them at the TF32 peak, with the CUDA cores'
      fp32 bound beside it) and bf16 (wgmma), each beside SDPA, and on a
@@ -82,12 +89,18 @@ Phases, each printing one JSON line:
   4. FFT main path — the chain at 8192 x 8192 (every pass on the
      four-step kernel's radix route), 128 x 128 (every pass on the
      Stockham kernel), 200 x 200 (the quickstart's grid) and 10000 x
-     10000 (mixed-radix rows and columns), in ``insitu`` and
+     10000 (mixed-radix rows on the row register kernel, a row a CTA,
+     columns in two passes), in
+     ``insitu`` and
      ``intransit`` modes, and 2048 x 32768 (32768-point rows as two
-     mixed-radix passes) in ``insitu``, each held against a float64 numpy
-     oracle of the same chain, with the launch counts of each run (the
-     column route's apart); then one step at 8192², 10000² (which must
-     show no copy kernel, and the mixed-radix kernel) and 200²: device
+     mixed-radix passes) in ``insitu``, each held against a float64 oracle
+     of the same chain (cuFFT in complex128 on the card), with the launch
+     counts of each run (the column route's apart, the cluster kernel's,
+     none at these sizes, and the row register kernel's, the 10000²
+     chain's rows); then one step
+     at 8192², 10000² (which must show no copy kernel, the rows'
+     ``mixed_row_reg_kernel`` and the columns' one instantiation of
+     ``mixed_lines_kernel``) and 200²: device
      busy ms of steps queued behind a spin kernel (CUDA events), the
      idle share, and time per launch by kernel (profiler);
   4b. distributed path — ``distributed_one_rank``: pencil, pencil_tf
@@ -162,7 +175,8 @@ Phases, each printing one JSON line:
      request an execute and then batched (max_batch 8); every answer
      against float64 (fft 5e-5 of max |X|, bandpass 1e-4); latency
      percentiles, throughput, batched-execute ratio, queue depth, peak
-     memory; four-step and Stockham launches. Then ``serve.main`` with
+     memory; four-step and Stockham launches, and the cluster kernel's
+     (the 1000-point columns take it). Then ``serve.main`` with
      ``--monitor-every 4 --monitor-batch 4`` on phase 5's parameters:
      the same tokens as phase 5's run, 36 flash launches, 2 monitor
      executes and files, the written statistics within 1e-5 of float64
@@ -419,7 +433,7 @@ FFT_TOL_LIB = 1e-5
 FFT_TOL_F64 = 5e-5
 # Bandpass sums against a float64 sum of the same planes; planes exact.
 SUM_TOL = 1e-5
-# Denoised field against the float64 numpy oracle, absolute, on an O(1)
+# Denoised field against the float64 oracle, absolute, on an O(1)
 # field: float32 transforms there err by ~1e-6 rms; 1e-4 is the
 # port-vs-reference bar of the CPU tests (tests/test_torch_insitu.py).
 FIELD_TOL = 1e-4
@@ -450,7 +464,11 @@ FLASH_KERNELS = ("flash_tf32_kernel", "flash_wgmma_kernel")
 # the FFT kernels' symbols (csrc/fft_common.cuh, fft_fourstep.cu): every
 # kernel that the wrappers' launch counts count
 FFT_KERNELS = ("fft_lines_kernel", "mixed_lines_kernel", "mixed_reg_kernel",
-               "bluestein_")
+               "mixed_cluster_kernel", "mixed_row_reg_kernel", "bluestein_")
+# (1, 5^13): five mixed-radix passes of <= 439 points, about 29 GB of
+# input, output and scratch, held against the exact spectrum of a seeded
+# sum of integer-frequency tones (no float64 oracle has to be held)
+CLOSED_FORM_N = 5 ** 13
 # the spin that the runs timed by queued_device_ms wait behind, and its
 # clock cycles a second (H100 SXM boost clock, 1.98 GHz)
 QUEUE_SPIN_S = 0.25
@@ -748,6 +766,7 @@ def check_fft(name, wrapper, plain, shape, gen, timed: bool = True):
         from repro_torch.kernels import fft_plan
         r = fft_plan.route(N, False)
         res["route"], res["lines"] = r.kind, list(r.lines or [r.m or N])
+        res["row_reg"] = r.row_reg
     held = plain is not None and plain_holds(N)
     for inverse in (False, True):
         kr, ki = wrapper(re, im, inverse=inverse)
@@ -814,6 +833,7 @@ def check_fft_columns(name, wrapper, plain, shape, gen, timed: bool = True):
         r = fft_plan.route(N, inner > 1)
         res["column_route"] = r.kind
         res["lines"] = list(r.lines or [r.m or N])
+        res["cluster"] = r.cluster
 
     def call(inverse=False):
         kr, ki = wrapper(re.view(v3), im.view(v3), inverse=inverse)
@@ -868,6 +888,92 @@ def check_fft_columns(name, wrapper, plain, shape, gen, timed: bool = True):
     return res
 
 
+def tone_field(n: int, seed: int, chunk: int = 1 << 25):
+    """A seeded sum of four integer-frequency tones on n points, made on
+    the card in float64 chunks: x[t] = sum A_k exp(2*pi*i*f_k*t/n), each
+    angle from the exact integer (f_k*t) mod n. Its spectrum is n*A_k at
+    f_k (forward) and A_k at -f_k mod n (inverse), zero elsewhere."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    freqs = [int(f) for f in rng.integers(0, n, 4)]
+    assert len(set(freqs)) == 4
+    amps = rng.standard_normal(4) + 1j * rng.standard_normal(4)
+    re = torch.empty((1, n), dtype=torch.float32, device="cuda")
+    im = torch.empty_like(re)
+    for t0 in range(0, n, chunk):
+        t = torch.arange(t0, min(n, t0 + chunk), dtype=torch.int64,
+                         device="cuda")
+        acc = torch.zeros(t.numel(), dtype=torch.complex128, device="cuda")
+        for f, a in zip(freqs, amps):
+            ang = ((t * f) % n).double() * (2 * math.pi / n)
+            acc += complex(a) * torch.polar(torch.ones_like(ang), ang)
+        re[0, t0:t0 + t.numel()] = acc.real.float()
+        im[0, t0:t0 + t.numel()] = acc.imag.float()
+    return re, im, freqs, amps
+
+
+def tone_err(got, n: int, freqs, amps, inverse: bool) -> float:
+    """Largest error of the pair ``got`` against the tones' exact
+    spectrum, relative to its max |X|; ``got`` is overwritten."""
+    import torch
+    re, im = got
+    idx = torch.tensor([(-f) % n if inverse else f for f in freqs],
+                       device=re.device)
+    want = torch.tensor([complex(a) * (1 if inverse else n) for a in amps],
+                        dtype=torch.complex128, device=re.device)
+    at = torch.complex(re[0, idx].double(), im[0, idx].double())
+    bins = float((at - want).abs().max())
+    re[0, idx] = 0.0
+    im[0, idx] = 0.0
+    rest = max(float(re.abs().max()), float(im.abs().max()))
+    return max(bins, rest) / float(want.abs().max())
+
+
+def check_closed_form(n: int):
+    """(1, n) on the four-step kernel against a closed form, forward and
+    inverse, at FFT_TOL_F64, on a card that holds nothing else; then its
+    time (CUDA events and profiler device ms, 3 calls), torch.fft's on
+    the same input, the byte bound and the peak."""
+    import torch
+    from repro_torch.kernels import fft_plan
+    from repro_torch.kernels.fft_fourstep import fft_fourstep
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = fft_plan.route(n, False)
+    re, im, freqs, amps = tone_field(n, 0)
+    res = {"kernel": "fft_fourstep", "check": "closed_form",
+           "shape": [1, n], "route": r.kind, "lines": list(r.lines),
+           "tones": freqs, "tol_vs_closed_form": FFT_TOL_F64}
+    for inverse in (False, True):
+        err = tone_err(fft_fourstep(re, im, inverse=inverse), n, freqs,
+                       amps, inverse)
+        res[("inverse_" if inverse else "") + "rel_err_vs_closed_form"] = err
+        if not err < FFT_TOL_F64:
+            emit(res)
+            raise AssertionError(f"fft_fourstep (1, {n}) inverse={inverse}:"
+                                 f" {err:.3e} vs its closed form")
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res["kernel_ms"] = time_ms(lambda: fft_fourstep(re, im), 3, 1)
+    res["device_ms"] = device_ms(lambda: fft_fourstep(re, im), 3)
+    res["bound_ms"], res["bound_by"] = bound(fft_flops(n), 16.0 * n)
+    z = torch.complex(re, im)
+    del re, im
+    torch.cuda.empty_cache()
+    try:     # the yardstick only: a cuFFT refusal at this size is reported
+        res["library_ms"] = time_ms(lambda: torch.fft.fft(z, dim=-1), 3, 1)
+        res["library_device_ms"] = device_ms(
+            lambda: torch.fft.fft(z, dim=-1), 3)
+    except RuntimeError as exc:
+        res["library_ms"] = res["library_device_ms"] = None
+        res["library_error"] = str(exc)[:300]
+    del z
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 def check_bandpass(shape, gen, soft: bool):
     import torch
     from repro_torch.kernels.bandpass import bandpass_filter
@@ -904,25 +1010,29 @@ def check_bandpass(shape, gen, soft: bool):
 
 
 def oracle(dims):
-    """The chain in float64 numpy: fft2 → the same mask → ifft2. The
-    energies come twice: over the whole spectrum (the complex chain's)
-    and over the half-spectrum's stored bins, k1 <= N1/2, with no
-    Hermitian weight (the real chain's, as the reference sums them).
-    The mask is Hermitian-symmetric, so both chains give one field."""
-    import numpy as np
+    """The chain in float64 on the card (torch.fft in complex128, an
+    oracle only: cuFFT, none of the port's kernels): fft2 → the same mask
+    → ifft2, the field back in numpy. The energies come twice: over the
+    whole spectrum (the complex chain's) and over the half-spectrum's
+    stored bins, k1 <= N1/2, with no Hermitian weight (the real chain's,
+    as the reference sums them). The mask is Hermitian-symmetric, so both
+    chains give one field."""
+    import torch
     from repro_torch.core.fft.filters import lowpass_mask
     from repro_torch.core.insitu.adaptors import radiating_field
     noisy, clean = radiating_field(dims, seed=0)
-    spec = np.fft.fft2(noisy.astype(np.float64))
+    spec = torch.fft.fft2(torch.from_numpy(noisy).to("cuda", torch.float64))
     power = spec.real ** 2 + spec.imag ** 2
-    mask = lowpass_mask(dims, KEEP_FRAC).numpy()
+    mask = lowpass_mask(dims, KEEP_FRAC).to("cuda", torch.float64)
     h = dims[-1] // 2 + 1
     kept, total = float((power * mask).sum()), float(power.sum())
     kept_half = float((power[:, :h] * mask[:, :h]).sum())
     total_half = float(power[:, :h].sum())
     del power
     spec *= mask
-    denoised = np.fft.ifft2(spec).real
+    denoised = torch.fft.ifft2(spec).real.cpu().numpy()
+    del spec, mask
+    torch.cuda.empty_cache()
     return {"noisy": noisy, "clean": clean, "denoised": denoised,
             "energies": (kept, total), "half_energies": (kept_half,
                                                          total_half)}
@@ -976,6 +1086,8 @@ def run_chain(dims, mode, mesh, expected, out_dir, real=False, shapes=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(counters)
+    cluster_launches = counters["fft_fourstep"].cluster_launches
+    row_reg_launches = counters["fft_fourstep"].row_reg_launches
     got = out.arrays["field"].cpu().numpy()
     field_err = float(np.abs(got - want).max())
     mse0 = float(np.mean((noisy - clean) ** 2))
@@ -986,6 +1098,8 @@ def run_chain(dims, mode, mesh, expected, out_dir, real=False, shapes=None):
     res = {"phase": "real_chain" if real else "main_path",
            "dims": list(dims), "mode": mode, "real": real,
            "wall_s": wall, "launches": launches,
+           "cluster_launches": cluster_launches,
+           "row_reg_launches": row_reg_launches,
            "field_max_abs_err": field_err, "field_tol": FIELD_TOL,
            "kept_rel_err": abs(kept - kept64) / kept64,
            "total_rel_err": abs(total - total64) / total64,
@@ -1386,11 +1500,35 @@ def launch_counts(counters):
     return out
 
 
+@contextlib.contextmanager
+def reused_fields():
+    """Each seeded source field made once while the block runs: phase 4's
+    chain runs, profiles and oracle of one grid all ask
+    ``radiating_field`` for the same seeded field, which takes seconds on
+    the host at 10000^2; each call gets copies of the one made first."""
+    from repro_torch.core.insitu import adaptors
+    made, fields = adaptors.radiating_field, {}
+
+    def reuse(dims, *args, **kw):
+        key = (tuple(dims), args, tuple(sorted(kw.items())))
+        if key not in fields:
+            fields[key] = made(dims, *args, **kw)
+        return tuple(a.copy() for a in fields[key])
+    adaptors.radiating_field = reuse
+    try:
+        yield
+    finally:
+        adaptors.radiating_field = made
+
+
 def zero_counts(counters):
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "column_launches"):
             fn.column_launches = 0
+        if hasattr(fn, "cluster_launches"):
+            fn.cluster_launches = 0
+            fn.row_reg_launches = 0
 
 
 @contextlib.contextmanager
@@ -2540,6 +2678,7 @@ def engine_trace(counters):
         wall = time.perf_counter() - t0
         rep = eng.report()
         launches = launch_counts(counters)
+        cluster = counters["fft_fourstep"].cluster_launches
         peak = torch.cuda.max_memory_allocated() - base
         eng.stop()
         answers = [f.result(timeout=ENGINE_TIMEOUT_S) for f in futs]
@@ -2553,6 +2692,7 @@ def engine_trace(counters):
                 "queue_depth_max": rep["queue"]["depth_max"],
                 "completion_wait_s": rep["queue"]["completion"]["wait_s"],
                 "peak_bytes": peak, "launches": launches,
+                "cluster_launches": cluster,
                 "prewarm": {k: prewarm[k] for k in ("requests", "wall_s",
                                                     "errors")},
                 "failed": rep["requests"]["failed"]}, answers
@@ -2602,6 +2742,13 @@ def engine_trace(counters):
     assert batched["executes"] < ENGINE_REQUESTS, batched
     assert batched["launches"]["fft_fourstep"] > 0, batched
     assert batched["launches"]["fft_stockham"] > 0, batched
+    # the 1000^2 requests' columns (1000 points, c2c and the r2c's 501
+    # half-width columns) run on the cluster kernel where the column
+    # route takes it (tools/engine_cluster.py also runs the trace without)
+    from repro_torch.kernels import fft_plan
+    for run in (sequential, batched):
+        assert (run["cluster_launches"] > 0) == fft_plan.takes_cluster(
+            1000), run
     return res
 
 
@@ -5983,7 +6130,7 @@ def main() -> int:
         return 2
     from repro_torch.compat import make_mesh
     from repro_torch.core.fft import dft
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, fft_plan
     from repro_torch.kernels.fft_fourstep import (fft_fourstep,
                                                   fft_fourstep_columns)
     from repro_torch.kernels.fft_stockham import (fft_stockham,
@@ -6023,30 +6170,44 @@ def main() -> int:
                    + [FLASH_KERNELS[1]] * len(BF16_HEAD_DIMS)), sass
         assert all(c["HGMMA"] + c["HMMA"] > 0 for c in sass.values()), sass
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions; first (1, 5^13) against
+    # its closed form, while the card holds nothing else
+    t_checks = time.perf_counter()
+    closed_form = check_closed_form(CLOSED_FORM_N)
+    closed_form_s = time.perf_counter() - t_checks
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # rows: powers of two on the radix route ((64, 16384) is the longest
-    # row it holds in one CTA); 200, 360, 10000 on mixed radix, one CTA a
-    # row; 20000 and the long powers of two (32768 to 2^20) on mixed-radix
-    # passes through a scratch buffer; 257, 4097 = 17*241 and 10007 on
-    # Bluestein
+    # row it holds in one CTA); 200 and 360 on mixed radix, several rows
+    # a CTA; 10000 on the row register kernel (one shared buffer, two
+    # CTAs an SM), 13824 on mixed_lines_kernel's composites, one CTA a
+    # row (its radix-3 passes need more threads than the register kernel
+    # has); 20000 and the long powers of two (32768 to 2^20) on
+    # mixed-radix passes through a scratch buffer; 257, 4097 = 17*241 and
+    # 10007 on Bluestein
     fourstep = [check_fft("fft_fourstep", fft_fourstep, dft.fourstep_fft,
                           s, gen)
                 for s in ((8192, 8192), (64, 200), (64, 360), (64, 257),
-                          (200, 200), (10000, 10000), (64, 16384),
-                          (64, 20000), (64, 32768), (8, 65536),
+                          (200, 200), (10000, 10000), (3, 13824),
+                          (64, 16384), (64, 20000), (64, 32768), (8, 65536),
                           (4, 1 << 20), (8, 10007), (16, 4097))]
     stockham = [check_fft("fft_stockham", fft_stockham, dft.stockham_fft,
                           s, gen)
                 for s in ((128, 128), (8192, 128), (256, 64))]
     # columns, axis -2, no transposed copy: 8192 points in two radix
-    # passes through a scratch buffer; 200 in one mixed-radix pass, 10000
-    # in two (100 x 100); 257 on Bluestein
+    # passes through a scratch buffer; 200 in one mixed-radix pass; 10000
+    # as two passes of 100 x 100 on the wide tiles; the FFT engine's 1000
+    # and its r2c half width (1, 1000, 501: an odd inner, the last tile of
+    # 8 columns ragged) on the cluster kernel in one pass; 257 on
+    # Bluestein
     fourstep_cols = [check_fft_columns("fft_fourstep", fft_fourstep_columns,
                                        dft.fourstep_fft, s, gen)
                      for s in ((8192, 8192), (8192, 128), (3, 257, 100),
-                               (200, 200), (10000, 10000))]
+                               (200, 200), (10000, 10000), (1000, 1000),
+                               (1, 1000, 501))]
+    assert [r["cluster"] for r in fourstep_cols] == [False] * 5 + [True] * 2
+    assert [r["row_reg"] for r in fourstep] == [
+        r["shape"][1] == 10000 for r in fourstep], fourstep
     stockham_cols = [check_fft_columns("fft_stockham", fft_stockham_columns,
                                        dft.stockham_fft, (128, 128), gen)]
     # N = 1 and 2, as rows and as columns (the length-1 and length-2
@@ -6084,8 +6245,12 @@ def main() -> int:
                               sk=WHISPER_FRAMES)
     emit({"phase": "flash_checks_seconds",
           "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernel_checks_seconds",
+          "closed_form_seconds": closed_form_s,
+          "seconds": time.perf_counter() - t_checks})
 
     # 4. main path
+    t_main = time.perf_counter()
     mesh = make_mesh((1,), ("data",))
     assert mesh.device.type == "cuda"
     out_dir = ROOT / "build" / "chip_smoke"
@@ -6093,7 +6258,8 @@ def main() -> int:
     # sizes: 8192^2 (powers of two on the four-step kernel), 128^2 (all on
     # Stockham), 200^2 (the quickstart's grid: mixed radix rows and
     # columns), 10000^2 (a 7-smooth grid, 400 MB a plane: mixed-radix rows
-    # in one CTA, columns as 100 x 100 in two passes) and 2048 x 32768 (a
+    # on the row register kernel, columns as 100 x 100 in two passes) and
+    # 2048 x 32768 (a
     # long periodic strip, 256 MiB a plane: 32768-point rows as two
     # mixed-radix passes; insitu only, for the time budget)
     four = ("fft_fourstep", "fft_fourstep_columns", "bandpass_filter")
@@ -6110,10 +6276,16 @@ def main() -> int:
     # same oracle: its launches apart, and every FFT shape it gives the
     # kernels (half-width columns) for the shape checks below
     real_launches = {}
+    # the cluster kernel's launches a size, complex and real chains, and
+    # the row register kernel's
+    cluster_launches, real_cluster_launches = {}, {}
+    row_reg_launches, real_row_reg_launches = {}, {}
     chains, real_chains = {}, {}
     real_shapes = set()
     fig2 = {}          # phase 16's quickstart against the same oracle
+    fields = contextlib.ExitStack()
     try:
+        fields.enter_context(reused_fields())
         for dims, modes, must_run in sizes:
             expected = oracle(dims)
             launches[dims] = dict.fromkeys(
@@ -6121,6 +6293,10 @@ def main() -> int:
             for mode in modes:
                 res = run_chain(dims, mode, mesh, expected, out_dir)
                 chains[(dims, mode)] = res
+                cluster_launches[dims] = (cluster_launches.get(dims, 0)
+                                          + res["cluster_launches"])
+                row_reg_launches[dims] = (row_reg_launches.get(dims, 0)
+                                          + res["row_reg_launches"])
                 for k in must_run:
                     assert res["launches"][k] > 0, (dims, mode, k)
                 for k, v in res["launches"].items():
@@ -6133,6 +6309,12 @@ def main() -> int:
                     res = run_chain(dims, mode, mesh, expected, out_dir,
                                     real=True, shapes=real_shapes)
                     real_chains[(dims, mode)] = res
+                    real_cluster_launches[dims] = (
+                        real_cluster_launches.get(dims, 0)
+                        + res["cluster_launches"])
+                    real_row_reg_launches[dims] = (
+                        real_row_reg_launches.get(dims, 0)
+                        + res["row_reg_launches"])
                     for k in four:
                         assert res["launches"][k] > 0, (dims, mode, k)
                     for k, v in res["launches"].items():
@@ -6142,16 +6324,37 @@ def main() -> int:
                                                        "energies")}
             del expected
             shutil.rmtree(out_dir, ignore_errors=True)
+        # a chain reaches the cluster kernel exactly where its column
+        # route takes it: none of these sizes (10000 columns run two
+        # passes on the wide tiles, 200 one tile); the FFT engine's 1000^2
+        # requests do (phase 7)
+        for table in (cluster_launches, real_cluster_launches):
+            for d, v in table.items():
+                assert (v > 0) == fft_plan.takes_cluster(d[0]), (d, v)
+        # the complex chains' rows take the row register kernel where their
+        # route does: the 10000^2 chain's
+        for d, v in row_reg_launches.items():
+            assert (v > 0) == fft_plan.route(d[1], False).row_reg, (d, v)
         for dims in ((8192, 8192), (10000, 10000), (200, 200)):
             profiles[dims] = profile_chain(dims, mesh, out_dir)
-        # the 10000^2 step: no copy kernel, and the mixed-radix kernel
+        # the 10000^2 step: no copy kernel; its rows on the row register
+        # kernel, its columns as two passes on mixed_lines_kernel's wide
+        # tiles (one instantiation), none on the tiles' register kernel
+        # or the cluster kernel
         names = [k["name"] for k in profiles[(10000, 10000)]["by_kernel_ms"]]
         assert not [n for n in names if "copy" in n.lower()], names
-        assert any("mixed_lines_kernel" in n for n in names), names
+        assert len({n for n in names if "mixed_lines_kernel" in n}) == 1, \
+            names
+        assert [n for n in names if "mixed_row_reg_kernel" in n], names
+        assert not [n for n in names if "mixed_reg_kernel" in n
+                    or "mixed_cluster_kernel" in n], names
         real_profiles = {dims: profile_chain(dims, mesh, out_dir, real=True)
                          for dims in REAL_CHAIN_DIMS}
     finally:
+        fields.close()
         shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "main_path_seconds",
+          "seconds": time.perf_counter() - t_main})
     emit({"phase": "real_vs_complex_chain", "rows": [
         {"dims": list(dims), "mode": mode,
          "complex_wall_s": chains[(dims, mode)]["wall_s"],
@@ -6218,7 +6421,10 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # 5. serve main path
+    t0 = time.perf_counter()
     flash_launches, serve_report, serve_cfg, params = serve_path(counters)
+    emit({"phase": "serve_path_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
 
     # 6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as
     # four mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26, four
@@ -6245,6 +6451,7 @@ def main() -> int:
           "table_bytes_after_clear": fourstep_mod.table_bytes()})
     assert 0 < tables <= fourstep_mod.CHIRP_CACHE_BYTES, tables
     assert before - after >= tables, (before, after, tables)
+    emit({"phase": "long_rows_seconds", "seconds": time.perf_counter() - t0})
 
     # 7. pipelined_and_engine: the pipelined chain on one card (its four
     # ranks ran in 4b, beside the other four-rank checks), the FFT
@@ -6427,6 +6634,8 @@ def main() -> int:
     fourstep_routes = [
         {"shape": r["shape"], "axis": r.get("axis", -1),
          "route": r.get("route", r.get("column_route")),
+         "cluster": r.get("cluster", False),
+         "row_reg": r.get("row_reg", False),
          "lines": r["lines"], "device_ms": r["device_ms"],
          "library_device_ms": r["library_device_ms"],
          "bound_ms": r["bound_ms"],
@@ -6508,6 +6717,33 @@ def main() -> int:
              routes=fourstep_routes,
              chain_launches={f"{d[0]}x{d[1]}": launches[d]["fft_fourstep"]
                              for d in launches},
+             cluster_kernel={
+                 "symbol": "mixed_cluster_kernel",
+                 "engine_launches": {
+                     "sequential": engine["sequential"]["cluster_launches"],
+                     "batched": engine["batched"]["cluster_launches"]},
+                 "chain_launches": {f"{d[0]}x{d[1]}": v
+                                    for d, v in cluster_launches.items()},
+                 "real_chain_launches": {
+                     f"{d[0]}x{d[1]}": v
+                     for d, v in real_cluster_launches.items()}},
+             row_register_kernel={
+                 "symbol": "mixed_row_reg_kernel",
+                 "source": csrc + "fft_row_reg.cu",
+                 "chain_launches": {f"{d[0]}x{d[1]}": v
+                                    for d, v in row_reg_launches.items()},
+                 "real_chain_launches": {
+                     f"{d[0]}x{d[1]}": v
+                     for d, v in real_row_reg_launches.items()},
+                 "checks": [{k: r[k] for k in (
+                     "shape", "device_ms", "library_device_ms", "bound_ms",
+                     "max_abs_err", "rel_err_vs_f64")}
+                     for r in fourstep if r["row_reg"]]},
+             closed_form={k: closed_form[k] for k in (
+                 "shape", "lines", "rel_err_vs_closed_form",
+                 "inverse_rel_err_vs_closed_form", "kernel_ms", "device_ms",
+                 "library_ms", "library_device_ms", "bound_ms",
+                 "peak_memory_bytes")},
              distributed_launches=dist_launches("fft_fourstep"),
              distributed_shapes=shape_checks("fft_fourstep"),
              real_launches=real_path_launches("fft_fourstep"),

@@ -40,7 +40,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fft_fourstep": (_P, _P, _P, _P, _L, _I, _I, _P),
     "repro_fft_mixed": (_P, _P, _P, _P, _P, _L, _L, _P, _I, _P),
-    "repro_fft_bluestein": (_P, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P,
+    "repro_fft_cluster": (_P, _P, _P, _P, _L, _L, _P, _I, _P),
+    "repro_fft_bluestein": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P,
                             _I, _P),
     "repro_fft_fourstep_axis": (_P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
                                 _P),

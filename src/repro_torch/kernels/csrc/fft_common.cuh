@@ -220,11 +220,81 @@ __device__ __forceinline__ void dft_odd(float2* v, float sign) {
   for (int r = 0; r < R; ++r) v[r] = out[r];
 }
 
+// cos and sin of pi*x/2 for 0 <= x <= 1, as polynomials in double (the
+// Taylor series to x^17: below 1e-13 on that range), and of 2*pi*m/R by
+// quadrant. For m and R known at compile time after unrolling, so that
+// the compiler folds them to constants.
+__host__ __device__ constexpr double quarter_cos(double x) {
+  const double t = x * 1.5707963267948966, u = t * t;
+  return 1 - u / 2 * (1 - u / 12 * (1 - u / 30 * (1 - u / 56 * (1 - u / 90 *
+         (1 - u / 132 * (1 - u / 182 * (1 - u / 240 * (1 - u / 306))))))));
+}
+__host__ __device__ constexpr double quarter_sin(double x) {
+  const double t = x * 1.5707963267948966, u = t * t;
+  return t * (1 - u / 6 * (1 - u / 20 * (1 - u / 42 * (1 - u / 72 * (1 - u /
+         110 * (1 - u / 156 * (1 - u / 210 * (1 - u / 272 * (1 - u /
+         342)))))))));
+}
+__host__ __device__ constexpr float cos_frac(int m, int R) {
+  m %= R;
+  const int q = 4 * m / R;             // quadrant
+  const double x = (double)(4 * m - q * R) / R;
+  return (float)(q == 0 ? quarter_cos(x) : q == 1 ? -quarter_sin(x)
+                 : q == 2 ? -quarter_cos(x) : quarter_sin(x));
+}
+__host__ __device__ constexpr float sin_frac(int m, int R) {
+  m %= R;
+  const int q = 4 * m / R;
+  const double x = (double)(4 * m - q * R) / R;
+  return (float)(q == 0 ? quarter_sin(x) : q == 1 ? quarter_cos(x)
+                 : q == 2 ? -quarter_sin(x) : -quarter_cos(x));
+}
+
+template <int R>
+__device__ __forceinline__ void dft_any(float2* v, float sign);
+
+// A composite R = P*Q-point DFT in registers (Cooley-Tukey): the P-point
+// DFTs of x[Q*n1 + n2] over n1, each output k1 times exp(sign*2*pi*i*
+// n2*k1/R), then the Q-point DFTs over n2, output k1 + P*k2. Every index
+// and twiddle is a compile-time constant.
+template <int P, int Q>
+__device__ __forceinline__ void dft_composite(float2* v, float sign) {
+  constexpr int R = P * Q;
+  float2 y[R];
+#pragma unroll
+  for (int n2 = 0; n2 < Q; ++n2) {
+    float2 a[P];
+#pragma unroll
+    for (int n1 = 0; n1 < P; ++n1) a[n1] = v[Q * n1 + n2];
+    dft_any<P>(a, sign);
+#pragma unroll
+    for (int k1 = 0; k1 < P; ++k1) {
+      const int m = n2 * k1;
+      y[k1 * Q + n2] =
+          m ? cmul(a[k1], make_float2(cos_frac(m, R), sign * sin_frac(m, R)))
+            : a[k1];
+    }
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < P; ++k1) {
+    float2 b[Q];
+#pragma unroll
+    for (int n2 = 0; n2 < Q; ++n2) b[n2] = y[k1 * Q + n2];
+    dft_any<Q>(b, sign);
+#pragma unroll
+    for (int k2 = 0; k2 < Q; ++k2) v[k1 + P * k2] = b[k2];
+  }
+}
+
 // The R-point DFT for every radix of the mixed-radix passes: 2, 4, 8, 16
-// by radix-2 stages, 3, 5, 7 by dft_odd.
+// by radix-2 stages, 3, 5, 7 by dft_odd, and the composites 10 (2 x 5),
+// 20 (4 x 5) and 25 (5 x 5) of the cluster kernel's passes.
 template <int R>
 __device__ __forceinline__ void dft_any(float2* v, float sign) {
-  if constexpr ((R & (R - 1)) == 0) dft_regs<R>(v, sign);
+  if constexpr (R == 10) dft_composite<2, 5>(v, sign);
+  else if constexpr (R == 20) dft_composite<4, 5>(v, sign);
+  else if constexpr (R == 25) dft_composite<5, 5>(v, sign);
+  else if constexpr ((R & (R - 1)) == 0) dft_regs<R>(v, sign);
   else dft_odd<R>(v, sign);
 }
 

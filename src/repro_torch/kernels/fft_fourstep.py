@@ -6,16 +6,21 @@
 middle axis and writes the same layout, with no transposed copy, for
 every N. ``fft_plan.route`` picks the route once per N: the radix
 Stockham kernels (powers of two to 16384 as rows, 65536 as columns),
-mixed radix 2-16/3/5/7 (every other N whose prime factors are <= 7), or
-Bluestein (the rest: a power-of-two convolution, with the chirp and its
-spectrum made once per N and direction and kept on the device that
-asked, in a byte-capped LRU cache that ``plan.plan_cache_clear()``
-empties: ``CHIRP_CACHE_BYTES``, ``clear_tables``). On a
+mixed radix 2-16/3/5/7 (every other N whose prime factors are <= 7: a
+row in one CTA, from 4096 points on the row register kernel; columns in
+one pass on a thread-block cluster where one cluster holds the tile;
+else line passes), or Bluestein (the rest: a power-of-two convolution,
+with the chirp and its spectrum made once per N and direction and kept
+on the device that asked, in a byte-capped LRU cache that
+``plan.plan_cache_clear()`` empties: ``CHIRP_CACHE_BYTES``,
+``clear_tables``). On a
 CUDA tensor each wrapper launches the kernels or raises; on a CPU tensor
 it computes the plain version, ``dft.fourstep_fft`` (moved to the last
 axis and back for columns). ``fft_fourstep.launches`` counts every
 kernel launched, rows and columns alike;
-``fft_fourstep.column_launches`` counts the column route's.
+``fft_fourstep.column_launches`` counts the column route's,
+``fft_fourstep.cluster_launches`` the cluster kernel's and
+``fft_fourstep.row_reg_launches`` the row register kernel's.
 """
 from __future__ import annotations
 
@@ -81,9 +86,12 @@ def _bluestein_tables(n: int, inverse: bool, device):
             return hit
     m = fft_plan.bluestein_size(n)
     sign = 1.0 if inverse else -1.0
-    e = fft_plan.chirp_exponents(n, device).double()
-    ang = (sign * math.pi / n) * e
+    # the angles in place, and gone before the spectrum's FFT (at N = 2^29
+    # they and the exponents are 8 GiB beside its 48)
+    ang = fft_plan.chirp_exponents(n, device).double()
+    ang *= sign * math.pi / n
     chirp = torch.stack((torch.cos(ang), torch.sin(ang)), -1).float()
+    del ang
     # conj(chirp) laid out circularly: b[m] = b[M - m] = conj(c[m])
     bre = torch.zeros((1, m), dtype=torch.float32, device=device)
     bim = torch.zeros_like(bre)
@@ -91,6 +99,7 @@ def _bluestein_tables(n: int, inverse: bool, device):
     bre[0, m - n + 1:] = chirp[1:, 0].flip(0)
     bim[0, m - n + 1:] = -chirp[1:, 1].flip(0)
     sre, sim = fft_fourstep(bre, bim)
+    del bre, bim
     spec = torch.stack((sre[0], sim[0]), -1).contiguous()
     tables = (chirp.contiguous(), spec)
     _keep(key, tables)
@@ -104,6 +113,10 @@ def _launch(re, im, outer: int, n: int, inner: int, inverse: bool,
     r = fft_plan.route(n, columns)
     lib = _build.library()
     dev = re.device
+    # Bluestein's tables first: making them takes a spectrum's FFT of M
+    # points, which should not sit beside this call's scratch
+    tables = (_bluestein_tables(n, inverse, dev) if r.kind == "bluestein"
+              else None)
     ore, oim = re.new_empty(re.shape), im.new_empty(im.shape)
     args = (re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr())
     stream = _build.stream(dev)
@@ -117,16 +130,21 @@ def _launch(re, im, outer: int, n: int, inner: int, inverse: bool,
         n1 = 1 << ((n.bit_length() - 1) // 2)
         code = lib.repro_fft_fourstep_axis(*args, wptr, outer, n1, n // n1,
                                            inner, int(inverse), stream)
+    elif r.cluster:
+        code = lib.repro_fft_cluster(*args, outer, inner, r.plan,
+                                     int(inverse), stream)
     elif r.kind == "mixed":
         code = lib.repro_fft_mixed(*args, wptr, outer, inner, r.plan,
                                    int(inverse), stream)
     else:
-        chirp, spec = _bluestein_tables(n, inverse, dev)
+        chirp, spec = tables
         code = lib.repro_fft_bluestein(
             *args, wptr, outer, n, inner, r.m, r.m_route.plan,
             chirp.data_ptr(), spec.data_ptr(), int(inverse), stream)
     _build.check(code, "fft_fourstep")
     fft_fourstep.launches += r.launches
+    fft_fourstep.cluster_launches += int(r.cluster)
+    fft_fourstep.row_reg_launches += int(r.row_reg)
     return ore, oim, r.launches
 
 
@@ -161,3 +179,5 @@ def fft_fourstep_columns(re, im, *, inverse: bool = False):
 
 fft_fourstep.launches = 0
 fft_fourstep.column_launches = 0
+fft_fourstep.cluster_launches = 0
+fft_fourstep.row_reg_launches = 0

@@ -7,6 +7,10 @@ installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 """
+import math
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -107,6 +111,106 @@ def test_fourstep_kernel_round_trip(gen, shape):
     fwd = fft_fourstep.fft_fourstep(re, im)
     back = fft_fourstep.fft_fourstep(*fwd, inverse=True)
     assert _rel(back, (re, im)) < 1e-4
+
+
+# The mixed-radix rows (one CTA a row; from fft_plan.ROW_WIDE_MIN points
+# on the composite radices, from fft_plan.ROW_REG_MIN on the row register
+# kernel where its middle passes fit: 10000, 5000, 6144, not 13824 or
+# 3000; 200 and 360 on radix_plan's) and columns (the cluster kernel where
+# a cluster of 2 CTAs holds the tile: the engine's 1000^2 and its r2c half
+# width (1, 1000, 501); the line passes past it: 3000, the 10000^2
+# step's, the real steps' half widths with an odd inner; 8192 on the radix
+# route; an odd inner with an outer axis). Against float64 at 5e-5 of max |X|,
+# torch.fft at 1e-5, the plain version where its float32 angles hold
+# (1e-4), and the round trip at 5e-5.
+WIDE_ROWS = [(10000, 10000), (64, 10000), (200, 200), (64, 360),
+             (3, 13824), (64, 5000), (64, 3000), (16, 6144)]
+CLUSTER_COLUMNS = [(1, 10000, 10000), (1, 1000, 1000), (1, 1000, 501),
+                   (1, 10000, 5001), (1, 8192, 4100), (3, 10000, 7),
+                   (2, 3000, 33)]
+
+
+def _check_route(fn, re, im, dim, n, columns):
+    fs = fft_fourstep.fft_fourstep
+    r = fft_plan.route(n, columns)
+    for inverse in (False, True):
+        before = (fs.cluster_launches, fs.row_reg_launches)
+        got = fn(re, im, inverse=inverse)
+        assert (fs.cluster_launches, fs.row_reg_launches) == (
+            before[0] + int(r.cluster), before[1] + int(r.row_reg))
+        assert _rel64(got, _oracle(re, im, inverse, dim=dim)) < 5e-5
+        z = torch.complex(re, im)
+        lib = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
+        assert _rel(got, (lib.real, lib.imag)) < 1e-5
+        del z, lib
+        if _plain_holds(n):
+            plain = (_columns_plain(dft.fourstep_fft, re, im, inverse)
+                     if columns else dft.fourstep_fft(re, im,
+                                                      inverse=inverse))
+            assert _rel(got, plain) < 1e-4
+    back = fn(*fn(re, im), inverse=True)
+    assert _rel(back, (re, im)) < 5e-5
+    return r
+
+
+@pytest.mark.parametrize("shape", WIDE_ROWS)
+def test_wide_rows_match_plain_and_float64(gen, shape):
+    re, im = _planes(gen, shape)
+    n = shape[1]
+    r = _check_route(fft_fourstep.fft_fourstep, re, im, -1, n, False)
+    assert not r.cluster
+    assert r.row_reg == (n in (10000, 5000, 6144))
+    wide = list(fft_plan.wide_radix_plan(n))
+    assert (list(r.plan)[4:] == wide) == (n >= fft_plan.ROW_WIDE_MIN)
+
+
+@pytest.mark.parametrize("shape", CLUSTER_COLUMNS)
+def test_cluster_columns_match_plain_and_float64(gen, shape):
+    re, im = _planes(gen, shape)
+    keep = (re.clone(), im.clone())
+    n = shape[1]
+    r = _check_route(fft_fourstep.fft_fourstep_columns, re, im, 1, n, True)
+    assert r.cluster == fft_plan.takes_cluster(n)
+    assert r.cluster == (n == 1000)
+    assert torch.equal(re, keep[0]) and torch.equal(im, keep[1])
+
+
+@pytest.mark.parametrize("shape", [(1, 10000, 5001), (3, 10000, 7),
+                                   (1, 5000, 64), (2, 3000, 33)])
+def test_cluster_kernel_off_its_route_matches_float64(gen, shape,
+                                                     monkeypatch):
+    # the cluster kernel's 4-, 8- and 16-CTA columns, which the routes leave
+    # to the faster line passes and tools/fft_variants.py times
+    monkeypatch.setattr(fft_plan, "COLUMN_CLUSTER_CTAS", 16)
+    fft_plan.route.cache_clear()
+    try:
+        re, im = _planes(gen, shape)
+        r = _check_route(fft_fourstep.fft_fourstep_columns, re, im, 1,
+                         shape[1], True)
+        assert r.cluster
+    finally:
+        fft_plan.route.cache_clear()
+
+
+def test_bluestein_at_m_2_pow_31_matches_closed_form(gen):
+    # (1, 2^29 + 1): Bluestein at M = 2^31 (about 65 GB with its tables,
+    # made before the call's scratch), N and M 64-bit across the C
+    # interface; a closed form stands in for a float64 oracle
+    torch.cuda.empty_cache()
+    n = (1 << 29) + 1
+    r = fft_plan.route(n, False)
+    assert (r.kind, r.m) == ("bluestein", 1 << 31)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    # the tones and closed form chip_smoke.py holds (1, 5^13) to
+    from chip_smoke import tone_err, tone_field
+    re, im, freqs, amps = tone_field(n, 0)
+    for inverse in (False, True):
+        got = fft_fourstep.fft_fourstep(re, im, inverse=inverse)
+        assert tone_err(got, n, freqs, amps, inverse) < 5e-5
+        del got
+    del re, im
+    fft_fourstep.clear_tables()
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (8200, 64), (1000, 128),

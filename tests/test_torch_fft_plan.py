@@ -54,7 +54,16 @@ def test_route_per_n(n, columns, kind, passes):
     r = fft_plan.route(n, columns)
     assert r.kind == kind
     assert r.launches == passes
-    if kind == "mixed":
+    assert r.cluster == (columns and fft_plan.takes_cluster(n))
+    assert r.row_reg == (not columns and r.lines == (n,)
+                         and fft_plan.takes_row_reg(n))
+    if r.cluster:
+        s, c, na, nj = fft_plan.cluster_geometry(n)
+        assert r.lines == (n,) and na * nj == n and r.work == 0
+        assert list(r.plan)[:3] == [s, c, na]
+        assert fft_plan.cluster_smem_bytes(s, c, na, nj) <= \
+            fft_plan.CLUSTER_SMEM_MAX
+    elif kind == "mixed":
         assert len(r.lines) == passes and math.prod(r.lines) == n
         limit = (fft_plan.MIXED_LINE_MAX if columns or passes > 1
                  else fft_plan.MIXED_ROW_MAX)
@@ -212,16 +221,260 @@ def test_four_pass_split_matches_numpy(lines, inverse):
     assert np.abs(got.numpy() - want).max() < 1e-10 * np.abs(want).max()
 
 
-def test_routes_refuse_past_their_limits():
-    # a line past 2^31 points; 5^13 has no split into four lines of <= 439
-    # points, and its Bluestein M = 2^32 is past the 32-bit M
-    with pytest.raises(ValueError, match="points a line"):
-        fft_plan.route((1 << 31) + 2, False)
-    for n in (5 ** 13, (1 << 29) + 1):
-        with pytest.raises(ValueError, match="Bluestein"):
-            fft_plan.route(n, False)
-    assert not fft_plan.splits(5 ** 13, False)
+def test_routes_take_every_length():
+    # 5^13 and 7*5^12 have no split into four lines of <= 439 points:
+    # five mixed passes; (1<<29)+1 takes Bluestein at M = 2^31 and
+    # (1<<31)+2 at M = 2^33 (its M-point transform in five passes). No
+    # length is refused, and the 64-bit lengths cross the C interface.
+    for n in (5 ** 13, 7 * 5 ** 12):
+        r = fft_plan.route(n, False)
+        assert (r.kind, r.launches, len(r.lines)) == ("mixed", 5, 5)
+        assert math.prod(r.lines) == n
+        assert max(r.lines) <= fft_plan.MIXED_LINE_MAX
+        assert list(r.plan)[0] == 5 and r.work == 2 * n
+    assert fft_plan.stages(5 ** 13, False) == (125, 125, 125, 25, 25)
+    r = fft_plan.route((1 << 29) + 1, False)
+    assert (r.kind, r.m, r.m_route.lines) == ("bluestein", 1 << 31,
+                                              (256, 256, 256, 128))
+    r = fft_plan.route((1 << 31) + 2, False)
+    assert (r.kind, r.m, len(r.m_route.lines)) == ("bluestein", 1 << 33, 5)
+    assert r.launches == 3 + 2 * 5
     assert fft_plan.route(1 << 29, False).kind == "mixed"
+    from repro_torch.kernels import _build
+    sig = _build._SIGNATURES["repro_fft_bluestein"]
+    assert sig[6] is sig[8] is sig[5] is _build._L      # N, M, outer
+
+
+@pytest.mark.parametrize("lines,inverse", [((5, 5, 3, 2, 2), False),
+                                            ((7, 5, 5, 3, 2), True)])
+def test_five_pass_split_matches_numpy(lines, inverse):
+    # the split of 5^13 and 7*5^12 (five passes), on short N
+    n = math.prod(lines)
+    x = _signal(2, n)
+    got = _mixed(torch.from_numpy(x), lines, 1.0 if inverse else -1.0)
+    want = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    assert np.abs(got.numpy() - want).max() < 1e-10 * np.abs(want).max()
+
+
+# ---- the one-pass cluster kernel ----
+
+@pytest.mark.parametrize("n,columns,geometry,takes", [
+    # columns whose tile 2 CTAs hold take the cluster kernel
+    (1000, True, (2, 8, 40, 25), True), (600, True, (2, 8, 25, 24), True),
+    (1680, True, (2, 8, 56, 30), True),
+    # 4, 8 or 16 CTAs: the line passes, which ran faster there
+    (2000, True, (4, 8, 80, 25), False), (3000, True, (4, 8, 60, 50), False),
+    (4000, True, (8, 8, 160, 25), False), (5000, True, (8, 8, 200, 25), False),
+    (10000, True, (16, 8, 400, 25), False),
+    (12000, True, (16, 8, 160, 75), False),
+    # rows never take it (a row shared by a cluster ran slower than one
+    # CTA a row): the planner has no row geometry
+    (10000, False, None, False), (1680, False, None, False),
+    (13824, False, None, False), (3000, False, None, False),
+    # columns to 439 points keep one tile of 32 columns; powers of two the
+    # radix route; past one cluster's capacity or off 7-smooth N nothing
+    (200, True, (2, 8, 20, 10), False), (439, True, None, False),
+    (8192, True, (16, 8, 128, 64), False), (20000, True, None, False),
+    (13824, True, None, False), (10007, True, None, False)])
+def test_cluster_route_per_n(n, columns, geometry, takes):
+    if columns:
+        assert fft_plan.cluster_geometry(n) == geometry
+    r = fft_plan.route(n, columns)
+    assert r.cluster == takes
+    if takes:
+        assert (r.kind, r.launches, r.work) == ("mixed", 1, 0)
+        s, c, na, nj = geometry
+        assert s <= fft_plan.COLUMN_CLUSTER_CTAS
+        arr = list(r.plan)
+        assert arr[:3] == [s, c, na]
+        pa = arr[3]
+        assert math.prod(arr[4:4 + pa]) == na
+        assert arr[4 + pa] == nj
+        assert math.prod(arr[6 + pa:]) == nj
+        assert set(arr[4:4 + pa] + arr[6 + pa:]) <= {2, 3, 4, 5, 7, 8, 10,
+                                                      16, 20, 25}
+        assert (arr[4:4 + pa], arr[6 + pa:]) == (
+            list(fft_plan.wide_radix_plan(na)),
+            list(fft_plan.wide_radix_plan(nj)))
+    if geometry:
+        assert fft_plan.cluster_smem_bytes(*geometry) <= \
+            fft_plan.CLUSTER_SMEM_MAX
+
+
+@pytest.mark.parametrize("n,plan", [
+    # rows from ROW_WIDE_MIN take the composite radices in one CTA, from
+    # ROW_REG_MIN on the row register kernel (E = 1) where its middle
+    # passes fit 448 threads (not 13824: 4608 radix-3 butterflies)
+    (10000, [1, 10000, 3, 1, 25, 25, 16]), (5000, [1, 5000, 3, 1, 25, 25, 8]),
+    (3000, [1, 3000, 4, 0, 25, 20, 2, 3]),
+    (13824, [1, 13824, 6, 0, 8, 8, 8, 3, 3, 3]),
+    # shorter rows keep radix_plan's
+    (200, [1, 200, 3, 0, 8, 5, 5]), (360, [1, 360, 4, 0, 8, 3, 3, 5]),
+    (1680, [1, 1680, 4, 0, 16, 3, 5, 7])])
+def test_row_route_takes_the_composite_radices(n, plan):
+    r = fft_plan.route(n, False)
+    assert (r.kind, r.launches, r.cluster) == ("mixed", 1, False)
+    assert list(r.plan) == plan
+    assert r.row_reg == (plan[3] == fft_plan.ROW_REG_E)
+    assert math.prod(plan[4:]) == n
+
+
+def _cluster_pass(x: np.ndarray, n: int, sign: float) -> np.ndarray:
+    """mixed_cluster_kernel on complex128 (outer, n, inner) x, CTA by CTA
+    with the kernel's index maps: rank r loads point a of the na-point
+    lines (jj, c), j = r*J + jj, from (a*nj + j)*ps + c*ls into a buffer
+    [a, jj*C + c]; runs their radix passes; gathers from every rank's
+    buffer [k2, l1] the points of its own k2 = r*K + kk, twiddled by
+    exp(sign*2*pi*i*j*k2/n), into [j, kk*C + c]; runs the nj-point
+    passes and stores point k1 at (k1*na + k2)*ps + c*ls."""
+    s, c, na, nj = fft_plan.cluster_geometry(n)
+    outer, _, inner = x.shape
+    J, K = -(-nj // s), -(-na // s)
+    L1, L2 = J * c, K * c
+    lines, hi, ls, ps = inner, n * inner, 1, inner
+    tiles = outer * -(-inner // c)
+    flat, out = x.reshape(-1), np.zeros(x.size, dtype=np.complex128)
+    written = np.zeros(x.size, dtype=np.int64)
+    ncb = -(-lines // c)
+    plan_a = fft_plan.wide_radix_plan(na)
+    plan_j = fft_plan.wide_radix_plan(nj)
+    scale = 1.0 / n if sign > 0 else 1.0
+    for tile in range(tiles):
+        o, l0 = tile // ncb, (tile % ncb) * c
+        nl = min(c, lines - l0)
+        base = o * hi + l0 * ls
+        bufs = []
+        for r in range(s):
+            buf = np.full((na, L1), np.nan, dtype=np.complex128)
+            jr = max(0, min(J, nj - r * J))
+            jj, cc = np.meshgrid(np.arange(jr), np.arange(nl), indexing="ij")
+            jj, cc = jj.ravel(), cc.ravel()
+            a = np.arange(na)[None, :]
+            idx = base + (a * nj + r * J + jj[:, None]) * ps + \
+                cc[:, None] * ls
+            got = _stockham(torch.from_numpy(flat[idx]), plan_a, sign)
+            buf[:, jj * c + cc] = got.numpy().T
+            bufs.append(buf)
+        for r in range(s):
+            kr = max(0, min(K, na - r * K))
+            z = np.full((nj, L2), np.nan, dtype=np.complex128)
+            for src in range(s):
+                kk, l1 = np.meshgrid(np.arange(kr), np.arange(L1),
+                                     indexing="ij")
+                kk, l1 = kk.ravel(), l1.ravel()
+                jj, cc = l1 // c, l1 % c
+                j, k2 = src * J + jj, r * K + kk
+                keep = j < nj
+                j, k2, kk, cc, l1 = (v[keep] for v in (j, k2, kk, cc, l1))
+                tw = np.exp(sign * 2j * np.pi * ((j * k2) % n) / n)
+                z[j, kk * c + cc] = bufs[src][k2, l1] * tw
+            kk, cc = np.meshgrid(np.arange(kr), np.arange(nl),
+                                 indexing="ij")
+            kk, cc = kk.ravel(), cc.ravel()
+            got = _stockham(torch.from_numpy(z[:, kk * c + cc].T), plan_j,
+                            sign).numpy()
+            k1 = np.arange(nj)[None, :]
+            idx = base + (k1 * na + r * K + kk[:, None]) * ps + \
+                cc[:, None] * ls
+            out[idx] = got * scale
+            written[idx] += 1
+    assert (written == 1).all()     # every point stored once
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("n,shape", [
+    (10000, (2, 10000, 11)), (1000, (2, 1000, 11)), (1000, (1, 1000, 501)),
+    (600, (1, 600, 17)), (1680, (2, 1680, 9)), (5000, (1, 5000, 8))])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cluster_pass_matches_numpy(n, shape, inverse):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    sign = 1.0 if inverse else -1.0
+    got = _cluster_pass(x, n, sign)
+    want = np.fft.ifft(x, axis=1) if inverse else np.fft.fft(x, axis=1)
+    assert np.abs(got - want).max() < 1e-10 * np.abs(want).max()
+
+
+# ---- the row register kernel ----
+
+def _row_reg_pass(x: np.ndarray, sign: float) -> np.ndarray:
+    """mixed_row_reg_kernel on complex128 (rows, n) x, with the kernel's
+    index maps: one padded shared buffer (point q at q + q // 32); pass 0
+    reads butterfly j's points j + r*n/R from device memory and writes
+    (j/Ns)*Ns*R + (j mod Ns) + r*Ns (Ns = 1); each middle pass has thread
+    t hold butterflies t + h*T (h < ROW_REG_HOLD[R]), all read before any
+    is written; the last pass stores to device memory with the scale. T
+    as the launcher picks it (about 8 points a thread, whole warps, at
+    least each middle pass's need)."""
+    rows, n = x.shape
+    rad = fft_plan.wide_radix_plan(n)
+    T = min(fft_plan.ROW_REG_THREADS, -(-n // 8))
+    for r in rad[1:-1]:
+        T = max(T, -(-(n // r) // fft_plan.ROW_REG_HOLD[r]))
+    T = -(-T // 32) * 32
+    assert T <= fft_plan.ROW_REG_THREADS
+
+    def pad(q):
+        return q + q // 32
+
+    out = np.zeros_like(x)
+    ns = 1
+    for p, R in enumerate(rad):
+        nb = n // R
+        j = np.arange(nb)
+        jm = j % ns
+        r = np.arange(R)
+        src = j[:, None] + r[None, :] * nb
+        if p == 0:
+            u = x[:, src]
+        else:
+            if p < len(rad) - 1:        # every butterfly held by a thread
+                held = (np.arange(T)[:, None]
+                        + np.arange(fft_plan.ROW_REG_HOLD[R])[None, :] * T)
+                assert set(held.ravel()) >= set(j.tolist())
+            u = buf[:, pad(src)]
+            u = u * np.exp(sign * 2j * np.pi * r[None, None, :]
+                           * jm[None, :, None] / (ns * R))
+        dft = np.exp(sign * 2j * np.pi * np.outer(r, r) / R)
+        v = u @ dft
+        dst = ((j - jm) * R + jm)[:, None] + r[None, :] * ns
+        if p == len(rad) - 1:
+            out[:, dst] = v * (1.0 / n if sign > 0 else 1.0)
+        else:
+            new = np.full((rows, pad(n - 1) + 1), np.nan, dtype=complex)
+            new[:, pad(dst)] = v
+            assert len(set(pad(dst).ravel())) == n   # each point once
+            buf = new
+        ns *= R
+    return out
+
+
+@pytest.mark.parametrize("n", [10000, 5000, 6144, 7000])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_row_reg_pass_matches_numpy(n, inverse):
+    assert fft_plan.takes_row_reg(n)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    sign = 1.0 if inverse else -1.0
+    got = _row_reg_pass(x, sign)
+    want = np.fft.ifft(x, axis=1) if inverse else np.fft.fft(x, axis=1)
+    assert np.abs(got - want).max() < 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,takes", [
+    (10000, True), (5000, True), (6144, True), (7000, True), (4200, True),
+    # shorter rows keep mixed_lines_kernel (64 rows of 3000 ran faster
+    # there), as do rows whose middle passes need more than 448 threads,
+    # powers of two on the radix route, and rows past one stage
+    (3000, False), (4000, False), (200, False), (13824, False),
+    (12000, False), (8192, False), (20000, False)])
+def test_row_register_route_per_n(n, takes):
+    assert fft_plan.takes_row_reg(n) == takes
+    r = fft_plan.route(n, False)
+    assert r.row_reg == takes
+    assert (r.kind == "mixed" and r.lines == (n,)
+            and list(r.plan)[3] == fft_plan.ROW_REG_E) == takes
+    assert not fft_plan.route(n, True).row_reg
 
 
 @pytest.mark.parametrize("n", [7, 257, 4097, 10007])
@@ -231,3 +484,67 @@ def test_plain_bluestein_matches_numpy(n, inverse):
     got = _bluestein(torch.from_numpy(x), 1.0 if inverse else -1.0).numpy()
     want = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,plan", [
+    (100, (25, 4)), (400, (25, 16)), (25, (25,)), (1000, (25, 20, 2)),
+    (40, (20, 2)), (10, (10,)), (1680, (20, 4, 3, 7)), (128, (16, 8)),
+    (13824, (8, 8, 8, 3, 3, 3)), (5, (5,)), (50, (25, 2))])
+def test_wide_radix_plan(n, plan):
+    assert fft_plan.wide_radix_plan(n) == plan
+    assert math.prod(plan) == n
+
+
+def _composite(v: np.ndarray, P: int, Q: int, sign: float) -> np.ndarray:
+    """fft_common.cuh's dft_composite<P, Q> on the last axis: the P-point
+    DFTs of x[Q*n1 + n2] over n1, output k1 times exp(sign*2*pi*i*n2*k1/R),
+    then the Q-point DFTs over n2 into k1 + P*k2."""
+    R = P * Q
+    y = np.empty_like(v)
+    for n2 in range(Q):
+        a = v[..., [Q * n1 + n2 for n1 in range(P)]]
+        a = a @ np.exp(sign * 2j * np.pi * np.outer(np.arange(P),
+                                                     np.arange(P)) / P)
+        for k1 in range(P):
+            y[..., k1 * Q + n2] = a[..., k1] * np.exp(
+                sign * 2j * np.pi * n2 * k1 / R)
+    out = np.empty_like(v)
+    for k1 in range(P):
+        b = y[..., [k1 * Q + n2 for n2 in range(Q)]]
+        b = b @ np.exp(sign * 2j * np.pi * np.outer(np.arange(Q),
+                                                     np.arange(Q)) / Q)
+        for k2 in range(Q):
+            out[..., k1 + P * k2] = b[..., k2]
+    return out
+
+
+@pytest.mark.parametrize("P,Q", [(2, 5), (4, 5), (5, 5)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_composite_radix_matches_numpy(P, Q, inverse):
+    x = _signal(3, P * Q, seed=P * Q)
+    sign = 1.0 if inverse else -1.0
+    want = np.fft.ifft(x) * P * Q if inverse else np.fft.fft(x)
+    got = _composite(x, P, Q, sign)
+    assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,lines", [(10000, (100, 100)), (5000, (100, 50)),
+                                     (4000, (80, 50)), (20000, (160, 125))])
+def test_column_passes_take_the_wide_tiles(n, lines):
+    # a column route of two line passes: every stage on the composite
+    # radices, E = 0 (the tiles' wide instantiation); the same split as
+    # before. Three passes keep their tiles.
+    assert list(fft_plan.route(1 << 20, True).plan) == [
+        3, 256, 3, 0, 8, 8, 4, 64, 2, 0, 8, 8, 64, 2, 0, 8, 8]
+    r = fft_plan.route(n, True)
+    assert (r.kind, r.cluster, r.lines) == ("mixed", False, lines)
+    arr, i = list(r.plan), 1
+    assert arr[0] == len(lines)
+    for line in lines:
+        P = arr[i + 1]
+        assert arr[i] == line and arr[i + 2] == 0
+        assert tuple(arr[i + 3:i + 3 + P]) == fft_plan.wide_radix_plan(line)
+        i += 3 + P
+    # rows keep their tiles
+    rows = list(fft_plan.route(n, False).plan)
+    assert rows[:1] == [len(fft_plan.stages(n, False))]

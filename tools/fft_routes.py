@@ -2,7 +2,9 @@
 """Time the four-step FFT kernel's routes on one CUDA card.
 
 For each shape: the route's device time per call (torch.profiler, the
-sum of its kernels' device time), ``torch.fft``'s device time on the
+sum of its kernels' device time; and by CUDA events over calls queued
+behind a spin kernel, which no dropped trace event can hide),
+``torch.fft``'s device time on the
 same input, the byte bound (two planes in, two out, at 3.35 TB/s), and
 the route's largest error against a float64 ``torch.fft`` oracle,
 relative to max |X|, forward and inverse. Rows are (B, N); columns are
@@ -23,7 +25,7 @@ from pathlib import Path
 
 # chip_smoke puts this tree's src/ on the path; main() puts --root's first
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import device_profile  # noqa: E402
+from chip_smoke import device_profile, queued_device_ms  # noqa: E402
 
 PEAK_HBM_BYTES = 3.35e12
 ROWS = ((64, 200), (64, 360), (64, 257), (200, 200), (10000, 10000),
@@ -72,6 +74,7 @@ def measure(shape, columns, gen):
                 lambda: wrapper(re, im)),
             "torch_fft_device_ms": device_ms(
                 lambda: torch.fft.fft(z, dim=dim)),
+            "queued_ms": queued_device_ms(lambda: wrapper(re, im), 10),
             "bound_ms": 16.0 * n / PEAK_HBM_BYTES * 1e3,
             "rel_err_vs_f64": err}
 

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Time design variants of the four-step kernel's mixed-radix routes.
 
-Each variant is the tree's ``src/repro_torch/kernels/csrc`` with a few
-lines of ``fft_fourstep.cu`` replaced, built into its own library under
-``build/fft_variants/`` and timed by ``tools/fft_routes.py``'s
-measurement (device ms by torch.profiler, error against a float64
-oracle) at the shapes below. The tree runs first and last, so the spread
-of one build shows.
+A variant is the tree's ``src/repro_torch/kernels/csrc`` with a few
+lines of its sources replaced (each edit in the one source that holds
+its text; built into its own library under ``build/fft_variants/``), or
+the tree's library with ``fft_plan``'s routing constants set otherwise
+(no build: the earlier designs' kernels stay in the library, so
+"lines_rows" and "passes_columns" time the routes that the composite
+rows and the cluster columns replaced). Each is timed by
+``tools/fft_routes.py``'s measurement (device ms a call by
+torch.profiler, torch.fft's beside it, the byte bound, the error against
+a float64 oracle) at its shapes. The tree runs first and last, so the
+spread between two runs of one build shows.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/fft_variants.py [variant ...]
+    python3 tools/fft_variants.py [--n 10000,5000] [variant ...]
 """
+import ctypes
 import json
 import shutil
 import subprocess
@@ -21,55 +27,95 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tools")]
 
-SOURCE = "fft_fourstep.cu"
-ROWS = ((10000, 10000), (64, 32768), (4, 1 << 20), (8, 10007), (200, 200))
-COLUMNS = ((1, 10000, 10000), (1, 200, 200))
+# rows: the 10000^2 step's, rows on the register kernel (10000, 5000,
+# 3000) and off it (13824), the composites' threshold's neighbours, the
+# short rows that keep mixed_lines_kernel, the long rows of the 2048 x
+# 32768 chain and beyond, Bluestein
+ROWS = ((10000, 10000), (64, 10000), (3, 13824), (64, 5000), (64, 3000),
+        (64, 2000), (64, 1680), (64, 1000), (200, 200), (64, 360),
+        (2048, 32768), (4, 1 << 20), (8, 10007))
+# columns (outer, N, inner), along the middle axis: the 10000^2 step's,
+# the real step's half width, the FFT engine's 1000^2 and its half width
+# (odd inner), another odd inner, and the cluster's other sizes
+COLUMNS = ((1, 10000, 10000), (1, 10000, 5001), (1, 1000, 1000),
+           (1, 1000, 501), (3, 10000, 7), (1, 600, 600), (1, 1680, 1680),
+           (1, 2000, 2000), (1, 3000, 3000), (1, 4000, 4000),
+           (1, 5000, 5000), (1, 200, 200))
 
 # name -> (what it shows, [(text in the tree, replacement)], fft_plan
-# attributes to set)
+# attributes to set, the shapes it times: "rows", "columns" or "both")
 VARIANTS = {
-    "tree": ("the kernel as built", [], {}),
-    "rows_in_passes": ("rows past 4096 points as two or three passes of "
-                       "tiles through a scratch buffer, not one CTA a row",
-                       [], {"MIXED_ROW_MAX": 4096}),
-    "sincospif_twiddle": ("the four-step twiddle by sincospif on each point, "
-                          "not from tables", [
-                              ("      g.tw_lg = 1;\n", "      g.tw_lg = 0;\n"),
-                              ("      while ((1LL << (2 * g.tw_lg)) < g.tw_M) "
-                               "++g.tw_lg;\n", "")], {}),
-    "lane_t256_four": ("tiles: up to 256 threads, four CTAs an SM", [
-        ("kLaneThreads = 512, kLaneMinBlocks = 2",
-         "kLaneThreads = 256, kLaneMinBlocks = 4")], {}),
-    "lane_p4": ("tiles: about 4 points a thread instead of 8", [
-        ("kLanePoints = 8;", "kLanePoints = 4;")], {}),
+    "tree": ("the routes as built", [], {}, "both"),
+    # the row designs the register kernel replaced
+    "rows_one_cta": ("rows of 2048 points and up on the composite radices "
+                     "in mixed_lines_kernel, one CTA a row with two shared "
+                     "buffers (the design the register kernel replaced)", [
+                         ("  if (st.E == kRowRegE) return launch_row_reg("
+                          "re, im, ore, oim, g, stream);\n", "")],
+                     {}, "rows"),
+    "lines_rows": ("rows on radix_plan's radices (10000: 16, 5, 5, 5, 5) in "
+                   "mixed_lines_kernel, the design before the composites",
+                   [], {"ROW_WIDE_MIN": 1 << 62}, "rows"),
+    # the column designs
+    "passes_columns": ("columns past 439 points as line passes through a "
+                       "scratch buffer, the design the cluster columns "
+                       "replaced", [], {"COLUMN_CLUSTER_MIN": 1 << 62},
+                       "columns"),
+    "cluster_columns_all": ("the cluster kernel for every column it holds "
+                            "(8 and 16 CTAs too)", [],
+                            {"COLUMN_CLUSTER_CTAS": 16}, "columns"),
+    "wide_tiles": ("every tile stage of the line passes (columns past the "
+                   "cluster, long rows) on the composite radices, 256 "
+                   "threads a CTA, not radices to 8 or the register kernel",
+                   [], {"plan_array": "wide_lanes"}, "both"),
 }
 
+PLAN_DEFAULTS = {}
 
-PLAN_DEFAULTS = {"ROW_MAX_RADIX": 16, "MIXED_ROW_MAX": None}
+
+def wide_lanes(lines, columns):
+    """fft_plan.plan_array with every tile stage on the composite radices
+    (E = 0: mixed_lines_kernel's wide instantiation)."""
+    from repro_torch.kernels import fft_plan
+    if len(lines) == 1 and not columns:
+        return PLAN_DEFAULTS["plan_array"](lines, columns)
+    flat = [len(lines)]
+    for n in lines:
+        rad = fft_plan.wide_radix_plan(n)
+        flat += [n, len(rad), 0, *rad]
+    return (ctypes.c_int * len(flat))(*flat)
 
 
 def build_variant(name, edits, plan):
     from repro_torch.kernels import _build, fft_fourstep, fft_plan
+    for key in ("COLUMN_CLUSTER_MIN", "ROW_WIDE_MIN", "COLUMN_CLUSTER_CTAS",
+                "plan_array"):
+        PLAN_DEFAULTS.setdefault(key, getattr(fft_plan, key))
     for key, default in PLAN_DEFAULTS.items():
-        setattr(fft_plan, key, plan.get(key, default))
+        value = plan.get(key, default)
+        setattr(fft_plan, key, globals()[value] if isinstance(value, str)
+                else value)
     for fn in (fft_plan.radix_plan, fft_plan.stages, fft_plan.route):
         fn.cache_clear()
     fft_fourstep._CHIRPS.clear()
     src = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    if not edits:
+        _build.CSRC, _build._LIB = src, None
+        return _build.library()
     dst = ROOT / "build" / "fft_variants" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
-    text = (dst / SOURCE).read_text()
     for old, new in edits:
-        if old not in text:
-            raise ValueError(f"{name}: text not in {SOURCE}: {old[:60]!r}")
-        text = text.replace(old, new)
-    (dst / SOURCE).write_text(text)
+        holders = [f for f in sorted(dst.iterdir()) if old in f.read_text()]
+        if len(holders) != 1:
+            raise ValueError(f"{name}: {len(holders)} sources hold "
+                             f"{old[:60]!r}")
+        holders[0].write_text(holders[0].read_text().replace(old, new))
     _build.CSRC, _build._LIB = dst, None
     return _build.library()
 
 
-def ptxas_lines(lib: Path, kernel: str = "mixed_lines_kernel"):
+def ptxas_lines(lib: Path, kernel: str):
     """ptxas's spill and register lines for ``kernel`` in the build log."""
     lines = lib.with_suffix(".log").read_text().splitlines()
     out = []
@@ -80,31 +126,53 @@ def ptxas_lines(lib: Path, kernel: str = "mixed_lines_kernel"):
 
 
 def main() -> int:
+    import argparse
     import torch
-    from repro_torch.kernels import fft_plan
-    PLAN_DEFAULTS["MIXED_ROW_MAX"] = fft_plan.MIXED_ROW_MAX
     import fft_routes
+    ap = argparse.ArgumentParser()
+    ap.add_argument("variants", nargs="*", help="names in VARIANTS (all, "
+                    "then the tree again, when none is given)")
+    ap.add_argument("--n", default="", help="time only the shapes of these "
+                    "comma-separated N")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fft_variants: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels import _build, fft_plan
+    only = {int(x) for x in args.n.split(",") if x}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
-    names = sys.argv[1:] or [*VARIANTS, "tree"]
-    for name in names:
-        build_variant(name, *VARIANTS[name][1:])
-        from repro_torch.kernels import _build
+    for name in args.variants or [*VARIANTS, "tree"]:
+        what, edits, plan, which = VARIANTS[name]
+        build_variant(name, edits, plan)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        res = {"variant": name, "what": VARIANTS[name][0],
-               "ptxas": ptxas_lines(_build.build())}
+        res = {"variant": name, "what": what, "ptxas": {
+            k: ptxas_lines(_build.build(), k)
+            for k in ("mixed_cluster_kernel", "mixed_lines_kernel",
+                      "mixed_row_reg_kernel")}}
+        if not edits and name != "tree":
+            res.pop("ptxas")
         for shapes, columns in ((ROWS, False), (COLUMNS, True)):
+            if which != "both" and which != ("columns" if columns
+                                             else "rows"):
+                continue
             for shape in shapes:
+                n, inner = (shape[1], shape[2]) if columns else (shape[1], 1)
+                if only and n not in only:
+                    continue
                 r = fft_routes.measure(shape, columns, gen)
-                key = ("cols" if columns else "rows") + str(list(shape))
-                res[key] = {"device_ms": r["device_ms"],
-                            "err": max(r["rel_err_vs_f64"].values())}
+                route = fft_plan.route(n, inner > 1)
+                res[("cols" if columns else "rows") + str(list(shape))] = {
+                    "device_ms": r["device_ms"],
+                    "queued_ms": r["queued_ms"],
+                    "torch_fft_device_ms": r["torch_fft_device_ms"],
+                    "bound_ms": r["bound_ms"], "launches": r["launches"],
+                    "plan": list(route.plan) if route.plan else None,
+                    "cluster": route.cluster,
+                    "err": max(r["rel_err_vs_f64"].values())}
                 torch.cuda.empty_cache()
         print(json.dumps(res), flush=True)
     return 0
