@@ -70,11 +70,15 @@ Phases, each printing one JSON line:
      (rows of 13824 on the composite radices; of 10000 on the row
      register kernel, one shared buffer, two CTAs an SM), in one pass on
      a thread-block cluster (columns of 1000, and the r2c half width
-     (1, 1000, 501)) and in passes through a
-     scratch buffer, Bluestein) against the float64 oracle too, and
+     (1, 1000, 501)), in line passes through a scratch buffer (columns
+     past one tile), in passes of the tile register kernel (rows past one
+     CTA), and Bluestein (its power-of-two design for small N, the tile
+     register kernel with the chirps fused for large) against the
+     float64 oracle too, and
      against its plain version only where that version's float32 angles
      hold; first of all, on a card that holds nothing else, (1, 5^13)
-     in five mixed-radix passes (about 29 GB) against the exact
+     in four passes of the tile register kernel (about 29 GB) against the
+     exact
      spectrum of a seeded sum of tones, with its time, torch.fft's and
      its peak. The flash kernel is held
      at the qwen3-4b prefill shape in float32 (three TF32 products on the
@@ -93,11 +97,12 @@ Phases, each printing one JSON line:
      columns in two passes), in
      ``insitu`` and
      ``intransit`` modes, and 2048 x 32768 (32768-point rows as two
-     mixed-radix passes) in ``insitu``, each held against a float64 oracle
-     of the same chain (cuFFT in complex128 on the card), with the launch
-     counts of each run (the column route's apart, the cluster kernel's,
-     none at these sizes, and the row register kernel's, the 10000²
-     chain's rows); then one step
+     passes of the tile register kernel) in ``insitu``, each held against
+     a float64 oracle of the same chain (cuFFT in complex128 on the
+     card), with the launch counts of each run (the column route's apart,
+     the cluster kernel's, none at these sizes, the row register
+     kernel's, the 10000² chain's rows, and the tile register kernel's,
+     the 2048 x 32768 chain's rows); then one step
      at 8192², 10000² (which must show no copy kernel, the rows'
      ``mixed_row_reg_kernel`` and the columns' one instantiation of
      ``mixed_lines_kernel``) and 200²: device
@@ -151,8 +156,9 @@ Phases, each printing one JSON line:
      wire's), the dtypes gloo's all_to_all takes on CUDA tensors, and
      ``backend``/``decomp="measure"`` at 256³ (one winner on every rank,
      then a warm start from wisdom that times no candidate);
-  6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as four
-     mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26), against the
+  6. FFT rows past one CTA: 2^25 and 5^10 as three passes of the tile
+     register kernel, 2^24 + 1 on Bluestein (M = 33592320, three passes
+     each way with the chirps fused), against the
      float64 oracle and torch.fft (last, so its Bluestein tables do not
      count in the earlier phases' peak memory); then the device memory
      before and after ``plan_cache_clear()``, which must free the tables;
@@ -461,13 +467,15 @@ SERVE_TOKENS = 32
 # the flash kernels' symbols (csrc/flash_attention.cu), as the profiler
 # and cuobjdump name them
 FLASH_KERNELS = ("flash_tf32_kernel", "flash_wgmma_kernel")
-# the FFT kernels' symbols (csrc/fft_common.cuh, fft_fourstep.cu): every
-# kernel that the wrappers' launch counts count
+# the FFT kernels' symbols (csrc/fft_common.cuh, fft_fourstep.cu and the
+# sources beside it): every kernel that the wrappers' launch counts count
 FFT_KERNELS = ("fft_lines_kernel", "mixed_lines_kernel", "mixed_reg_kernel",
-               "mixed_cluster_kernel", "mixed_row_reg_kernel", "bluestein_")
-# (1, 5^13): five mixed-radix passes of <= 439 points, about 29 GB of
-# input, output and scratch, held against the exact spectrum of a seeded
-# sum of integer-frequency tones (no float64 oracle has to be held)
+               "mixed_cluster_kernel", "mixed_row_reg_kernel",
+               "mixed_tile_reg_kernel", "bluestein_")
+# (1, 5^13): four passes of the tile register kernel (625 x 125 x 125 x
+# 125), about 29 GB of input, output and scratch, held against the exact
+# spectrum of a seeded sum of integer-frequency tones (no float64 oracle
+# has to be held)
 CLOSED_FORM_N = 5 ** 13
 # the spin that the runs timed by queued_device_ms wait behind, and its
 # clock cycles a second (H100 SXM boost clock, 1.98 GHz)
@@ -767,6 +775,10 @@ def check_fft(name, wrapper, plain, shape, gen, timed: bool = True):
         r = fft_plan.route(N, False)
         res["route"], res["lines"] = r.kind, list(r.lines or [r.m or N])
         res["row_reg"] = r.row_reg
+        res["tile"] = r.tile
+        res["launches"] = r.launches
+        if r.kind == "bluestein":
+            res["m"], res["m_lines"] = r.m, list(r.m_route.lines)
     held = plain is not None and plain_holds(N)
     for inverse in (False, True):
         kr, ki = wrapper(re, im, inverse=inverse)
@@ -834,6 +846,10 @@ def check_fft_columns(name, wrapper, plain, shape, gen, timed: bool = True):
         res["column_route"] = r.kind
         res["lines"] = list(r.lines or [r.m or N])
         res["cluster"] = r.cluster
+        res["tile"] = r.tile
+        res["launches"] = r.launches
+        if r.kind == "bluestein":
+            res["m"], res["m_lines"] = r.m, list(r.m_route.lines)
 
     def call(inverse=False):
         kr, ki = wrapper(re.view(v3), im.view(v3), inverse=inverse)
@@ -1088,6 +1104,7 @@ def run_chain(dims, mode, mesh, expected, out_dir, real=False, shapes=None):
     launches = launch_counts(counters)
     cluster_launches = counters["fft_fourstep"].cluster_launches
     row_reg_launches = counters["fft_fourstep"].row_reg_launches
+    tile_launches = counters["fft_fourstep"].tile_launches
     got = out.arrays["field"].cpu().numpy()
     field_err = float(np.abs(got - want).max())
     mse0 = float(np.mean((noisy - clean) ** 2))
@@ -1100,6 +1117,7 @@ def run_chain(dims, mode, mesh, expected, out_dir, real=False, shapes=None):
            "wall_s": wall, "launches": launches,
            "cluster_launches": cluster_launches,
            "row_reg_launches": row_reg_launches,
+           "tile_launches": tile_launches,
            "field_max_abs_err": field_err, "field_tol": FIELD_TOL,
            "kept_rel_err": abs(kept - kept64) / kept64,
            "total_rel_err": abs(total - total64) / total64,
@@ -1529,6 +1547,7 @@ def zero_counts(counters):
         if hasattr(fn, "cluster_launches"):
             fn.cluster_launches = 0
             fn.row_reg_launches = 0
+            fn.tile_launches = 0
 
 
 @contextlib.contextmanager
@@ -6182,9 +6201,10 @@ def main() -> int:
     # a CTA; 10000 on the row register kernel (one shared buffer, two
     # CTAs an SM), 13824 on mixed_lines_kernel's composites, one CTA a
     # row (its radix-3 passes need more threads than the register kernel
-    # has); 20000 and the long powers of two (32768 to 2^20) on
-    # mixed-radix passes through a scratch buffer; 257, 4097 = 17*241 and
-    # 10007 on Bluestein
+    # has); 20000 and the long powers of two (32768 to 2^20) in two passes
+    # of the tile register kernel through a scratch buffer; 257, 4097 =
+    # 17*241 and 10007 on Bluestein's power-of-two design (below
+    # fft_plan.BLUESTEIN_TILE_MIN; 2^24 + 1 in phase 6 on the tile kernel)
     fourstep = [check_fft("fft_fourstep", fft_fourstep, dft.fourstep_fft,
                           s, gen)
                 for s in ((8192, 8192), (64, 200), (64, 360), (64, 257),
@@ -6261,7 +6281,8 @@ def main() -> int:
     # on the row register kernel, columns as 100 x 100 in two passes) and
     # 2048 x 32768 (a
     # long periodic strip, 256 MiB a plane: 32768-point rows as two
-    # mixed-radix passes; insitu only, for the time budget)
+    # passes of the tile register kernel; insitu only, for the time
+    # budget)
     four = ("fft_fourstep", "fft_fourstep_columns", "bandpass_filter")
     both = ("insitu", "intransit")
     sizes = (((8192, 8192), both, four),
@@ -6280,6 +6301,8 @@ def main() -> int:
     # the row register kernel's
     cluster_launches, real_cluster_launches = {}, {}
     row_reg_launches, real_row_reg_launches = {}, {}
+    # and the tile register kernel's (the 2048 x 32768 chain's rows)
+    tile_launches = {}
     chains, real_chains = {}, {}
     real_shapes = set()
     fig2 = {}          # phase 16's quickstart against the same oracle
@@ -6297,6 +6320,8 @@ def main() -> int:
                                           + res["cluster_launches"])
                 row_reg_launches[dims] = (row_reg_launches.get(dims, 0)
                                           + res["row_reg_launches"])
+                tile_launches[dims] = (tile_launches.get(dims, 0)
+                                       + res["tile_launches"])
                 for k in must_run:
                     assert res["launches"][k] > 0, (dims, mode, k)
                 for k, v in res["launches"].items():
@@ -6335,6 +6360,10 @@ def main() -> int:
         # route does: the 10000^2 chain's
         for d, v in row_reg_launches.items():
             assert (v > 0) == fft_plan.route(d[1], False).row_reg, (d, v)
+        # and the tile register kernel where theirs does: the 2048 x 32768
+        # chain's 32768-point rows, two passes each way
+        for d, v in tile_launches.items():
+            assert (v > 0) == fft_plan.route(d[1], False).tile, (d, v)
         for dims in ((8192, 8192), (10000, 10000), (200, 200)):
             profiles[dims] = profile_chain(dims, mesh, out_dir)
         # the 10000^2 step: no copy kernel; its rows on the row register
@@ -6426,13 +6455,13 @@ def main() -> int:
     emit({"phase": "serve_path_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
 
-    # 6. FFT rows past three passes of <= 439 points: 2^25 and 5^10 as
-    # four mixed-radix passes, 2^24 + 1 on Bluestein (M = 2^26, four
-    # passes); held against the float64 oracle and torch.fft only (the
-    # plain four-step's float32 angles fail past 2^16). Last, because the
-    # Bluestein tables stay cached (671 MB a direction for this N, one
-    # direction at a time under the cap) and would count in the peaks
-    # above
+    # 6. FFT rows past one CTA: 2^25 and 5^10 as three passes of the tile
+    # register kernel, 2^24 + 1 on Bluestein (M = 33592320 = 324 x 324 x
+    # 320, three passes each way); held against the float64 oracle and
+    # torch.fft only (the plain four-step's float32 angles fail past
+    # 2^16). Last, because the Bluestein tables stay cached (403 MB a
+    # direction for this N, both directions under the cap) and would
+    # count in the peaks above
     long_rows = [check_fft("fft_fourstep", fft_fourstep, None, s, gen)
                  for s in ((1, 1 << 25), (1, 5 ** 10), (1, (1 << 24) + 1))]
     # the Bluestein tables are capped and go with plan_cache_clear()
@@ -6727,6 +6756,19 @@ def main() -> int:
                  "real_chain_launches": {
                      f"{d[0]}x{d[1]}": v
                      for d, v in real_cluster_launches.items()}},
+             tile_register_kernel={
+                 "symbol": "mixed_tile_reg_kernel",
+                 "source": csrc + "fft_tile_reg.cuh",
+                 "entry": csrc + "fft_tile_reg.cu",
+                 "chain_launches": {f"{d[0]}x{d[1]}": v
+                                    for d, v in tile_launches.items()},
+                 "checks": [{k: r.get(k) for k in (
+                     "shape", "axis", "route", "lines", "m", "m_lines",
+                     "launches", "device_ms", "library_device_ms",
+                     "bound_ms", "rel_err_vs_f64",
+                     "inverse_rel_err_vs_f64")}
+                     for r in fourstep + fourstep_cols + long_rows
+                     if r["tile"]]},
              row_register_kernel={
                  "symbol": "mixed_row_reg_kernel",
                  "source": csrc + "fft_row_reg.cu",

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "repro_fft_cluster": (_P, _P, _P, _P, _L, _L, _P, _I, _P),
     "repro_fft_bluestein": (_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P,
                             _I, _P),
+    "repro_fft_tile": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P),
     "repro_fft_fourstep_axis": (_P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
                                 _P),
     "repro_fft_stockham": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -34,23 +34,36 @@
 //         distributed shared memory; columns to 439 points in one tile of
 //         8-32 neighbouring lines (mixed_lines_kernel, or mixed_reg_kernel
 //         with the points in registers);
-//       - longer rows and columns as two to five passes of <= 439 points
-//         each through a scratch buffer, the four-step twiddle fused
-//         into each pass's store (N = 10000 columns: 100 x 100, each pass
-//         on the tiles' wide instantiation; 20000: 160 x 125; 2^25: 128 x
-//         64 x 64 x 64; 5^13: 125 x 125 x 125 x 25 x 25).
+//       - longer columns as two to five passes of <= 439 points each
+//         through a scratch buffer, the four-step twiddle fused into
+//         each pass's store (N = 10000 columns: 100 x 100, each pass on
+//         the tiles' wide instantiation; 20000: 160 x 125; 2^25: 128 x 64
+//         x 64 x 64; 5^13: 125 x 125 x 125 x 25 x 25).
 //     Offsets, line counts and lengths are 64-bit: no length is refused.
 //     The pass plan varies with N, so each radix has its own inlined
 //     butterfly with a constant R (no register array is indexed at run
 //     time), picked by a switch per pass, and the passes exchange through
 //     shared memory. On an H100 a pass costs about the same whatever its
 //     radix, so the fewer the passes the faster (PERF.md);
+//   * rows longer than one CTA holds (32768 points and up, past ~14k
+//     otherwise) in two to five passes of the tile register kernel
+//     (fft_tile_reg.cuh, entry point repro_fft_tile in fft_tile_reg.cu:
+//     lines of up to 1344 points in tiles of 8, one shared buffer, two
+//     CTAs an SM; 32768 as 256 x 128, 2^25 as 512 x 256 x 256);
 //   * Bluestein, every N with a prime factor > 7: X = chirp * ((x *
-//     chirp) conv conj(chirp)), the convolution as two power-of-two FFTs
-//     of M >= 2N - 1 points (64-bit N and M) on the routes above, with
-//     the chirp's spectrum made once per (N, direction) by the wrapper.
-//     Three pointwise kernels (pre-chirp and zero-pad, the product with
-//     the spectrum, post-chirp) surround the two FFTs.
+//     chirp) conv conj(chirp)), the convolution as two FFTs of M >= 2N - 1
+//     points with the chirp's spectrum made once per (N, direction, M) by
+//     the wrapper; 64-bit N and M. From fft_plan.BLUESTEIN_TILE_MIN on, M
+//     is 7-smooth (fft_plan.bluestein_size: 2.0 N at 2^24 + 1, where the
+//     power of two was 4.0 N) and both transforms run on the tile register
+//     kernel alone, through repro_fft_tile: the pre-chirp and the zero pad
+//     fused into the forward transform's first load, the product with the
+//     spectrum into its last store, the post-chirp and the scale into the
+//     inverse's last store (2 x lines launches, no pointwise kernel).
+//     Below it, where that design ran slower on an H100 (PERF.md), M is
+//     the least power of two, its transforms on the routes above, and
+//     three pointwise kernels (pre-chirp and zero pad, the product with
+//     the spectrum, post-chirp) surround them (repro_fft_bluestein).
 // Every twiddle comes from an exact integer exponent reduced mod its root
 // count before sincospif/cospif; the chirp exponent n^2 mod 2N is taken
 // in 64-bit integers by the wrapper. No fast-math intrinsics.
@@ -205,6 +218,8 @@ mixed_reg_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+// ---- host side ---------------------------------------------------------
+
 // ---- Bluestein's pointwise kernels, over (outer, len, inner) ----------
 
 // a[o, m, c] = x[o, m, c] * chirp[m] for m < N, 0 for N <= m < M
@@ -265,9 +280,6 @@ __global__ void bluestein_post_kernel(const float* __restrict__ are,
     oim[i] = v.y * scale;
   }
 }
-
-// ---- host side ---------------------------------------------------------
-
 struct Stage {
   int n, P, E, radix[kMaxPasses];   // E: the register kernel's, or 0
 };
@@ -528,7 +540,6 @@ unsigned pointwise_blocks(long long total) {
   const long long cap = 64LL * sm_count();
   return (unsigned)(b < cap ? b : cap);
 }
-
 }  // namespace
 
 // Rows along the last axis: B rows of 2^log2n points, log2n <= 14.
@@ -555,27 +566,6 @@ extern "C" int repro_fft_fourstep_axis(const float* re, const float* im,
   float* wim = wre ? wre + outer * n * inner : nullptr;
   return (int)pow2_axis(re, im, ore, oim, wre, wim, outer, n1, n2, inner,
                         inverse, (cudaStream_t)stream);
-}
-
-// Mixed radix: an (outer, N, inner) tensor along its middle axis (rows:
-// inner == 1), N the product of the plan's stages. `work`: two planes of
-// outer*N*inner floats when the plan has more than one stage.
-extern "C" int repro_fft_mixed(const float* re, const float* im, float* ore,
-                               float* oim, void* work, long long outer,
-                               long long inner, const int* plan, int inverse,
-                               void* stream) {
-  Plan p;
-  if (outer <= 0 || inner <= 0 || !parse_plan(plan, p))
-    return (int)cudaErrorInvalidValue;
-  long long N = 1;
-  for (int s = 0; s < p.k; ++s) N *= p.s[s].n;
-  if (p.k > 1 && !work) return (int)cudaErrorInvalidValue;
-  float* wre = (float*)work;
-  float* wim = wre ? wre + outer * N * inner : nullptr;
-  return (int)mixed_axis(p, p.k, re, im, ore, oim, wre, wim, outer, inner,
-                         0, 1, inverse ? 1.0f : -1.0f,
-                         inverse ? 1.0f / (float)N : 1.0f,
-                         (cudaStream_t)stream);
 }
 
 // Bluestein: an (outer, N, inner) tensor along its middle axis, any N,
@@ -632,4 +622,25 @@ extern "C" int repro_fft_bluestein(const float* re, const float* im,
       are, aim, c, ore, oim, nout, N, M, inner,
       inverse ? 1.0f / (float)N : 1.0f);
   return (int)cudaGetLastError();
+}
+
+// Mixed radix: an (outer, N, inner) tensor along its middle axis (rows:
+// inner == 1), N the product of the plan's stages. `work`: two planes of
+// outer*N*inner floats when the plan has more than one stage.
+extern "C" int repro_fft_mixed(const float* re, const float* im, float* ore,
+                               float* oim, void* work, long long outer,
+                               long long inner, const int* plan, int inverse,
+                               void* stream) {
+  Plan p;
+  if (outer <= 0 || inner <= 0 || !parse_plan(plan, p))
+    return (int)cudaErrorInvalidValue;
+  long long N = 1;
+  for (int s = 0; s < p.k; ++s) N *= p.s[s].n;
+  if (p.k > 1 && !work) return (int)cudaErrorInvalidValue;
+  float* wre = (float*)work;
+  float* wim = wre ? wre + outer * N * inner : nullptr;
+  return (int)mixed_axis(p, p.k, re, im, ore, oim, wre, wim, outer, inner,
+                         0, 1, inverse ? 1.0f : -1.0f,
+                         inverse ? 1.0f / (float)N : 1.0f,
+                         (cudaStream_t)stream);
 }

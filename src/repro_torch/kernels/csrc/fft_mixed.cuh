@@ -4,13 +4,17 @@
 // Each instantiation is compiled in a source of its own, so that the
 // build (one nvcc a source, all at once) compiles them side by side:
 //   * fft_fourstep.cu: the tiles to radix 8 (mixed_lines_kernel<true, 8>),
-//     the register kernel, Bluestein and every entry point but the
-//     cluster's;
+//     the register kernel and every entry point but the cluster's and the
+//     tile register kernel's;
 //   * fft_mixed_rows.cu: the rows (mixed_lines_kernel<false, 25>);
 //   * fft_mixed_wide.cu: the wide tiles (mixed_lines_kernel<true, 25>);
 //   * fft_cluster.cu: mixed_cluster_kernel and its entry point;
 //   * fft_row_reg.cu: mixed_row_reg_kernel, rows with their points in
-//     registers between passes (one shared buffer).
+//     registers between passes (one shared buffer);
+//   * fft_tile_reg.cu, fft_tile_blue.cu: mixed_tile_reg_kernel (its
+//     device code in fft_tile_reg.cuh), tiles of lines with their points
+//     in registers between passes, plain and with Bluestein's chirps, and
+//     the entry point repro_fft_tile.
 #pragma once
 #include <cuda_runtime.h>
 

@@ -7,11 +7,15 @@ middle axis and writes the same layout, with no transposed copy, for
 every N. ``fft_plan.route`` picks the route once per N: the radix
 Stockham kernels (powers of two to 16384 as rows, 65536 as columns),
 mixed radix 2-16/3/5/7 (every other N whose prime factors are <= 7: a
-row in one CTA, from 4096 points on the row register kernel; columns in
-one pass on a thread-block cluster where one cluster holds the tile;
-else line passes), or Bluestein (the rest: a power-of-two convolution,
-with the chirp and its spectrum made once per N and direction and kept
-on the device that asked, in a byte-capped LRU cache that
+row in one CTA, from 4096 points on the row register kernel; longer rows
+in passes of the tile register kernel; columns in one pass on a
+thread-block cluster where one cluster holds the tile; else line
+passes), or Bluestein (the rest: a convolution of 7-smooth length M on
+the tile register kernel with the chirps fused into its first load and
+last stores from ``fft_plan.BLUESTEIN_TILE_MIN`` on, of power-of-two M
+with three pointwise kernels below it; the chirp and its spectrum made
+once per N, direction and M and kept on the device that asked, in a
+byte-capped LRU cache that
 ``plan.plan_cache_clear()`` empties: ``CHIRP_CACHE_BYTES``,
 ``clear_tables``). On a
 CUDA tensor each wrapper launches the kernels or raises; on a CPU tensor
@@ -19,8 +23,9 @@ it computes the plain version, ``dft.fourstep_fft`` (moved to the last
 axis and back for columns). ``fft_fourstep.launches`` counts every
 kernel launched, rows and columns alike;
 ``fft_fourstep.column_launches`` counts the column route's,
-``fft_fourstep.cluster_launches`` the cluster kernel's and
-``fft_fourstep.row_reg_launches`` the row register kernel's.
+``fft_fourstep.cluster_launches`` the cluster kernel's,
+``fft_fourstep.row_reg_launches`` the row register kernel's and
+``fft_fourstep.tile_launches`` the tile register kernel's.
 """
 from __future__ import annotations
 
@@ -35,15 +40,17 @@ from repro_torch.kernels import _build, fft_plan
 
 # The byte cap of the Bluestein tables kept on the devices, least recently
 # used out first. A direction's tables take 8·(N + M) bytes (the chirp,
-# N complex64, and its conjugate's spectrum, M complex64): both
-# directions of every N to 2^24 (M <= 2^25, 384 MiB a direction) fit
-# together in 1 GiB, 1.25% of an H100's 80 GB that a simulation pays
-# beside its own state; a larger N keeps one direction at a time, and a
-# table past the cap (M = 2^27 and up) is made for its call and not kept.
+# N complex64, and its conjugate's spectrum, M complex64; M about 2N past
+# fft_plan.BLUESTEIN_TILE_MIN, below it a power of two of at most 4N):
+# both directions of every N to about 2^24 (M <= 2.01·2^25, 400 MiB a
+# direction) fit together in 1 GiB, 1.25% of an H100's 80 GB that a
+# simulation pays beside its own state; a larger N keeps one direction at
+# a time, and a table past the cap (N past about 2^25.4) is made for its
+# call and not kept.
 CHIRP_CACHE_BYTES = 1 << 30
 
 # Bluestein's chirp and the spectrum of its conjugate, per (N, inverse,
-# device): made on the device once, by the route's own kernels
+# device, M): made on the device once, by the routes' own kernels
 _CHIRPS: "collections.OrderedDict" = collections.OrderedDict()
 _CHIRPS_LOCK = threading.Lock()
 
@@ -77,14 +84,17 @@ def _keep(key, tables) -> None:
         _CHIRPS[key] = tables
 
 
-def _bluestein_tables(n: int, inverse: bool, device):
-    key = (n, inverse, torch.device(device))
+def _bluestein_tables(n: int, inverse: bool, device, m: int = 0):
+    """Bluestein's chirp (N complex) and the spectrum of its conjugate laid
+    out circularly over M (the route's, ``fft_plan.bluestein_m`` where
+    ``m`` is 0)."""
+    m = m or fft_plan.bluestein_m(n)
+    key = (n, inverse, torch.device(device), m)
     with _CHIRPS_LOCK:
         hit = _CHIRPS.get(key)
         if hit is not None:
             _CHIRPS.move_to_end(key)
             return hit
-    m = fft_plan.bluestein_size(n)
     sign = 1.0 if inverse else -1.0
     # the angles in place, and gone before the spectrum's FFT (at N = 2^29
     # they and the exponents are 8 GiB beside its 48)
@@ -115,8 +125,8 @@ def _launch(re, im, outer: int, n: int, inner: int, inverse: bool,
     dev = re.device
     # Bluestein's tables first: making them takes a spectrum's FFT of M
     # points, which should not sit beside this call's scratch
-    tables = (_bluestein_tables(n, inverse, dev) if r.kind == "bluestein"
-              else None)
+    tables = (_bluestein_tables(n, inverse, dev, r.m)
+              if r.kind == "bluestein" else (None, None))
     ore, oim = re.new_empty(re.shape), im.new_empty(im.shape)
     args = (re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr())
     stream = _build.stream(dev)
@@ -133,9 +143,16 @@ def _launch(re, im, outer: int, n: int, inner: int, inverse: bool,
     elif r.cluster:
         code = lib.repro_fft_cluster(*args, outer, inner, r.plan,
                                      int(inverse), stream)
-    elif r.kind == "mixed":
+    elif r.kind == "mixed" and not r.tile:
         code = lib.repro_fft_mixed(*args, wptr, outer, inner, r.plan,
                                    int(inverse), stream)
+    elif r.tile:
+        # the tile register kernel's passes: a long row, or Bluestein
+        desc, passes = fft_plan.tile_passes(n, columns, outer, inner,
+                                            inverse)
+        chirp, spec = (None if t is None else t.data_ptr() for t in tables)
+        code = lib.repro_fft_tile(*args, wptr, (r.m or n) * outer * inner,
+                                  chirp, spec, desc, passes, stream)
     else:
         chirp, spec = tables
         code = lib.repro_fft_bluestein(
@@ -145,6 +162,7 @@ def _launch(re, im, outer: int, n: int, inner: int, inverse: bool,
     fft_fourstep.launches += r.launches
     fft_fourstep.cluster_launches += int(r.cluster)
     fft_fourstep.row_reg_launches += int(r.row_reg)
+    fft_fourstep.tile_launches += r.launches if r.tile else 0
     return ore, oim, r.launches
 
 
@@ -181,3 +199,4 @@ fft_fourstep.launches = 0
 fft_fourstep.column_launches = 0
 fft_fourstep.cluster_launches = 0
 fft_fourstep.row_reg_launches = 0
+fft_fourstep.tile_launches = 0

@@ -8,14 +8,23 @@ Pure integer arithmetic, cached per N, so the wrappers pay for it once:
 * ``stages(n, columns)`` — the line lengths of a mixed-radix transform:
   one line when it fits one CTA's shared memory (rows to
   ``MIXED_ROW_MAX`` points, a tile of 32 columns to ``MIXED_LINE_MAX``),
-  else two, three, four or five lines of at most ``MIXED_LINE_MAX``
-  points, passes through a scratch buffer;
+  else, for columns, two to five lines of at most ``MIXED_LINE_MAX``
+  points (``line_stages``), and for rows two to five lines that a tile
+  of the tile register kernel holds (``tile_stages``: to ~1300 points),
+  passes through a scratch buffer;
 * ``wide_radix_plan(n)`` — the same with the composite radices 10, 20
   and 25 and radix 16, largest first: rows of ``ROW_WIDE_MIN`` points
-  or more, the line passes' wide tiles and the cluster kernel's lines;
+  or more, the line passes' wide tiles, the cluster kernel's lines and
+  the tile register kernel's;
 * ``takes_row_reg(n)`` — whether a row of n points runs on the row
   register kernel (``mixed_row_reg_kernel``: one shared buffer, two CTAs
   an SM), from ``ROW_REG_MIN`` points;
+* ``tile_fits(c, n)`` and ``tile_passes(...)`` — the tile register
+  kernel (``mixed_tile_reg_kernel``: C lines a tile in one shared buffer,
+  the points in registers between passes, two CTAs an SM), which takes
+  every pass of a row longer than one CTA holds and every pass of
+  Bluestein's M-point transforms, and the descriptor of each of its
+  passes that ``repro_fft_tile`` runs;
 * ``cluster_geometry(n)`` — the one-pass four-step of a column on a
   thread-block cluster (``mixed_cluster_kernel``): N = na * nj with the
   fewest passes, a tile of C columns spread over the shared memory of S
@@ -26,20 +35,32 @@ Pure integer arithmetic, cached per N, so the wrappers pay for it once:
   ``COLUMN_CLUSTER_MIN`` points or more whose tile a cluster of at most
   ``COLUMN_CLUSTER_CTAS`` CTAs holds; a row to ``MIXED_ROW_MAX`` points
   in one CTA, on the row register kernel where ``takes_row_reg`` says so,
-  else on mixed_lines_kernel; else line passes) or ``bluestein`` (the
-  rest), with its launch count, scratch size and
-  the plan array the C entry points take. Every N >= 1 is planned:
-  lengths, line counts and Bluestein's N and M cross the C interface as
-  64-bit integers, and a call the card's memory cannot hold fails in
-  the allocator;
-* ``bluestein_size(n)`` and ``chirp_exponents(n)`` — Bluestein's
-  power-of-two length M >= 2N - 1 and the chirp's exponents n^2 mod 2N
-  (an int64 tensor, made where the chirp is).
+  else on mixed_lines_kernel; longer rows in passes of the tile register
+  kernel; longer columns in line passes) or ``bluestein`` (the rest),
+  with its launch count, scratch size and the plan array the C entry
+  points take. Every N >= 1 is planned: lengths, line counts and
+  Bluestein's N and M cross the C interface as 64-bit integers, and a
+  call the card's memory cannot hold fails in the allocator;
+* ``bluestein_m(n, columns)`` and ``chirp_exponents(n)`` — Bluestein's
+  length M >= 2N - 1 and the chirp's exponents n^2 mod 2N (an int64
+  tensor, made where the chirp is). From ``BLUESTEIN_TILE_MIN`` on, M is
+  ``bluestein_size``'s (7-smooth: of the lengths up to the next power of
+  two, those with the fewest passes of the tile register kernel, then
+  the fewest radix passes within ``BLUESTEIN_M_SLACK`` of the least) and
+  both M-point transforms run on the tile register kernel alone,
+  whatever route ``route(M, columns)`` gives M itself (the radix, row,
+  cluster and line-pass kernels take no chirp): the pre-chirp and the
+  zero pad fused into the forward transform's first load, the product
+  with the chirp's spectrum into its last store, the post-chirp and the
+  scale into the inverse's last store. Below it M is the least power of
+  two, its transforms on ``route(M, columns)`` (or line passes past the
+  radix route) between three pointwise kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -110,6 +131,7 @@ def radix_plan(n: int, max_radix: int = ROW_MAX_RADIX) -> Tuple[int, ...]:
     return tuple(plan) or (1,)
 
 
+@functools.lru_cache(maxsize=4096)
 def _divisors(n: int):
     """The divisors of a 7-smooth n, ascending."""
     divs = [1]
@@ -119,7 +141,7 @@ def _divisors(n: int):
             n //= p
             e += 1
         divs = [d * p ** i for d in divs for i in range(e + 1)]
-    return sorted(divs)
+    return tuple(sorted(divs))
 
 
 def _splits(n: int, k: int, cap: int):
@@ -136,16 +158,133 @@ def _splits(n: int, k: int, cap: int):
                 yield rest + (d,)
 
 
+# The tile register kernel (mixed_tile_reg_kernel, csrc/fft_tile_reg.cuh):
+# a tile of C lines (1, 2, 4 or 8; 8 neighbouring lines are one 32-byte
+# sector a point a plane) in one shared buffer, the points in registers
+# between passes, each thread holding up to TILE_HOLD[R] butterflies of an
+# in-place pass of radix R (the row register kernel's counts), at most
+# TILE_THREADS threads (80 registers) and TILE_SMEM_MAX bytes of shared
+# memory a CTA, so that two CTAs share an SM and one's loads overlap the
+# other's passes. Its lines run on wide_radix_plan's radices; a CTA keeps
+# TILE_LINE_BYTES a line of offsets, the line's twiddle tables and the
+# buffer. A pass is described to repro_fft_tile by TILE_DESC int64 words
+# (tile_passes). A pass takes TILE_LINES neighbouring lines a CTA, or as
+# many contiguous rows as a tile holds, fewer where that leaves under
+# TILE_CTAS CTAs (two on each of an H100's 132 SMs).
+TILE_THREADS = 384
+TILE_LINES = 8
+TILE_CTAS = 264
+TILE_HOLD = {25: 1, 20: 1, 16: 1, 10: 2, 8: 3, 7: 3, 5: 4, 4: 6, 3: 8, 2: 12}
+# an SM's 228 KB less the 1 KB the card reserves for each CTA, halved
+TILE_SMEM_MAX = (233472 - 2 * 1024) // 2
+TILE_LINE_BYTES = 64
+TILE_DESC = 48
+
+
+def tile_smem_bytes(c: int, n: int) -> int:
+    """Shared memory of a tile register kernel CTA: the lines' offsets,
+    the line's twiddle tables and one buffer of two planes (a pad word
+    per 32)."""
+    plane = c * n + ((c * n) >> 5) + 1
+    return TILE_LINE_BYTES * c + 8 * (TW_S + -(-n // TW_S)) + 8 * plane
+
+
+def tile_threads(c: int, n: int, fused: bool = False) -> int:
+    """Threads of a tile register kernel CTA for a tile of c lines of n
+    points: about 8 points a thread for the passes that loop (the first
+    and the last), at least each in-place pass's butterflies over what a
+    thread holds, whole warps. Bluestein's fused passes stage the tile
+    through the buffer and run every radix pass in place."""
+    rad = wide_radix_plan(n)
+    t = min(TILE_THREADS, -(-c * n // 8))
+    for r in (rad if fused else rad[1:-1]):
+        t = max(t, -(-(c * (n // r)) // TILE_HOLD[r]))
+    return -(-t // 32) * 32
+
+
 @functools.lru_cache(maxsize=None)
-def stages(n: int, columns: bool) -> Tuple[int, ...]:
-    """Line lengths of a mixed-radix transform of n points, first pass
-    first: one line if it fits a CTA, else the most balanced split (the
+def tile_fits(c: int, n: int, fused: bool = False) -> bool:
+    """Whether a tile of c lines of n points (7-smooth, n > 1) fits one
+    tile register kernel CTA at two CTAs an SM (``fused``: as one of
+    Bluestein's fused passes)."""
+    return (n > 1 and smooth7(n) and tile_smem_bytes(c, n) <= TILE_SMEM_MAX
+            and tile_threads(c, n, fused) <= TILE_THREADS)
+
+
+def _largest_tile(c: int) -> int:
+    n = 1
+    while tile_smem_bytes(c, n + 1) <= TILE_SMEM_MAX:
+        n += 1
+    return n
+
+
+# the longest line a tile of TILE_LINES lines could hold (its radices
+# decide whether it does: tile_fits)
+TILE_LINE_MAX = _largest_tile(TILE_LINES)
+# Rows of at least this many points that one CTA does not hold take the
+# tile register kernel's passes (on an H100: PERF.md, PR 29); below it,
+# and for every column, the line passes of <= MIXED_LINE_MAX points
+TILE_ROWS_MIN = 1
+
+
+def _fit_splits(n: int, k: int, fit):
+    """Every split of n into k factors from the ascending tuple ``fit``,
+    as (last, ..., first) tuples, in the order of k nested loops over it
+    (the first factor outermost), as ``_splits`` orders its own."""
+    if k == 1:
+        if n in fit:
+            yield (n,)
+        return
+    for d in fit:
+        if n % d == 0 and n // d <= fit[-1] ** (k - 1):
+            for rest in _fit_splits(n // d, k - 1, fit):
+                yield rest + (d,)
+
+
+@functools.lru_cache(maxsize=4096)
+def _tile_split(n: int, k: int, fused: bool = False):
+    """The most balanced split of n into k lines that a tile of
+    ``TILE_LINES`` lines holds (the largest least factor, the first found
+    on a tie; ``fused``: the first and the last as Bluestein's fused
+    passes), or None."""
+    fit = tuple(d for d in _divisors(n)
+                if d <= TILE_LINE_MAX and tile_fits(TILE_LINES, d))
+    best = None
+    if fit:
+        for lines in _fit_splits(n, k, fit):
+            if fused and not (tile_fits(TILE_LINES, lines[0], True)
+                              and tile_fits(TILE_LINES, lines[-1], True)):
+                continue
+            if best is None or min(lines) > min(best):
+                best = lines
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def tile_stages(n: int, fused: bool = False) -> Tuple[int, ...]:
+    """Line lengths of a transform of n points in passes of the tile
+    register kernel, first pass first: the most balanced split (the
     largest least factor, the first found on a tie) into two, or else
-    three, four or five, lines of at most ``MIXED_LINE_MAX`` points."""
+    three, four or five, lines that a tile of ``TILE_LINES`` lines holds
+    (``fused``: the first and the last as Bluestein's fused passes)."""
     if not smooth7(n):
-        raise ValueError(f"stages: {n} has a prime factor above 7")
-    if n <= (MIXED_LINE_MAX if columns else MIXED_ROW_MAX):
-        return (n,)
+        raise ValueError(f"tile_stages: {n} has a prime factor above 7")
+    for k in range(2, MAX_STAGES + 1):
+        best = _tile_split(n, k, fused)
+        if best:
+            return best
+    raise ValueError(f"tile_stages: {n} needs more than {MAX_STAGES} "
+                     f"passes of the tile register kernel")
+
+
+@functools.lru_cache(maxsize=None)
+def line_stages(n: int) -> Tuple[int, ...]:
+    """Line lengths of a transform of n points in line passes, first pass
+    first: the most balanced split (the largest least factor, the first
+    found on a tie) into two, or else three, four or five, lines of at
+    most ``MIXED_LINE_MAX`` points."""
+    if not smooth7(n):
+        raise ValueError(f"line_stages: {n} has a prime factor above 7")
     for k in range(2, MAX_STAGES + 1):
         best = None
         for lines in _splits(n, k, MIXED_LINE_MAX):
@@ -153,8 +292,30 @@ def stages(n: int, columns: bool) -> Tuple[int, ...]:
                 best = lines
         if best:
             return best
-    raise ValueError(f"stages: {n} needs more than {MAX_STAGES} passes "
-                     f"of <= {MIXED_LINE_MAX} points")
+    raise ValueError(f"line_stages: {n} needs more than {MAX_STAGES} "
+                     f"passes of <= {MIXED_LINE_MAX} points")
+
+
+def takes_tile(n: int, columns: bool) -> bool:
+    """Whether a transform of n points runs in passes of the tile register
+    kernel, a rule of N alone: a row of at least ``TILE_ROWS_MIN`` points
+    that one CTA does not hold (past ``MIXED_ROW_MAX``, off the radix
+    route), 7-smooth."""
+    return (not columns and n >= TILE_ROWS_MIN and n > MIXED_ROW_MAX
+            and smooth7(n) and not (is_pow2(n) and n <= RADIX_ROW_MAX))
+
+
+@functools.lru_cache(maxsize=None)
+def stages(n: int, columns: bool) -> Tuple[int, ...]:
+    """Line lengths of a mixed-radix transform of n points, first pass
+    first: one line if it fits a CTA, else ``tile_stages`` for the rows
+    that ``takes_tile`` gives the tile register kernel and
+    ``line_stages`` for the others."""
+    if not smooth7(n):
+        raise ValueError(f"stages: {n} has a prime factor above 7")
+    if n <= (MIXED_LINE_MAX if columns else MIXED_ROW_MAX):
+        return (n,)
+    return tile_stages(n) if takes_tile(n, columns) else line_stages(n)
 
 
 def splits(n: int, columns: bool) -> bool:
@@ -253,9 +414,96 @@ def plan_array(lines: Tuple[int, ...], columns: bool, wide: bool = False):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def bluestein_size(n: int) -> int:
-    """The least power of two M >= 2n - 1."""
+def _smooth_between(lo: int, hi: int):
+    """The 7-smooth numbers in [lo, hi], ascending."""
+    out = []
+    p2 = 1
+    while p2 <= hi:
+        p3 = p2
+        while p3 <= hi:
+            p5 = p3
+            while p5 <= hi:
+                p7 = p5
+                while p7 <= hi:
+                    if p7 >= lo:
+                        out.append(p7)
+                    p7 *= 7
+                p5 *= 5
+            p3 *= 3
+        p2 *= 2
+    return sorted(out)
+
+
+def bluestein_passes(m: int, columns: bool, most: int = MAX_STAGES) -> int:
+    """Passes of the tile register kernel in each of Bluestein's M-point
+    transforms: one where a tile holds M (rows: one row a tile; columns:
+    ``TILE_LINES`` neighbouring columns), else ``tile_stages``' count; 0
+    where it takes more than ``most``."""
+    if tile_fits(1 if not columns else TILE_LINES, m, True):
+        return 1
+    for k in range(2, most + 1):
+        if _tile_split(m, k, True):
+            return k
+    return 0
+
+
+def bluestein_lines(m: int, columns: bool) -> Tuple[int, ...]:
+    """The line lengths of Bluestein's M-point transforms on the tile
+    register kernel, first pass first."""
+    if bluestein_passes(m, columns, 1) == 1:
+        return (m,)
+    return tile_stages(m, True)
+
+
+# Of the lengths with the fewest passes, Bluestein takes the one with the
+# fewest radix passes in its lines among those at most BLUESTEIN_M_SLACK
+# past the least (a pass of the tile register kernel costs more the more
+# radix passes its lines take; PERF.md, PR 29)
+BLUESTEIN_M_SLACK = 0.01
+
+
+# Bluestein's N from which its M-point transforms run on the tile register
+# kernel with the chirps fused (below it the power-of-two design, which
+# ran faster there on an H100: PERF.md, PR 29)
+BLUESTEIN_TILE_MIN = 1 << 22
+
+
+def bluestein_m(n: int, columns: bool = False) -> int:
+    """Bluestein's M for n: ``bluestein_size`` from ``BLUESTEIN_TILE_MIN``
+    on, else the least power of two >= 2n - 1."""
+    if n >= BLUESTEIN_TILE_MIN:
+        return bluestein_size(n, columns)
     return 1 << max(0, (2 * n - 2).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def bluestein_size(n: int, columns: bool = False) -> int:
+    """Bluestein's M >= 2n - 1: of the 7-smooth lengths up to the next
+    power of two, those whose transform takes the fewest passes of the
+    tile register kernel; of them, up to ``BLUESTEIN_M_SLACK`` past the
+    least, the one with the fewest radix passes, the least on a tie (at
+    2^24 + 1: 33600000, 2.0 N in three passes, where 2^26 took four)."""
+    lo = max(2, 2 * n - 1)
+    hi = 1 << (lo - 1).bit_length()
+    smooth = _smooth_between(lo, hi)
+    best = None
+    for m in smooth:
+        k = bluestein_passes(m, columns, best[0] - 1 if best else MAX_STAGES)
+        if k:
+            best = (k, m)
+            if k == 1:
+                break
+    if best is None:
+        raise ValueError(f"bluestein_size: no M for {n}")
+    k, least = best
+
+    def radix_passes(m):
+        return sum(len(wide_radix_plan(d))
+                   for d in bluestein_lines(m, columns))
+    near = [m for m in smooth
+            if least <= m <= least * (1 + BLUESTEIN_M_SLACK)
+            and bluestein_passes(m, columns, k) == k]
+    return min(near, key=lambda m: (radix_passes(m), m))
 
 
 def chirp_exponents(n: int, device=None) -> torch.Tensor:
@@ -408,6 +656,7 @@ class Route(NamedTuple):
     work: int                       # scratch floats per (outer * inner)
     cluster: bool = False           # mixed: the one-pass cluster kernel
     row_reg: bool = False           # mixed: the row register kernel
+    tile: bool = False              # mixed: the tile register kernel
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,15 +676,153 @@ def route(n: int, columns: bool) -> Route:
         # a column transform in two line passes runs them on the wide
         # tiles (on an H100: 10000 points 1.58 against 1.66 ms, 5000 0.43
         # against 0.52; PERF.md); rows, one-pass columns and three
-        # passes or more keep their tiles (Bluestein's 32768-point rows
-        # and the 2^20 rows lost there)
+        # passes or more keep their tiles
         lines = stages(n, columns)
+        if len(lines) > 1 and takes_tile(n, columns):
+            return Route("mixed", n, lines, None, 0, None, len(lines),
+                         2 * n, tile=True)
         wide = columns and len(lines) == 2
         return Route("mixed", n, lines, plan_array(lines, columns, wide), 0,
                      None, len(lines), 2 * n if len(lines) > 1 else 0,
                      row_reg=not columns and lines == (n,)
                      and takes_row_reg(n))
-    m = bluestein_size(n)
-    inner = route(m, columns)    # a power of two: never the cluster kernel
+    m = bluestein_m(n, columns)
+    if n >= BLUESTEIN_TILE_MIN:
+        # Bluestein on the tile register kernel: k lines forward, k back
+        lines = bluestein_lines(m, columns)
+        inner = Route("mixed", m, lines, None, 0, None, len(lines),
+                      2 * m if len(lines) > 1 else 0, tile=True)
+        return Route("bluestein", n, (), None, m, inner, 2 * len(lines),
+                     4 * m, tile=True)
+    # the power-of-two design: M's transforms on the radix route or in
+    # line passes of <= MIXED_LINE_MAX points, three pointwise kernels
+    if m <= (RADIX_COLUMN_MAX if columns else RADIX_ROW_MAX):
+        inner = route(m, columns)
+    else:
+        lines = line_stages(m)
+        inner = Route("mixed", m, lines,
+                      plan_array(lines, columns, columns and len(lines) == 2),
+                      0, None, len(lines), 2 * m)
     return Route("bluestein", n, (), None, m, inner, 3 + 2 * inner.launches,
                  4 * m)
+
+
+def _pass_geometry(lines, outer: int, inner: int):
+    """Each pass's lines, outer count and strides of a transform of
+    prod(lines) points along the middle axis of (outer, N, inner), first
+    pass first, as mixed_axis in fft_fourstep.cu lays them out: level i
+    transforms the lines[i-1]-point lines; every level but the last
+    stores times the four-step twiddle exp(sign*2*pi*i*e/tw_M),
+    e = (l / tw_div) * (k*tw_kmul + ol*tw_omul) for output point k of
+    line l of outer index (oh, ol) (ol = o % o_split)."""
+    k = len(lines)
+    n = math.prod(lines)
+    out = []
+    for i in range(1, k + 1):
+        ni = math.prod(lines[:i])
+        inner_i = inner * (n // ni)
+        g = dict(n=lines[i - 1], o_split=1, in_lo=0, out_lo=0, tw_div=0,
+                 tw_m=1, tw_kmul=1, tw_omul=0)
+        if i < k:
+            g.update(tw_div=inner * (n // math.prod(lines[:i + 1])),
+                     tw_m=math.prod(lines[:i + 1]))
+        if i == 1 and inner_i == 1:         # one pass of rows
+            g.update(lines=outer, outer=1, in_hi=0, out_hi=0, in_ls=n,
+                     out_ls=n, in_ps=1, out_ps=1)
+        elif i == 1:                        # neighbouring lines
+            g.update(lines=inner_i, outer=outer, in_hi=n * inner,
+                     out_hi=n * inner, in_ls=1, out_ls=1, in_ps=inner_i,
+                     out_ps=inner_i)
+        elif inner_i == 1:                  # rows: lines k2 < m
+            m = ni // lines[i - 1]
+            g.update(lines=m, outer=outer, in_hi=n, out_hi=n,
+                     in_ls=lines[i - 1], in_ps=1, out_ls=1, out_ps=m)
+        else:                               # lines c of outer (o, k2)
+            m = ni // lines[i - 1]
+            g.update(lines=inner_i, outer=outer * m, o_split=m,
+                     in_hi=n * inner, out_hi=n * inner,
+                     in_lo=lines[i - 1] * inner_i, out_lo=inner_i, in_ls=1,
+                     out_ls=1, in_ps=inner_i, out_ps=m * inner_i,
+                     tw_kmul=m, tw_omul=1)
+        out.append(g)
+    return out
+
+
+def tile_lines(g, fused: bool) -> int:
+    """Lines a CTA of the tile register kernel takes in a pass: 8
+    neighbouring lines, or as many rows of a one-pass row transform as a
+    tile holds (8, 4, 2 or 1); half as many, down to one, while the pass
+    has fewer than ``TILE_CTAS`` CTAs."""
+    c = TILE_LINES
+    if g["in_ps"] == 1 and g["out_ps"] == 1:
+        while c > 1 and not tile_fits(c, g["n"], fused):
+            c //= 2
+    while c > 1 and g["outer"] * -(-g["lines"] // c) < TILE_CTAS:
+        c //= 2
+    return c
+
+
+@functools.lru_cache(maxsize=256)
+def tile_passes(n: int, columns: bool, outer: int, inner: int,
+                inverse: bool):
+    """``repro_fft_tile``'s descriptor of a call on (outer, n, inner):
+    TILE_DESC int64 words a pass (``_DESC_FIELDS`` in order) and the pass
+    count. Buffers: 0 the input planes, 1 the output, 2 and 3 the two
+    halves of the scratch. A tile route (``Route.tile``) runs its passes
+    input -> ... -> output through the output and the scratch; Bluestein
+    on the tile register kernel runs the forward M-point transform from
+    the input (the pre-chirp and the zero pad fused into its first load,
+    the product with the chirp's spectrum into its last store) into the
+    scratch, then the inverse into the output (the post-chirp and the
+    scale fused into its last store, which writes only positions < N)."""
+    r = route(n, columns)
+    if r.kind == "bluestein":
+        geo = _pass_geometry(r.m_route.lines, outer, inner)
+        k = len(geo)
+
+        def inv_dst(i):
+            return 1 if i == k - 1 else 3 - i % 2
+        fwd = [dict(g, src=2 + (k - i) % 2 if i else 0,
+                    dst=2 + (k - 1 - i) % 2, sign=-1, scale=1,
+                    fuse_in=int(i == 0), fuse_out=int(i == k - 1))
+               for i, g in enumerate(geo)]
+        inv = [dict(g, src=inv_dst(i - 1) if i else 2, dst=inv_dst(i),
+                    sign=1, scale=r.m * (n if inverse else 1)
+                    if i == k - 1 else 1, fuse_in=0,
+                    fuse_out=2 * int(i == k - 1))
+               for i, g in enumerate(geo)]
+        passes = fwd + inv
+        for d in passes:
+            d.update(bn=n, brow=r.m * inner, binner=inner)
+    else:
+        geo = _pass_geometry(r.lines, outer, inner)
+        k = len(geo)
+
+        def dst(i):
+            return 1 if (k - 1 - i) % 2 == 0 else 2
+        passes = [dict(g, src=dst(i - 1) if i else 0, dst=dst(i),
+                       sign=1 if inverse else -1,
+                       scale=n if inverse and i == k - 1 else 1, fuse_in=0,
+                       fuse_out=0, bn=0, brow=0, binner=1)
+                  for i, g in enumerate(geo)]
+    words = []
+    for d in passes:
+        rad = wide_radix_plan(d["n"])
+        fused = bool(d["fuse_in"] or d["fuse_out"])
+        c = tile_lines(d, fused)
+        d.update(p=len(rad), c=c, threads=tile_threads(c, d["n"], fused),
+                 mstep_in=d["in_ps"] // d["binner"],
+                 mstep_out=d["out_ps"] // d["binner"])
+        row = [d[f] for f in _DESC_FIELDS[:4]] + list(rad) + \
+            [0] * (16 - len(rad)) + [d[f] for f in _DESC_FIELDS[4:]]
+        words += row + [0] * (TILE_DESC - len(row))
+    return (ctypes.c_longlong * len(words))(*words), len(passes)
+
+
+# repro_fft_tile's descriptor of a pass, in order (the radices, 16 words,
+# after the first four)
+_DESC_FIELDS = ("src", "dst", "n", "p", "c", "threads", "lines", "o_split",
+                "outer", "in_hi", "in_lo", "in_ls", "in_ps", "out_hi",
+                "out_lo", "out_ls", "out_ps", "tw_div", "tw_m", "tw_kmul",
+                "tw_omul", "sign", "scale", "fuse_in", "fuse_out", "bn",
+                "brow", "binner", "mstep_in", "mstep_out")

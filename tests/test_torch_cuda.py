@@ -69,9 +69,11 @@ ROUTE_ROWS = [(1, 8192), (3, 1024), (8200, 64), (9001, 200), (5, 360),
               (200, 200), (2, 20000), (2, 32768), (64, 32768), (8, 65536),
               (4, 1 << 20), (8, 10007), (16, 4097), (3, 10000), (5, 7),
               (2, 3 * 5 * 7 * 64),
-              # four passes of <= 439 points: 2^25 and 5^10, and 2^24 + 1
-              # on Bluestein (M = 2^26)
-              (1, 1 << 25), (1, 5 ** 10), (1, (1 << 24) + 1)]
+              # past one CTA on the tile register kernel: 2^25, 2^26 and
+              # 5^10 in three passes, 2048 x 32768 in two; 2^24 + 1 on
+              # Bluestein (M = 33592320, three passes each way)
+              (1, 1 << 25), (1, 5 ** 10), (1, (1 << 24) + 1),
+              (2048, 32768), (1, 1 << 26)]
 
 
 @pytest.mark.parametrize("shape", ROUTE_ROWS)
@@ -193,13 +195,14 @@ def test_cluster_kernel_off_its_route_matches_float64(gen, shape,
 
 
 def test_bluestein_at_m_2_pow_31_matches_closed_form(gen):
-    # (1, 2^29 + 1): Bluestein at M = 2^31 (about 65 GB with its tables,
-    # made before the call's scratch), N and M 64-bit across the C
-    # interface; a closed form stands in for a float64 oracle
+    # (1, 2^29 + 1): Bluestein at M = 1088391168 (2^31 before; about 40 GB
+    # with its tables, made before the call's scratch), N and M 64-bit in
+    # the tile register kernel's descriptor; a closed form stands in for a
+    # float64 oracle
     torch.cuda.empty_cache()
     n = (1 << 29) + 1
     r = fft_plan.route(n, False)
-    assert (r.kind, r.m) == ("bluestein", 1 << 31)
+    assert (r.kind, r.m, r.launches) == ("bluestein", 1088391168, 6)
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     # the tones and closed form chip_smoke.py holds (1, 5^13) to
     from chip_smoke import tone_err, tone_field
@@ -211,6 +214,62 @@ def test_bluestein_at_m_2_pow_31_matches_closed_form(gen):
     del re, im
     fft_fourstep.clear_tables()
     torch.cuda.empty_cache()
+
+
+# The tile register kernel's routes: rows past one CTA (2048 x 32768 in
+# two passes, 2^25 and 2^26 in three) and Bluestein from
+# fft_plan.BLUESTEIN_TILE_MIN (2^24 + 1: M 7-smooth, the chirps fused into
+# the passes, 3 + 3); below it Bluestein keeps its power-of-two design
+# ((8, 10007), (16, 4097), (64, 257), the (3, 257, 100) columns), and runs
+# on the tile kernel too where the threshold is set to 0. Each call's
+# launches are the route's, the tile kernel's all of them where the route
+# takes it; against float64 at 5e-5 of max |X| and torch.fft at 1e-5.
+BLUESTEIN_SHAPES = [((8, 10007), False), ((16, 4097), False),
+                    ((64, 257), False), ((3, 257, 100), True)]
+TILE_SHAPES = ([((64, 32768), False, False), ((2048, 32768), False, False),
+                ((1, 1 << 25), False, False), ((1, 1 << 26), False, False),
+                ((1, (1 << 24) + 1), False, False)]
+               + [(s, c, a) for s, c in BLUESTEIN_SHAPES for a in (False,
+                                                                   True)])
+
+
+@pytest.mark.parametrize("shape,columns,tile_all", TILE_SHAPES)
+def test_tile_routes_count_their_launches(gen, shape, columns, tile_all,
+                                          monkeypatch):
+    if tile_all:
+        monkeypatch.setattr(fft_plan, "BLUESTEIN_TILE_MIN", 0)
+    fft_plan.route.cache_clear()
+    fft_plan.tile_passes.cache_clear()
+    re, im = _planes(gen, shape)
+    n = shape[1]
+    r = fft_plan.route(n, columns)
+    assert r.tile == (fft_plan.takes_tile(n, columns) if r.kind == "mixed"
+                      else n >= fft_plan.BLUESTEIN_TILE_MIN)
+    fn = (fft_fourstep.fft_fourstep_columns if columns
+          else fft_fourstep.fft_fourstep)
+    fs = fft_fourstep.fft_fourstep
+    dim = 1 if columns else -1
+    try:
+        for inverse in (False, True):
+            fn(re, im, inverse=inverse)              # warm-up: the tables
+            before = (fs.launches, fs.tile_launches)
+            got = fn(re, im, inverse=inverse)
+            assert (fs.launches, fs.tile_launches) == (
+                before[0] + r.launches,
+                before[1] + (r.launches if r.tile else 0))
+            assert _rel64(got, _oracle(re, im, inverse, dim=dim)) < 5e-5
+            z = torch.complex(re, im)
+            lib = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
+            assert _rel(got, (lib.real, lib.imag)) < 1e-5
+            del got, z, lib
+    finally:
+        fft_fourstep.clear_tables()
+        fft_plan.route.cache_clear()
+        fft_plan.tile_passes.cache_clear()
+        torch.cuda.empty_cache()
+    if r.kind == "bluestein" and r.tile:
+        assert r.launches == 2 * len(r.m_route.lines)
+        assert r.m <= 2.15 * n
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (8200, 64), (1000, 128),
@@ -339,14 +398,14 @@ def test_fft_axis_routes_match_plain_and_torch_fft(gen, n, inner):
 
 def test_column_route_counts_its_launches(gen):
     # every kernel launched counts: two passes for 8192-point columns,
-    # one for a radix row, two for a 32768-point row (two mixed-radix
-    # passes through a scratch buffer)
+    # one for a radix row, two for a 32768-point row and for a 2^20-point
+    # row (passes of the tile register kernel through a scratch buffer)
     re, im = _planes(gen, (1, 8192, 64))
     fs = fft_fourstep.fft_fourstep
     before, cols = fs.launches, fs.column_launches
     fft_fourstep.fft_fourstep_columns(re, im)
     assert (fs.launches, fs.column_launches) == (before + 2, cols + 2)
-    for n, kernels in ((8192, 1), (32768, 2), (1 << 20, 3), (200, 1)):
+    for n, kernels in ((8192, 1), (32768, 2), (1 << 20, 2), (200, 1)):
         re, im = _planes(gen, (2, n))
         before = fs.launches
         fft_fourstep.fft_fourstep(re, im)

@@ -34,12 +34,18 @@ def test_radix_plan_refuses_large_primes():
             fft_plan.radix_plan(n)
 
 
+# launches a call: rows past one CTA in passes of the tile register kernel
+# (32768 and 65536 in two, 2^20 in two where tiles of <= 439 points took
+# three, 2^25 in three, not four); Bluestein from BLUESTEIN_TILE_MIN on
+# the tile register kernel, two passes a line of M (2^24 + 1: 33600000 in
+# 3 + 3, was 11 launches at 2^26), below it the power-of-two design, 3 +
+# 2 x passes (257: 5, 10007: 7); columns keep theirs
 @pytest.mark.parametrize("n,columns,kind,passes", [
     (64, False, "radix", 1), (8192, False, "radix", 1),
     (16384, False, "radix", 1), (8192, True, "radix", 2),
     (128, True, "radix", 1), (65536, True, "radix", 2),
     (32768, False, "mixed", 2), (65536, False, "mixed", 2),
-    (1 << 20, False, "mixed", 3), (1 << 24, False, "mixed", 3),
+    (1 << 20, False, "mixed", 2), (1 << 24, False, "mixed", 3),
     (1 << 20, True, "mixed", 3),
     (200, False, "mixed", 1), (200, True, "mixed", 1),
     (360, False, "mixed", 1), (10000, False, "mixed", 1),
@@ -47,9 +53,9 @@ def test_radix_plan_refuses_large_primes():
     (7, False, "mixed", 1),
     (257, False, "bluestein", 5), (4097, False, "bluestein", 5),
     (10007, False, "bluestein", 7), (257, True, "bluestein", 7),
-    (1 << 25, False, "mixed", 4), (1 << 25, True, "mixed", 4),
-    (5 ** 10, False, "mixed", 4), (1 << 31, False, "mixed", 4),
-    (16777217, False, "bluestein", 11), (1 << 29, False, "mixed", 4)])
+    (1 << 25, False, "mixed", 3), (1 << 25, True, "mixed", 4),
+    (5 ** 10, False, "mixed", 3), (1 << 31, False, "mixed", 4),
+    (16777217, False, "bluestein", 6), (1 << 29, False, "mixed", 3)])
 def test_route_per_n(n, columns, kind, passes):
     r = fft_plan.route(n, columns)
     assert r.kind == kind
@@ -57,12 +63,21 @@ def test_route_per_n(n, columns, kind, passes):
     assert r.cluster == (columns and fft_plan.takes_cluster(n))
     assert r.row_reg == (not columns and r.lines == (n,)
                          and fft_plan.takes_row_reg(n))
+    assert r.tile == (fft_plan.takes_tile(n, columns) if kind == "mixed"
+                      else kind == "bluestein"
+                      and n >= fft_plan.BLUESTEIN_TILE_MIN)
     if r.cluster:
         s, c, na, nj = fft_plan.cluster_geometry(n)
         assert r.lines == (n,) and na * nj == n and r.work == 0
         assert list(r.plan)[:3] == [s, c, na]
         assert fft_plan.cluster_smem_bytes(s, c, na, nj) <= \
             fft_plan.CLUSTER_SMEM_MAX
+    elif r.tile and kind == "mixed":
+        assert not columns and r.plan is None and r.work == 2 * n
+        assert r.lines == fft_plan.tile_stages(n) == fft_plan.stages(n, False)
+        assert len(r.lines) == passes and math.prod(r.lines) == n
+        assert all(fft_plan.tile_fits(fft_plan.TILE_LINES, d)
+                   for d in r.lines)
     elif kind == "mixed":
         assert len(r.lines) == passes and math.prod(r.lines) == n
         limit = (fft_plan.MIXED_LINE_MAX if columns or passes > 1
@@ -73,7 +88,15 @@ def test_route_per_n(n, columns, kind, passes):
             max(r.lines)) <= fft_plan.SMEM_MAX
         assert list(r.plan)[0] == passes
     if kind == "bluestein":
-        assert r.m == fft_plan.bluestein_size(n)
+        assert r.m == fft_plan.bluestein_m(n, columns) and r.work == 4 * r.m
+        if r.tile:
+            assert r.m == fft_plan.bluestein_size(n, columns)
+            assert 2 * n - 1 <= r.m <= 2.15 * n
+            assert r.m_route.tile and 2 * len(r.m_route.lines) == passes
+            assert math.prod(r.m_route.lines) == r.m
+        else:
+            assert fft_plan.is_pow2(r.m) and r.m // 2 < 2 * n - 1 <= r.m
+            assert 3 + 2 * r.m_route.launches == passes
     assert fft_plan.route(n, columns) is r      # planned once per N
 
 
@@ -100,8 +123,30 @@ def test_plan_array_layout():
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 257, 4097, 8192, 10007])
 def test_bluestein_size_is_least_power_of_two(n):
-    m = fft_plan.bluestein_size(n)
-    assert m & (m - 1) == 0 and m >= 2 * n - 1 and (m == 1 or m // 2 < 2 * n - 1)
+    # Bluestein's M: 7-smooth, >= 2N - 1, not past the power of two the
+    # rule had before; the fewest passes of the tile register kernel; of
+    # those, within BLUESTEIN_M_SLACK of the least, the fewest radix
+    # passes, then the least
+    for columns in (False, True):
+        m = fft_plan.bluestein_size(n, columns)
+        lo = max(2, 2 * n - 1)
+        assert fft_plan.smooth7(m) and lo <= m <= 1 << (lo - 1).bit_length()
+        k = fft_plan.bluestein_passes(m, columns)
+        assert k >= 1
+        same = [o for o in range(lo, m + 1) if fft_plan.smooth7(o)
+                and fft_plan.bluestein_passes(o, columns) == k]
+        for other in range(lo, m):
+            if fft_plan.smooth7(other):
+                assert not 0 < fft_plan.bluestein_passes(other, columns) < k
+        assert m <= same[0] * (1 + fft_plan.BLUESTEIN_M_SLACK)
+
+        def radix(x):
+            return sum(len(fft_plan.wide_radix_plan(d))
+                       for d in fft_plan.bluestein_lines(x, columns))
+        assert all(radix(o) > radix(m) for o in same if o < m)
+    assert fft_plan.bluestein_size(10007) == 20160 == 144 * 140
+    assert fft_plan.bluestein_size(4097) == 8748     # one pass of 8 radices
+    assert fft_plan.bluestein_size(4097, True) == 8232 == 98 * 84
 
 
 @pytest.mark.parametrize("n", [7, 257, 4097, 10007])
@@ -157,7 +202,8 @@ def _mixed(x: torch.Tensor, lines, sign: float) -> torch.Tensor:
 
 def _bluestein(x: torch.Tensor, sign: float) -> torch.Tensor:
     """Bluestein as the kernels run it: chirp exp(sign*pi*i*(k^2 mod 2N)/N),
-    a power-of-two circular convolution of M points with conj(chirp)."""
+    a circular convolution of 7-smooth M points with conj(chirp), its
+    transforms split as the route's M-point transform is."""
     n = x.shape[-1]
     m = fft_plan.bluestein_size(n)
     e = fft_plan.chirp_exponents(n).double()
@@ -167,7 +213,8 @@ def _bluestein(x: torch.Tensor, sign: float) -> torch.Tensor:
     b = torch.zeros(m, dtype=torch.complex128)
     b[:n] = chirp.conj()
     b[m - n + 1:] = chirp[1:].conj().flip(0)
-    lines = fft_plan.stages(m, False)
+    lines = ((m,) if fft_plan.bluestein_passes(m, False) == 1
+             else fft_plan.tile_stages(m))
     spec = _mixed(b, lines, -1.0)
     conv = _mixed(_mixed(a, lines, -1.0) * spec, lines, 1.0) / m
     return conv[..., :n] * chirp
@@ -222,27 +269,40 @@ def test_four_pass_split_matches_numpy(lines, inverse):
 
 
 def test_routes_take_every_length():
-    # 5^13 and 7*5^12 have no split into four lines of <= 439 points:
-    # five mixed passes; (1<<29)+1 takes Bluestein at M = 2^31 and
-    # (1<<31)+2 at M = 2^33 (its M-point transform in five passes). No
+    # 5^13 and 7*5^12 as rows: four passes of the tile register kernel;
+    # as columns they have no split into four lines of <= 439 points:
+    # five mixed passes. (1<<29)+1 takes Bluestein on the tile register
+    # kernel at M = 1088391168 in three passes each way and (1<<31)+2 at M
+    # = 4306640625 in four (2^31 and 2^33 before, in four and five). No
     # length is refused, and the 64-bit lengths cross the C interface.
-    for n in (5 ** 13, 7 * 5 ** 12):
+    for n, rows in ((5 ** 13, (625, 125, 125, 125)),
+                    (7 * 5 ** 12, (875, 125, 125, 125))):
         r = fft_plan.route(n, False)
+        assert (r.kind, r.launches, r.lines, r.tile) == ("mixed", 4, rows,
+                                                         True)
+        assert r.work == 2 * n
+        r = fft_plan.route(n, True)
         assert (r.kind, r.launches, len(r.lines)) == ("mixed", 5, 5)
         assert math.prod(r.lines) == n
         assert max(r.lines) <= fft_plan.MIXED_LINE_MAX
         assert list(r.plan)[0] == 5 and r.work == 2 * n
-    assert fft_plan.stages(5 ** 13, False) == (125, 125, 125, 25, 25)
+    assert fft_plan.line_stages(5 ** 13) == (125, 125, 125, 25, 25)
     r = fft_plan.route((1 << 29) + 1, False)
-    assert (r.kind, r.m, r.m_route.lines) == ("bluestein", 1 << 31,
-                                              (256, 256, 256, 128))
+    assert (r.kind, r.m, r.m_route.lines) == ("bluestein", 1088391168,
+                                              (972, 1152, 972))
     r = fft_plan.route((1 << 31) + 2, False)
-    assert (r.kind, r.m, len(r.m_route.lines)) == ("bluestein", 1 << 33, 5)
-    assert r.launches == 3 + 2 * 5
+    assert (r.kind, r.m, len(r.m_route.lines)) == ("bluestein", 4306640625,
+                                                   4)
+    assert r.launches == 2 * 4
     assert fft_plan.route(1 << 29, False).kind == "mixed"
     from repro_torch.kernels import _build
-    sig = _build._SIGNATURES["repro_fft_bluestein"]
-    assert sig[6] is sig[8] is sig[5] is _build._L      # N, M, outer
+    sig = _build._SIGNATURES["repro_fft_tile"]
+    assert sig[5] is _build._L                     # the scratch's plane
+    desc, passes = fft_plan.tile_passes((1 << 31) + 2, False, 1, 1, False)
+    assert passes == 8 and desc._type_ is __import__("ctypes").c_longlong
+    words = list(desc)
+    bn = 16 + fft_plan._DESC_FIELDS.index("bn")
+    assert words[fft_plan.TILE_DESC * 4 + bn] == (1 << 31) + 2
 
 
 @pytest.mark.parametrize("lines,inverse", [((5, 5, 3, 2, 2), False),
@@ -545,6 +605,189 @@ def test_column_passes_take_the_wide_tiles(n, lines):
         assert arr[i] == line and arr[i + 2] == 0
         assert tuple(arr[i + 3:i + 3 + P]) == fft_plan.wide_radix_plan(line)
         i += 3 + P
-    # rows keep their tiles
-    rows = list(fft_plan.route(n, False).plan)
-    assert rows[:1] == [len(fft_plan.stages(n, False))]
+    # rows that one CTA holds keep it; past it, the tile register kernel
+    rows = fft_plan.route(n, False)
+    if n > fft_plan.MIXED_ROW_MAX:
+        assert rows.tile and rows.lines == fft_plan.stages(n, False)
+    else:
+        assert list(rows.plan)[:2] == [1, n]
+
+
+# ---- the tile register kernel ----
+
+def _tile_pass(d: dict, bufs: dict, chirp, spec) -> None:
+    """One pass of mixed_tile_reg_kernel on complex128 flat buffers, with
+    the kernel's index maps: CTA b takes outer index o = b / ncb (oh, ol)
+    and lines l0 .. l0 + nl of it; a thread < C fills the line's offsets
+    (point 0 in and out, the twiddle coefficient, and for Bluestein the
+    line's row, position and inner index in the (outer, M, binner) layout
+    and x's offset of position 0); the first pass loads point k of line c
+    (Bluestein: x's point p = p0 + k*mstep times chirp[p], zero past N);
+    the radix passes run through one padded buffer of the tile's lines
+    side by side, each in-place pass's butterflies within what T threads
+    hold (a fused pass: every radix pass); the last pass stores point k
+    with the four-step twiddle of its exact exponent, the spectrum or the
+    post-chirp, and the scale."""
+    n, C, T = d["n"], d["c"], d["threads"]
+    rad = fft_plan.wide_radix_plan(n)
+    fused = d["fuse_in"] or d["fuse_out"]
+    assert fft_plan.tile_smem_bytes(C, n) <= fft_plan.TILE_SMEM_MAX
+    assert T <= fft_plan.TILE_THREADS and T % 32 == 0
+    for R in (rad if fused else rad[1:-1]):
+        assert T * fft_plan.TILE_HOLD[R] >= C * (n // R)
+    # the padded shared index q + q // 32 of q = k*C + c: one slot each
+    q = np.arange(n)[:, None] * C + np.arange(C)[None, :]
+    assert len(np.unique(q + q // 32)) == C * n
+    ncb = -(-d["lines"] // C)
+    blk = np.arange(d["outer"] * ncb)
+    o, l0 = blk // ncb, (blk % ncb) * C
+    oh, ol = o // d["o_split"], o % d["o_split"]
+    l = l0[:, None] + np.arange(C)[None, :]
+    valid = l < d["lines"]
+    lin = oh[:, None] * d["in_hi"] + ol[:, None] * d["in_lo"] + l * d["in_ls"]
+    lout = (oh[:, None] * d["out_hi"] + ol[:, None] * d["out_lo"]
+            + l * d["out_ls"])
+    k = np.arange(n)
+
+    def place(v):
+        if not d["brow"]:
+            return v, v
+        row, rem = v // d["brow"], v % d["brow"]
+        p0 = rem // d["binner"]
+        return p0, row * d["bn"] * d["binner"] + rem % d["binner"]
+
+    src, dst = bufs[d["src"]], bufs[d["dst"]]
+    if d["fuse_in"]:
+        p0, xin = place(lin)
+        p = p0[..., None] + k * d["mstep_in"]
+        keep = (p < d["bn"]) & valid[..., None]
+        x = np.zeros(p.shape, dtype=np.complex128)
+        x[keep] = src[(xin[..., None] + p * d["binner"])[keep]] * chirp[p[keep]]
+    else:
+        x = np.zeros(lin.shape + (n,), dtype=np.complex128)
+        idx = lin[..., None] + k * d["in_ps"]
+        x[valid] = src[idx[valid]]
+    y = _stockham(torch.from_numpy(x), rad, float(d["sign"])).numpy()
+    if d["tw_div"]:
+        coef = l // d["tw_div"]
+        e = coef[..., None] * (k * d["tw_kmul"] + (ol * d["tw_omul"])[:, None,
+                                                                    None])
+        assert (e[valid] < d["tw_m"]).all()
+        y = y * np.exp(d["sign"] * 2j * np.pi * e / d["tw_m"])
+    p0, xout = place(lout)
+    p = p0[..., None] + k * d["mstep_out"]
+    if d["fuse_out"] == 1:
+        y = y * spec[np.where(valid[..., None], p, 0)]
+    y = y / d["scale"]
+    if d["fuse_out"] == 2:
+        keep = (p < d["bn"]) & valid[..., None]
+        idx = (xout[..., None] + p * d["binner"])[keep]
+        dst[idx] = y[keep] * chirp[p[keep]]
+    else:
+        keep = np.broadcast_to(valid[..., None], y.shape)
+        idx = (lout[..., None] + k * d["out_ps"])[keep]
+        dst[idx] = y[keep]
+    # every point stored once
+    assert len(np.unique(idx)) == idx.size
+
+
+def _tile_run(x: np.ndarray, columns: bool, inverse: bool) -> np.ndarray:
+    """A call of repro_fft_tile on complex128 (outer, n, inner) x, from
+    fft_plan.tile_passes' descriptor, pass by pass (buffers: 0 the input,
+    1 the output, 2 and 3 the scratch's halves)."""
+    outer, n, inner = x.shape
+    r = fft_plan.route(n, columns)
+    desc, passes = fft_plan.tile_passes(n, columns, outer, inner, inverse)
+    words = np.array(list(desc), dtype=np.int64).reshape(passes, -1)
+    assert words.shape[1] == fft_plan.TILE_DESC
+    big = outer * (r.m or n) * inner
+    bufs = {0: x.reshape(-1).copy(),
+            1: np.full(x.size, np.nan, dtype=np.complex128),
+            2: np.full(big, np.nan, dtype=np.complex128),
+            3: np.full(big, np.nan, dtype=np.complex128)}
+    chirp = spec = None
+    if r.kind == "bluestein":
+        sign = 1.0 if inverse else -1.0
+        e = fft_plan.chirp_exponents(n).numpy().astype(np.float64)
+        chirp = np.exp(sign * 1j * np.pi * e / n)
+        b = np.zeros(r.m, dtype=np.complex128)
+        b[:n] = chirp.conj()
+        b[r.m - n + 1:] = chirp[1:].conj()[::-1]
+        spec = np.fft.fft(b)
+    assert passes == r.launches
+    for w in words:
+        d = dict(zip(fft_plan._DESC_FIELDS[:4], w[:4]))
+        d.update(zip(fft_plan._DESC_FIELDS[4:], w[20:]))
+        assert list(w[4:4 + d["p"]]) == list(
+            fft_plan.wide_radix_plan(d["n"]))
+        _tile_pass(d, bufs, chirp, spec)
+    return bufs[1].reshape(x.shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 32768), (1, 20000), (3, 1 << 16),
+                                   (1, 1 << 21), (1, 5 ** 9)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_tile_passes_match_numpy(shape, inverse):
+    # rows past one CTA: 32768 as 256 x 128, 20000 as 160 x 125, 2^21 and
+    # 5^9 in three passes, each pass's tiles of 8 neighbouring lines
+    b, n = shape
+    r = fft_plan.route(n, False)
+    assert r.tile and len(r.lines) == (3 if n > 1 << 20 else 2)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((b, n, 1)) + 1j * rng.standard_normal((b, n, 1))
+    got = _tile_run(x, False, inverse)
+    want = np.fft.ifft(x, axis=1) if inverse else np.fft.fft(x, axis=1)
+    assert np.abs(got - want).max() < 1e-10 * np.abs(want).max()
+
+
+@pytest.fixture
+def tile_bluestein(monkeypatch):
+    """Every Bluestein N on the tile register kernel's fused passes."""
+    monkeypatch.setattr(fft_plan, "BLUESTEIN_TILE_MIN", 0)
+    fft_plan.route.cache_clear()
+    fft_plan.tile_passes.cache_clear()
+    yield
+    fft_plan.route.cache_clear()
+    fft_plan.tile_passes.cache_clear()
+
+
+@pytest.mark.parametrize("shape,columns,passes", [
+    ((2, 257, 1), False, 1), ((3, 10007, 1), False, 2),
+    ((1, 4097, 1), False, 1), ((2, 13, 1), False, 1),
+    ((2, 257, 9), True, 1), ((1, 1009, 3), True, 2), ((3, 11, 5), True, 1),
+    ((1, 1000003, 1), False, 3)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fused_bluestein_passes_match_numpy(tile_bluestein, shape, columns,
+                                            passes, inverse):
+    # Bluestein on the tile register kernel, M 7-smooth (525, 20160,
+    # 8748, 25 (one radix pass), 45 x 45, 160 x 112 x 112): the pre-chirp
+    # and zero
+    # pad in the forward transform's first load, the spectrum in its last
+    # store, the post-chirp and scale in the inverse's last store, which
+    # writes only k < N; the buffers alternate so no pass runs in place
+    outer, n, inner = shape
+    r = fft_plan.route(n, columns)
+    assert r.kind == "bluestein" and len(r.m_route.lines) == passes
+    assert fft_plan.smooth7(r.m) and not fft_plan.is_pow2(r.m)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    got = _tile_run(x, columns, inverse)
+    want = np.fft.ifft(x, axis=1) if inverse else np.fft.fft(x, axis=1)
+    assert np.abs(got - want).max() < 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,c,fits,fused", [
+    (1024, 8, True, False), (1152, 8, True, False), (1280, 8, False, False),
+    (1344, 8, False, False), (1600, 8, False, False), (2048, 8, False, False),
+    (972, 8, True, True), (8232, 1, False, False), (8748, 1, True, True),
+    (13824, 1, False, False), (525, 8, True, True), (25, 8, True, True),
+    (2, 1, True, True), (1, 1, False, False)])
+def test_tile_fits_its_lines(n, c, fits, fused):
+    # two CTAs an SM (shared memory) and each in-place pass's butterflies
+    # within 384 threads' holds; Bluestein's fused passes run every radix
+    # pass in place (1024 = 16 x 8 x 8 fits as a plain pass, not fused)
+    assert fft_plan.tile_fits(c, n) == fits
+    assert fft_plan.tile_fits(c, n, True) == fused
+    if fits:
+        assert fft_plan.tile_smem_bytes(c, n) <= fft_plan.TILE_SMEM_MAX
+        assert fft_plan.tile_threads(c, n) <= fft_plan.TILE_THREADS

@@ -265,13 +265,15 @@ def test_bluestein_tables_are_capped_and_cleared(monkeypatch):
     assert F.table_bytes() == 0
     chirp, spec = F._bluestein_tables(257, False, torch.device("cpu"))
     assert chirp.device.type == spec.device.type == "cpu"
-    m = fft_plan.bluestein_size(257)       # a power of two >= 2*257 - 1
-    assert m == 1024
+    m = fft_plan.bluestein_m(257)          # the route's M for 257
+    assert m == fft_plan.route(257, False).m
+    assert chirp.shape == (257, 2) and spec.shape == (m, 2)
     assert F.table_bytes() == 8 * (257 + m)
     assert F._bluestein_tables(257, False, "cpu")[0] is chirp   # cached
-    # a cap of one 257 table and one 300 table (M = 1024 both) keeps the
-    # two most recent of three
-    monkeypatch.setattr(F, "CHIRP_CACHE_BYTES", 8 * (257 + m + 300 + m))
+    # a cap of one 257 table and one 300 table keeps the two most recent
+    # of three
+    m300 = fft_plan.bluestein_m(300)
+    monkeypatch.setattr(F, "CHIRP_CACHE_BYTES", 8 * (257 + m + 300 + m300))
     F._bluestein_tables(257, True, "cpu")
     F._bluestein_tables(257, False, "cpu")          # touched: most recent
     F._bluestein_tables(300, False, "cpu")
@@ -280,6 +282,6 @@ def test_bluestein_tables_are_capped_and_cleared(monkeypatch):
     # a table past the cap alone is made for its call and not kept
     monkeypatch.setattr(F, "CHIRP_CACHE_BYTES", 100)
     F._bluestein_tables(1021, False, "cpu")
-    assert (1021, False, torch.device("cpu")) not in F._CHIRPS
+    assert not [k for k in F._CHIRPS if k[0] == 1021]
     plan.plan_cache_clear()
     assert F.table_bytes() == 0 and not F._CHIRPS

@@ -34,10 +34,12 @@ ROWS = ((64, 200), (64, 360), (64, 257), (200, 200), (10000, 10000),
 COLUMNS = ((1, 200, 200), (1, 10000, 10000))
 
 
-def device_ms(fn, iters=10):
+def device_ms(fn, iters=10, by_kernel=None):
     """Device time of one call of ``fn``: its kernels' device time under
     torch.profiler over ``iters`` calls, per call, as chip_smoke.py takes
-    it (a spin kernel first, so that the trace drops none of them)."""
+    it (a spin kernel first, so that the trace drops none of them).
+    ``by_kernel``, a list, gets each kernel's [name, ms a call, launches a
+    call]."""
     for _ in range(2):
         fn()
 
@@ -45,6 +47,8 @@ def device_ms(fn, iters=10):
         for _ in range(iters):
             fn()
     _, rows = device_profile(run)
+    if by_kernel is not None:
+        by_kernel += [[n[:60], t / iters, c / iters] for n, t, c in rows]
     return sum(r[1] for r in rows) / iters
 
 
@@ -69,9 +73,11 @@ def measure(shape, columns, gen):
         del want, got
     z = torch.complex(re, im)
     n = re.numel()
+    by_kernel = []
     return {"shape": list(shape), "route": "columns" if columns else "rows",
             "launches": launches, "device_ms": device_ms(
-                lambda: wrapper(re, im)),
+                lambda: wrapper(re, im), by_kernel=by_kernel),
+            "by_kernel": by_kernel,
             "torch_fft_device_ms": device_ms(
                 lambda: torch.fft.fft(z, dim=dim)),
             "queued_ms": queued_device_ms(lambda: wrapper(re, im), 10),

@@ -6,16 +6,16 @@ lines of its sources replaced (each edit in the one source that holds
 its text; built into its own library under ``build/fft_variants/``), or
 the tree's library with ``fft_plan``'s routing constants set otherwise
 (no build: the earlier designs' kernels stay in the library, so
-"lines_rows" and "passes_columns" time the routes that the composite
-rows and the cluster columns replaced). Each is timed by
-``tools/fft_routes.py``'s measurement (device ms a call by
-torch.profiler, torch.fft's beside it, the byte bound, the error against
-a float64 oracle) at its shapes. The tree runs first and last, so the
-spread between two runs of one build shows.
+"lines_rows", "passes_columns" and "passes_rows" time the routes that
+the composite rows, the cluster columns and the tile register kernel's
+rows replaced; "bluestein_pow2" and "bluestein_tile_all" route every
+Bluestein N to the power-of-two design with its three pointwise kernels,
+or to the tile register kernel's fused passes, where the tree splits
+them at ``fft_plan.BLUESTEIN_TILE_MIN``).
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/fft_variants.py [--n 10000,5000] [variant ...]
+    python3 tools/fft_variants.py [--n 10000,5000] [--out FILE] [variant ...]
 """
 import ctypes
 import json
@@ -30,17 +30,21 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tools")]
 # rows: the 10000^2 step's, rows on the register kernel (10000, 5000,
 # 3000) and off it (13824), the composites' threshold's neighbours, the
 # short rows that keep mixed_lines_kernel, the long rows of the 2048 x
-# 32768 chain and beyond, Bluestein
+# 32768 chain and beyond (the tile register kernel's), Bluestein (M in
+# two, one and three passes each way)
 ROWS = ((10000, 10000), (64, 10000), (3, 13824), (64, 5000), (64, 3000),
         (64, 2000), (64, 1680), (64, 1000), (200, 200), (64, 360),
-        (2048, 32768), (4, 1 << 20), (8, 10007))
+        (2048, 32768), (64, 32768), (4, 1 << 20), (1, 1 << 25),
+        (1, 5 ** 10), (8, 10007), (16, 4097), (64, 257), (4, 100003),
+        (1, 1000003), (1, 2000003), (1, 4000037), (1, 8000009),
+        (1, (1 << 24) + 1))
 # columns (outer, N, inner), along the middle axis: the 10000^2 step's,
 # the real step's half width, the FFT engine's 1000^2 and its half width
-# (odd inner), another odd inner, and the cluster's other sizes
+# (odd inner), another odd inner, the cluster's other sizes, and Bluestein
 COLUMNS = ((1, 10000, 10000), (1, 10000, 5001), (1, 1000, 1000),
            (1, 1000, 501), (3, 10000, 7), (1, 600, 600), (1, 1680, 1680),
            (1, 2000, 2000), (1, 3000, 3000), (1, 4000, 4000),
-           (1, 5000, 5000), (1, 200, 200))
+           (1, 5000, 5000), (1, 200, 200), (3, 257, 100))
 
 # name -> (what it shows, [(text in the tree, replacement)], fft_plan
 # attributes to set, the shapes it times: "rows", "columns" or "both")
@@ -64,6 +68,27 @@ VARIANTS = {
     "cluster_columns_all": ("the cluster kernel for every column it holds "
                             "(8 and 16 CTAs too)", [],
                             {"COLUMN_CLUSTER_CTAS": 16}, "columns"),
+    # the designs the tile register kernel replaced
+    "passes_rows": ("rows past one CTA as line passes of <= 439 points "
+                    "(mixed_lines_kernel, tiles of 32 lines; 2^25 in four "
+                    "passes), the design the tile register kernel's rows "
+                    "replaced", [], {"TILE_ROWS_MIN": 1 << 62}, "rows"),
+    "bluestein_least_m": ("Bluestein at the least M of the fewest passes "
+                          "(33592320 at 2^24 + 1, its lines on 12 radix "
+                          "passes), not the fewest radix passes within 1% "
+                          "of it", [], {"BLUESTEIN_M_SLACK": 0.0}, "both"),
+    "tile_448": ("the tile register kernel at up to 448 threads (72 "
+                 "registers, lines to 1344 points) instead of 384 (80)",
+                 [("constexpr int kTileThreads = 384;",
+                   "constexpr int kTileThreads = 448;")],
+                 {"TILE_THREADS": 448}, "both"),
+    "bluestein_pow2": ("Bluestein at a power-of-two M (2^26 at 2^24 + 1) on "
+                       "the radix routes or the line passes of <= 439 "
+                       "points, with three pointwise kernels, at every N",
+                       [], {"BLUESTEIN_TILE_MIN": 1 << 62}, "both"),
+    "bluestein_tile_all": ("Bluestein on the tile register kernel, the "
+                           "chirps fused, at every N", [],
+                           {"BLUESTEIN_TILE_MIN": 0}, "both"),
     "wide_tiles": ("every tile stage of the line passes (columns past the "
                    "cluster, long rows) on the composite radices, 256 "
                    "threads a CTA, not radices to 8 or the register kernel",
@@ -89,14 +114,16 @@ def wide_lanes(lines, columns):
 def build_variant(name, edits, plan):
     from repro_torch.kernels import _build, fft_fourstep, fft_plan
     for key in ("COLUMN_CLUSTER_MIN", "ROW_WIDE_MIN", "COLUMN_CLUSTER_CTAS",
-                "plan_array"):
+                "TILE_ROWS_MIN", "TILE_THREADS", "BLUESTEIN_M_SLACK",
+                "BLUESTEIN_TILE_MIN", "plan_array"):
         PLAN_DEFAULTS.setdefault(key, getattr(fft_plan, key))
     for key, default in PLAN_DEFAULTS.items():
         value = plan.get(key, default)
         setattr(fft_plan, key, globals()[value] if isinstance(value, str)
                 else value)
-    for fn in (fft_plan.radix_plan, fft_plan.stages, fft_plan.route):
-        fn.cache_clear()
+    for fn in vars(fft_plan).values():
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
     fft_fourstep._CHIRPS.clear()
     src = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     if not edits:
@@ -134,6 +161,9 @@ def main() -> int:
                     "then the tree again, when none is given)")
     ap.add_argument("--n", default="", help="time only the shapes of these "
                     "comma-separated N")
+    ap.add_argument("--out", default="", help="also append each variant's "
+                    "JSON line to this file (a chip call returns only the "
+                    "end of its output)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fft_variants: no CUDA device", file=sys.stderr)
@@ -152,7 +182,7 @@ def main() -> int:
         res = {"variant": name, "what": what, "ptxas": {
             k: ptxas_lines(_build.build(), k)
             for k in ("mixed_cluster_kernel", "mixed_lines_kernel",
-                      "mixed_row_reg_kernel")}}
+                      "mixed_row_reg_kernel", "mixed_tile_reg_kernel")}}
         if not edits and name != "tree":
             res.pop("ptxas")
         for shapes, columns in ((ROWS, False), (COLUMNS, True)):
@@ -171,10 +201,18 @@ def main() -> int:
                     "torch_fft_device_ms": r["torch_fft_device_ms"],
                     "bound_ms": r["bound_ms"], "launches": r["launches"],
                     "plan": list(route.plan) if route.plan else None,
+                    "lines": list(route.lines or (
+                        route.m_route.lines if route.m_route else ())),
+                    "m": route.m or None, "tile": route.tile,
                     "cluster": route.cluster,
+                    "by_kernel": r["by_kernel"],
                     "err": max(r["rel_err_vs_f64"].values())}
                 torch.cuda.empty_cache()
         print(json.dumps(res), flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            with open(args.out, "a") as f:
+                f.write(json.dumps(res) + "\n")
     return 0
 
 
