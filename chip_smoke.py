@@ -89,8 +89,16 @@ Phases, each printing one JSON line:
      (float32): zamba2's (4, 2048, 32, 32, 80) causal, and whisper's
      cross-attention, q (4, 64, 16, 64) against k/v (4, 1500, 16, 64),
      non-causal; and N = 1 and 2 as rows and columns against the plain Stockham
-     version;
-  4. FFT main path — the chain at 8192 x 8192 (every pass on the
+     version; the bandpass kernel at the complex 8192² plane (0/1 and soft
+     masks) and at the real chains' half-spectrum planes, (8192, 4097)
+     and (10000, 5001): the planes bit for bit, the sums within 1e-5 of
+     float64 and the same bits on a second run;
+  4. FFT main path — first the seeded 8192² and 10000² source fields of
+     steps 0-3, made once on eight threads and written under build/
+     (phase 4, the four ranks of 4b, phase 7 and the transit producers of
+     phase 8 read them instead of each making its own:
+     ``shared_fields``); then the
+     chain at 8192 x 8192 (every pass on the
      four-step kernel's radix route), 128 x 128 (every pass on the
      Stockham kernel), 200 x 200 (the quickstart's grid) and 10000 x
      10000 (mixed-radix rows on the row register kernel, a row a CTA,
@@ -147,7 +155,8 @@ Phases, each printing one JSON line:
      the idle share; ``backend="measure"`` on the 8192² slab and the 512³
      pencil (every variant's time, the winner, the skips); the endcaps'
      torch.fft times; the half-width column shapes (8192 x 4097, 10000 x
-     5001, 8192 x 4100) timed on the four-step kernel; and every FFT
+     5001, 8192 x 4100) timed on the four-step kernel, with each pass's
+     device ms; and every FFT
      shape those paths gave the kernels, against the plain versions,
      torch.fft and float64. The four ranks (4b) also run every r2c
      decomposition against float64, the real chain on the (4,) slab, the
@@ -534,6 +543,14 @@ MEASURE_ONE_CARD = (("slab", (1,), (8192, 8192)),
 # timed on their own: the one-rank half widths and the 8192 half padded
 # to a multiple of 4 (what a four-rank slab splits)
 HALF_COLUMNS = ((8192, 4097), (10000, 5001), (8192, 4100))
+# the seeded source fields (steps 0-3) that phase 4, the four ranks of 4b,
+# phase 7 and the transit producers of phase 8 all make (8192^2), or phases
+# 4 and 7 (10000^2): written once, at the start of phase 4, and read from
+# here (``shared_fields``)
+SHARED_FIELDS = tuple((dims, seed) for dims in ((8192, 8192), (10000, 10000))
+                      for seed in range(4))
+FIELD_CACHE = ROOT / "build" / "chip_smoke_fields"
+FIELD_THREADS = 4
 # a measured winner with a reduced wire is held to the planner's own
 # error budget (plan_dft's wire_tol default)
 WIRE_TOL = 1e-2
@@ -686,6 +703,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 def device_ms(fn, iters: int = 10) -> float:
     """Device-only time of one call of ``fn``: the sum of its kernels'
     device time under torch.profiler over ``iters`` calls, per call."""
+    return device_ms_by_kernel(fn, iters)[0]
+
+
+def device_ms_by_kernel(fn, iters: int = 10):
+    """``device_ms`` and, per kernel, [name, ms a call, launches a call,
+    ms a launch] (the last holds where the trace lost some runs)."""
     import torch
     for _ in range(2):
         fn()
@@ -695,7 +718,8 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
     _, rows = device_profile(run)
-    return sum(r[1] for r in rows) / iters
+    return (sum(r[1] for r in rows) / iters,
+            [[n[:80], t / iters, c / iters, t / c] for n, t, c in rows])
 
 
 def ptxas_report(log: Path) -> dict:
@@ -999,6 +1023,7 @@ def check_bandpass(shape, gen, soft: bool):
     u = torch.rand(shape, generator=gen, device="cuda")
     mask = u if soft else (u > 0.3).float()
     kr, ki, kept, tot = bandpass_filter(re, im, mask)
+    again = bandpass_filter(re, im, mask)
     pr, pi, pkept, ptot = bandpass_ref(re, im, mask)
     p64 = re.double() ** 2 + im.double() ** 2
     kept64, tot64 = float((p64 * mask.double()).sum()), float(p64.sum())
@@ -1009,9 +1034,13 @@ def check_bandpass(shape, gen, soft: bool):
                                               (ki - pi).abs().max())),
            "kept_rel_err": abs(float(kept) - kept64) / kept64,
            "total_rel_err": abs(float(tot) - tot64) / tot64,
-           "plain_kept_rel_err": abs(float(pkept) - kept64) / kept64}
+           "plain_kept_rel_err": abs(float(pkept) - kept64) / kept64,
+           "sums_bitwise_rerun": bool(torch.equal(kept, again[2])
+                                      and torch.equal(tot, again[3]))}
+    del again
     res["max_rel_err"] = max(res["kept_rel_err"], res["total_rel_err"])
-    ok = (res["max_abs_err"] == 0.0 and res["max_rel_err"] < SUM_TOL)
+    ok = (res["max_abs_err"] == 0.0 and res["max_rel_err"] < SUM_TOL
+          and res["sums_bitwise_rerun"])
     if ok:
         res["kernel_ms"] = time_ms(lambda: bandpass_filter(re, im, mask))
         res["device_ms"] = device_ms(lambda: bandpass_filter(re, im, mask))
@@ -1533,6 +1562,69 @@ def reused_fields():
             fields[key] = made(dims, *args, **kw)
         return tuple(a.copy() for a in fields[key])
     adaptors.radiating_field = reuse
+    try:
+        yield
+    finally:
+        adaptors.radiating_field = made
+
+
+def _field_files(dims, seed):
+    stem = FIELD_CACHE / f"{dims[0]}x{dims[1]}_seed{seed}"
+    return (stem.with_name(stem.name + "_noisy.npy"),
+            stem.with_name(stem.name + "_clean.npy"))
+
+
+def make_shared_fields():
+    """The seeded source fields of SHARED_FIELDS, made once on
+    FIELD_THREADS threads and written under FIELD_CACHE for
+    ``shared_fields``. A 10000^2 field holds ~5 GB of float64 temporaries
+    on the host while it is made, so the threads are capped."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from repro_torch.core.insitu.adaptors import radiating_field
+    shutil.rmtree(FIELD_CACHE, ignore_errors=True)
+    FIELD_CACHE.mkdir(parents=True)
+
+    def make(key):
+        dims, seed = key
+        for arr, path in zip(radiating_field(dims, seed=seed),
+                             _field_files(dims, seed)):
+            tmp = path.with_suffix(".tmp.npy")
+            np.save(tmp, arr)
+            os.replace(tmp, path)
+    with ThreadPoolExecutor(FIELD_THREADS) as pool:
+        list(pool.map(make, SHARED_FIELDS))
+
+
+def host_peak_rss_gb() -> float:
+    """This process's peak resident set so far, GB (getrusage)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+@contextlib.contextmanager
+def shared_fields():
+    """While active, ``radiating_field`` reads a seeded field of
+    SHARED_FIELDS from the files ``make_shared_fields`` wrote, where they
+    are there, instead of making it: the parent and the rank processes of
+    phases 4b, 7 and 8 ask for the same four 8192^2 fields, ~11 s of numpy
+    each, and four ranks making them at once share the host's cores;
+    phases 4 and 7 for the same 10000^2 ones. The arrays are the ones the
+    call would make, bit for bit; any other call makes its field as
+    before."""
+    import numpy as np
+    from repro_torch.core.insitu import adaptors
+    made = adaptors.radiating_field
+
+    def read(dims, *args, **kw):
+        key = (tuple(dims), kw.get("seed", 0))
+        files = _field_files(*key)
+        if (args or set(kw) - {"seed"} or key not in SHARED_FIELDS
+                or not all(p.exists() for p in files)):
+            return made(dims, *args, **kw)
+        return tuple(np.load(p) for p in files)
+    adaptors.radiating_field = read
     try:
         yield
     finally:
@@ -3192,6 +3284,11 @@ def ns2d_one_card(mesh, counters):
     out = {"solver": "ns2d", "grid": list(SOLVER_NS2D), "decomp": "slab",
            "real": True, "stepper": "if_rk4"}
     out["allocated_before_bytes"] = fresh_peak()
+    stage, t_stage = {}, [time.perf_counter()]
+
+    def mark(name):   # host seconds of each stage, for the script's time
+        now = time.perf_counter()
+        stage[name], t_stage[0] = now - t_stage[0], now
     t0 = time.perf_counter()
     tg = NS2DSolver(SOLVER_NS2D, mesh, nu=SOLVER_TG["nu"],
                     dt=SOLVER_TG["dt"])
@@ -3207,8 +3304,10 @@ def ns2d_one_card(mesh, counters):
                            "rel_err": abs(tg.energy() - want) / want,
                            "steps": SOLVER_TG["steps"]}
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    mark("taylor_green")
     out.update(solver_metrics(tg, counters, SOLVER_METRIC_REPS["ns2d"],
                               SOLVER_QUEUE_SPIN_S["ns2d"]))
+    mark("metrics")
     del tg
     # inviscid rk4 from a random field; its first steps also through
     # torch.fft from the same state
@@ -3228,6 +3327,7 @@ def ns2d_one_card(mesh, counters):
                            abs(float(np.sum(ek, dtype=np.float64)) - e1) / e1,
                        "steps": SOLVER_INVISCID["steps"]}
     del inv
+    mark("inviscid")
     ref = NS2DSolver(SOLVER_NS2D, mesh, nu=0.0, dt=SOLVER_INVISCID["dt"],
                      stepper="rk4", backend="jnp")
     ref.state = tuple(t.clone() for t in start)
@@ -3239,6 +3339,7 @@ def ns2d_one_card(mesh, counters):
         "rel_err": float(np.max(np.abs(w_kernels - w_ref))
                          / np.max(np.abs(w_ref)))}
     del ref, w_ref, w_kernels
+    mark("torch_fft_backend")
     # restart: 8 steps straight against 4, save, restore into a fresh
     # solver started from another state, 4 more
     ckpt_dir = ROOT / "build" / "chip_smoke_solver_ckpt"
@@ -3267,6 +3368,8 @@ def ns2d_one_card(mesh, counters):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     del a, c
     torch.cuda.empty_cache()
+    mark("restart")
+    out["stage_seconds"] = stage
     return out
 
 
@@ -3281,6 +3384,11 @@ def bq3d_one_card(mesh, counters):
     out = {"solver": "bq3d", "grid": list(SOLVER_BQ3D), "decomp": "slab3d",
            "real": True, "stepper": "if_rk4"}
     out["allocated_before_bytes"] = fresh_peak()
+    stage, t_stage = {}, [time.perf_counter()]
+
+    def mark(name):   # host seconds of each stage, for the script's time
+        now = time.perf_counter()
+        stage[name], t_stage[0] = now - t_stage[0], now
     t0 = time.perf_counter()
     bel = Boussinesq3DSolver(SOLVER_BQ3D, mesh, nu=SOLVER_BELTRAMI["nu"],
                              dt=SOLVER_BELTRAMI["dt"], decomp="slab3d")
@@ -3296,8 +3404,10 @@ def bq3d_one_card(mesh, counters):
                        "rel_err": abs(bel.energy() - want) / want,
                        "steps": SOLVER_BELTRAMI["steps"]}
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    mark("beltrami")
     out.update(solver_metrics(bel, counters, SOLVER_METRIC_REPS["bq3d"],
                               SOLVER_QUEUE_SPIN_S["bq3d"]))
+    mark("metrics")
     del bel
     torch.cuda.empty_cache()
     g = Boussinesq3DSolver(SOLVER_BQ3D, mesh, gravity=1.0, dt=0.01,
@@ -3315,6 +3425,8 @@ def bq3d_one_card(mesh, counters):
                        "steps": SOLVER_BUOYANCY_STEPS}
     del g
     torch.cuda.empty_cache()
+    mark("buoyancy")
+    out["stage_seconds"] = stage
     return out
 
 
@@ -6238,8 +6350,14 @@ def main() -> int:
             + [check_fft_columns("fft_stockham", fft_stockham_columns,
                                  dft.stockham_fft, s, gen)
                for s in ((1, 1 << 20), (2, 1 << 20))])
-    bandpass = [check_bandpass((8192, 8192), gen, soft)
-                for soft in (False, True)]
+    # the complex 8192^2 plane with both masks, then the real chains'
+    # half-spectrum planes (an odd width: 4097, 5001); the monitor's
+    # (4, 32000) plane in phase 16
+    bandpass = [check_bandpass(shape, gen, soft)
+                for shape, soft in (((8192, 8192), False),
+                                    ((8192, 8192), True),
+                                    ((8192, 4097), False),
+                                    ((10000, 5001), False))]
     t0 = time.perf_counter()
     # the qwen3-4b prefill shape first: its row goes in the kernels line;
     # then the same shape in bf16 (its row's bf16 keys)
@@ -6269,8 +6387,17 @@ def main() -> int:
           "closed_form_seconds": closed_form_s,
           "seconds": time.perf_counter() - t_checks})
 
-    # 4. main path
+    # 4. main path; first the seeded fields that later phases and their
+    # rank processes read instead of making (``shared_fields``)
     t_main = time.perf_counter()
+    rss_before = host_peak_rss_gb()
+    make_shared_fields()
+    emit({"phase": "shared_fields", "fields": len(SHARED_FIELDS),
+          "threads": FIELD_THREADS, "host_peak_rss_gb_before": rss_before,
+          "host_peak_rss_gb_after": host_peak_rss_gb(),
+          "seconds": time.perf_counter() - t_main})
+    shared = contextlib.ExitStack()
+    shared.enter_context(shared_fields())
     mesh = make_mesh((1,), ("data",))
     assert mesh.device.type == "cuda"
     out_dir = ROOT / "build" / "chip_smoke"
@@ -6440,8 +6567,15 @@ def main() -> int:
             lambda: fft_fourstep_columns(re.view(v3), im.view(v3)), 10)
         r["library_busy_ms"] = queued_device_ms(
             lambda: torch.fft.fft(z, dim=-2), 10)
+        # each pass's device ms a call (the radix route's two passes at
+        # 8192, the wide tiles' two at 10000)
+        _, r["passes_device_ms"] = device_ms_by_kernel(
+            lambda: fft_fourstep_columns(re.view(v3), im.view(v3)))
         emit({"phase": "half_width_columns", "shape": r["shape"],
+              "device_ms": r["device_ms"],
+              "passes_device_ms": r["passes_device_ms"],
               "busy_ms": r["busy_ms"],
+              "library_device_ms": r["library_device_ms"],
               "library_busy_ms": r["library_busy_ms"],
               "bound_ms": r["bound_ms"]})
         del re, im, z
@@ -6737,6 +6871,8 @@ def main() -> int:
             "engine_launches": {k: engine[k]["launches"][name]
                                 for k in ("sequential", "batched")}}
 
+    shared.close()
+    shutil.rmtree(FIELD_CACHE, ignore_errors=True)
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     kernels = [
@@ -6822,6 +6958,10 @@ def main() -> int:
         dict(row("bandpass_filter", csrc + "bandpass.cu",
                  "src/repro/kernels/bandpass.py:53", bandpass[0]),
              device_ms=bandpass[0]["device_ms"],
+             half_spectrum_planes=[{k: r[k] for k in (
+                 "shape", "max_abs_err", "max_rel_err", "kernel_ms",
+                 "device_ms", "plain_ms", "bound_ms", "bound_by")}
+                 for r in bandpass[2:]],
              monitor_plane={k: entry["monitor_plane"][k] for k in (
                  "shape", "max_abs_err", "max_rel_err", "kernel_ms",
                  "device_ms", "busy_ms", "plain_ms", "bound_ms",
@@ -6940,8 +7080,9 @@ if __name__ == "__main__":
                                                          phases=(14,)),
                   }[args["--job"]]
         try:
-            worker(int(args["--rank"]), int(args["--world"]),
-                   args["--store"])
+            with shared_fields():
+                worker(int(args["--rank"]), int(args["--world"]),
+                       args["--store"])
         except BaseException:
             import traceback
             traceback.print_exc()

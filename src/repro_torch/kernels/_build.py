@@ -48,7 +48,8 @@ _SIGNATURES = {
                                 _P),
     "repro_fft_stockham": (_P, _P, _P, _P, _I, _I, _I, _P),
     "repro_fft_stockham_axis": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
-    "repro_bandpass": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P),
+    "repro_bandpass": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "repro_bandpass_ctas_per_sm": (_I,),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               *(_L,) * 12, _I, _F, _F, _I, _P),
 }
@@ -159,17 +160,8 @@ def check_planes(kernel: str, *tensors, ndim: int = 2) -> None:
         raise ValueError(f"{kernel}: empty planes {tuple(first.shape)}")
 
 
-def check_block(kernel: str, block: int) -> None:
+def check_block(kernel: str, block: int, name: str = "block_b") -> None:
     """The reference's TPU block hint must be a positive int."""
     if not isinstance(block, int) or block < 1:
-        raise ValueError(f"{kernel}: block_b must be a positive int, got "
+        raise ValueError(f"{kernel}: {name} must be a positive int, got "
                          f"{block!r}")
-
-
-def rows_per_cta(block: int, rows: int, fit: int,
-                 device: torch.device) -> int:
-    """Rows one CTA takes: at most ``block`` (the reference's row block)
-    and ``fit`` (what its shared memory holds), and few enough that the
-    grid fills the card about eight CTAs deep."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(block, fit, rows // (8 * sms)))

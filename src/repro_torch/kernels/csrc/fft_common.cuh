@@ -14,7 +14,8 @@
 //     share a warp and its exchanges need only __syncwarp;
 //   * columns: 32 neighbouring columns of an (outer, n, inner) tensor a
 //     CTA, lane = column, so every global access of a warp is one 128-byte
-//     line per plane and every shared access is free of bank conflicts.
+//     line per plane where the columns' rows start on one (inner a multiple
+//     of 32) and every shared access is free of bank conflicts.
 // Pass p (radix R, Ns = product of the earlier radices) is the Stockham
 // step: butterfly j reads points j + r*n/R, twiddles them by
 // exp(sign*2*pi*i*r*(j mod Ns)/(Ns*R)), does an R-point DFT in registers
@@ -42,6 +43,10 @@ struct Geom {
   long long lines;     // rows: row count; columns: columns per outer index
   int o_split;         // columns: outer o -> (o / o_split, o % o_split)
   long long in_hi, in_lo, in_ps, out_hi, out_lo, out_ps;  // element strides
+  // columns, in_cdiv > 0: column c reads from (c / in_cdiv) * in_cmul +
+  // c % in_cdiv instead of c (the four-step's second column pass walks its
+  // output flat, (k2, c) as one index, pow2_axis)
+  long long in_cdiv, in_cmul;
   int tw_div;          // > 0: output k of column c times root((c/tw_div)*k)
   int mt, log2mt;      // roots in the twiddle table (power of two >= 4)
   float sign, scale;   // -1 forward / +1 inverse; 1 or 1/N on the output
@@ -519,7 +524,9 @@ fft_lines_kernel(const float* __restrict__ re, const float* __restrict__ im,
     ln.l = t % kColW;
     ln.g = t / kColW;
     ln.valid = c < g.lines;
-    in_base = oh * g.in_hi + ol * g.in_lo + c;
+    in_base = oh * g.in_hi + ol * g.in_lo +
+              (g.in_cdiv > 0 ? (c / g.in_cdiv) * g.in_cmul + c % g.in_cdiv
+                             : c);
     out_base = oh * g.out_hi + ol * g.out_lo + c;
     if (g.tw_div > 0) ln.coef = (int)(c / g.tw_div);
     plane = kColW * S::N;

@@ -494,7 +494,17 @@ cudaError_t mixed_axis(const Plan& p, int k, const float* sre,
 }
 
 // Power-of-two columns on the radix kernels: one pass to 256 points,
-// else two (n1, n2 <= 256) through `work`.
+// else two (n1, n2 <= 256) through `work`, Y[o, k2, j, c]. A warp's access
+// covers whole 32-byte sectors where its 32 columns are 32 consecutive
+// floats from a sector's start; at an odd inner a row of `inner` floats
+// starts mid-sector, and on an H100 a store off the sectors costs far more
+// than a load (PERF.md: 0.28 against 0.19 ms at (8192, 4097)), so both
+// passes walk flat indices of two axes whose stores start on a 128-byte
+// line. Pass 1's lines are its input's flat (j, c), n1*inner of them,
+// on a line when that is a multiple of 32 (n1 >= 32). Pass 2's lines are
+// its output's flat (k2, c), n2*inner of them (a multiple of 32: n2 >=
+// 32), so no tile is partial and only its loads (rows of `inner` floats
+// of Y) are off the line.
 cudaError_t pow2_axis(const float* re, const float* im, float* ore,
                       float* oim, float* wre, float* wim, long long outer,
                       int n1, int n2, long long inner, int inverse,
@@ -518,21 +528,21 @@ cudaError_t pow2_axis(const float* re, const float* im, float* ore,
   cudaError_t err =
       repro_fft::fft_cols(re, im, wre, wim, ilog2(n2), g1, outer, s);
   if (err != cudaSuccess) return err;
-  // pass 2: Y[o, k2, j, c] -> X[o, k1*n2 + k2, c], lines (o, k2, c), n1
-  // points at stride inner in, n2*inner out
+  // pass 2: Y[o, k2, j, c] -> X[o, k1*n2 + k2, c], n1 points a line
   Geom g2 = {};
-  g2.lines = inner;
-  g2.o_split = n2;
   g2.in_hi = g2.out_hi = n * inner;
-  g2.in_lo = n1 * inner;
-  g2.out_lo = inner;
-  g2.in_ps = inner;
-  g2.out_ps = n2 * inner;
   set_table(g2, n1);
   g2.sign = g1.sign;
   g2.scale = inverse ? 1.0f / (float)n : 1.0f;
-  return repro_fft::fft_cols(wre, wim, ore, oim, ilog2(n1), g2, outer * n2,
-                             s);
+  g2.o_split = 1;
+  g2.in_ps = inner;
+  g2.out_ps = n2 * inner;
+  // lines l = k2*inner + c of each o: X at o*n*inner + k1*n2*inner + l,
+  // Y at o*n*inner + k2*n1*inner + j*inner + c
+  g2.lines = n2 * inner;
+  g2.in_cdiv = inner;
+  g2.in_cmul = n1 * inner;
+  return repro_fft::fft_cols(wre, wim, ore, oim, ilog2(n1), g2, outer, s);
 }
 
 unsigned pointwise_blocks(long long total) {

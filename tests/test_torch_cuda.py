@@ -476,6 +476,55 @@ def test_bandpass_kernel_matches_plain(gen, shape):
     assert torch.equal(again[2], kept) and torch.equal(again[3], tot)
 
 
+# The flat pass at the real chains' half-spectrum planes, the monitor's
+# plane, planes whose size ends mid-sector, and a view whose base is not
+# 16-byte aligned (scalar units): planes bit for bit, sums within 1e-5 of
+# float64 and the same bits on a second run.
+@pytest.mark.parametrize("shape,offset", [
+    ((8192, 4097), 0), ((10000, 5001), 0), ((4, 32000), 0), ((7, 33), 0),
+    ((1, 1), 0), ((8192, 4097), 1), ((7, 33), 3)])
+def test_bandpass_kernel_odd_widths_match_plain(gen, shape, offset):
+    n = shape[0] * shape[1]
+
+    def plane(flat):
+        return flat[offset:].view(shape)
+    re = plane(torch.randn(n + offset, generator=gen, device="cuda"))
+    im = plane(torch.randn(n + offset, generator=gen, device="cuda"))
+    mask = plane(torch.rand(n + offset, generator=gen, device="cuda"))
+    assert (re.data_ptr() % 16 == 0) == (offset == 0)
+    before = bandpass.bandpass_filter.launches
+    r, i, kept, tot = bandpass.bandpass_filter(re, im, mask)
+    assert bandpass.bandpass_filter.launches == before + 1
+    pr, pi, _, _ = ref.bandpass_ref(re, im, mask)
+    assert torch.equal(r, pr) and torch.equal(i, pi)
+    p = re.double() ** 2 + im.double() ** 2
+    assert abs(float(kept) / float((p * mask).sum()) - 1) < 1e-5
+    assert abs(float(tot) / float(p.sum()) - 1) < 1e-5
+    # block_rows is the reference's hint: checked, and it changes nothing
+    again = bandpass.bandpass_filter(re, im, mask, block_rows=1)
+    assert torch.equal(again[2], kept) and torch.equal(again[3], tot)
+    assert torch.equal(again[0], r) and torch.equal(again[1], i)
+    with pytest.raises(ValueError, match="block_rows"):
+        bandpass.bandpass_filter(re, im, mask, block_rows=0)
+
+
+# The radix column route at odd and even inner: two passes through the
+# scratch buffer (column launches) past 256 points, one row launch at
+# inner 1; within 5e-5 of max |X| of float64 both ways.
+@pytest.mark.parametrize("n", [512, 8192])
+@pytest.mark.parametrize("inner", [1, 7, 33, 257, 4097, 4100, 4104, 8192])
+def test_radix_columns_at_any_inner_match_float64(gen, n, inner):
+    outer = max(1, (1 << 22) // (n * inner))
+    re, im = _planes(gen, (outer, n, inner))
+    fs = fft_fourstep.fft_fourstep
+    for inverse in (False, True):
+        before, cols = fs.launches, fs.column_launches
+        got = fft_fourstep.fft_fourstep_columns(re, im, inverse=inverse)
+        assert fs.launches - before == (1 if inner == 1 else 2)
+        assert fs.column_launches - cols == (1 if inner == 1 else 2)
+        assert _rel64(got, _oracle(re, im, inverse, dim=1)) < 5e-5
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     re, im = _planes(gen, (8, 64))
     with pytest.raises(ValueError, match="contiguous"):
